@@ -1,0 +1,102 @@
+"""Algorithm protocol (port of ``semireward_tpu/algorithms/base.py``).
+
+An algorithm maps a :class:`StepCtx` to a :class:`LossOut`; the train step
+(``core/step.py``) backpropagates ``total_loss``, steps the optimizer and
+keeps the returned algorithm state.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from semireward_tpu_torch.algorithms import common as C
+from semireward_tpu_torch.core.losses import (ce_loss, consistency_loss,
+                                              gen_ulb_targets)
+
+
+class StepCtx(NamedTuple):
+    model: Any                 # callable: model(x, train=, generator=)
+    batch: Dict[str, torch.Tensor]
+    algo_state: Any
+    generator: Optional[torch.Generator]
+    step: int                  # host int, == reference `self.it`
+    sr_state: Any = None       # SemiReward state (SR variants only)
+
+
+class LossOut(NamedTuple):
+    total_loss: torch.Tensor
+    sup_loss: torch.Tensor
+    unsup_loss: torch.Tensor
+    unsup_weight: float
+    mask: Optional[torch.Tensor]
+    pseudo_label: Optional[torch.Tensor]
+    fwd: Optional[C.ForwardOut]
+    new_algo_state: Any
+    metrics: Dict[str, torch.Tensor]
+
+
+class Algorithm:
+    """Base. Subclasses override ``init_state`` and ``loss``."""
+
+    NAME = "base"
+    DEFAULTS: Dict[str, Any] = {}
+    BATCH_KEYS: Tuple[str, ...] = ("x_lb", "y_lb", "idx_ulb", "x_ulb_w",
+                                   "x_ulb_s")
+    WEAK_ULB_S: bool = False
+
+    def __init__(self, cfg, data_info: Optional[Dict[str, Any]] = None,
+                 device=None):
+        self.cfg = cfg
+        self.data_info = data_info or {}
+        self.device = device
+
+    def ce_loss(self, logits, targets, reduction="none"):
+        return ce_loss(logits, targets, reduction)
+
+    def consistency_loss(self, logits, targets, name="ce", mask=None,
+                         mask2=None):
+        return consistency_loss(logits, targets, name, mask, mask2)
+
+    def compute_prob(self, logits):
+        return C.compute_prob(logits)
+
+    def gen_ulb_targets(self, logits, use_hard_label=True, T=1.0,
+                        softmax=True, label_smoothing=0.0):
+        return gen_ulb_targets(logits, use_hard_label, T, softmax,
+                               label_smoothing)
+
+    def fixed_mask(self, probs):
+        return C.fixed_threshold_mask(probs, self.cfg.p_cutoff)
+
+    def maybe_dist_align(self, probs_x_ulb, probs_x_lb=None):
+        return probs_x_ulb
+
+    def init_state(self):
+        return ()
+
+    def loss(self, ctx: StepCtx) -> LossOut:
+        raise NotImplementedError
+
+    def forward(self, ctx: StepCtx, stop_grad_w: bool = True) -> C.ForwardOut:
+        # the JAX package's auto_split_forward (weak view forward-only) was
+        # chosen by a TPU measurement; the port takes the exact concat path
+        # until an H100 A/B decides
+        if self.cfg.extra.get("auto_split_forward", False):
+            raise NotImplementedError(
+                "auto_split_forward is not ported yet (ROADMAP: port A/Bs)")
+        b = ctx.batch
+        return C.ssl_forward(ctx.model, b["x_lb"], b["x_ulb_w"], b["x_ulb_s"],
+                             ctx.generator, train=True,
+                             use_cat=self.cfg.use_cat, stop_grad_w=stop_grad_w)
+
+    def pack(self, *, sup_loss, unsup_loss, fwd, new_algo_state, mask,
+             pseudo_label) -> LossOut:
+        lam = self.cfg.ulb_loss_ratio
+        total = sup_loss + lam * unsup_loss
+        m = {"sup_loss": sup_loss, "unsup_loss": unsup_loss,
+             "total_loss": total, "util_ratio": mask.float().mean()}
+        return LossOut(total_loss=total, sup_loss=sup_loss,
+                       unsup_loss=unsup_loss, unsup_weight=lam, mask=mask,
+                       pseudo_label=pseudo_label, fwd=fwd,
+                       new_algo_state=new_algo_state, metrics=m)

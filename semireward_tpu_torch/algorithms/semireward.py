@@ -1,0 +1,284 @@
+"""SemiReward (port of ``semireward_tpu/algorithms/semireward.py``).
+
+One wrapper, :class:`SemiRewardWrapper`, composes the reward model with a
+base algorithm; ``srfixmatch`` and ``srflexmatch`` are registered here.
+
+- The ``Rewarder`` keeps the reference's batch-dim "cross-attention": one
+  softmax over the ``[2B, 128]`` concat of projected features and label
+  embeddings, summed to a single vector added to every label embedding.
+- Two stages keyed on ``start_timing``, with the JAX package's two
+  conditions as written: the loss applies the reward filter
+  (``mask2 = reward >= mean``) for ``step > start_timing``; ``sr_update``
+  trains the rewarder on labeled data every step before ``start_timing`` and,
+  from ``step >= start_timing`` on, tracks the max reward and trains on the
+  unlabeled batch every ``N_k`` steps once ``step > start_timing``.
+- The generator's parameters never move (its output is cast to int).
+
+Not ported yet (ROADMAP): ``sr_reforward > 1``, ``sr_per_sample`` and the
+stateful (FreeMatch/SoftMatch) remask loop.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from semireward_tpu_torch.algorithms import common as C
+from semireward_tpu_torch.algorithms.base import Algorithm, LossOut, StepCtx
+from semireward_tpu_torch.core.losses import consistency_loss
+from semireward_tpu_torch.core.optim import build_adam
+from semireward_tpu_torch.core.train_state import SRState
+from semireward_tpu_torch.models.initializers import init_module_
+from semireward_tpu_torch.registry import ALGORITHMS
+
+
+def label_dim(x: int, default_dim: int = 100) -> int:
+    return int(max(default_dim, x))
+
+
+def _one_hot(x, n: int):
+    """jax.nn.one_hot: an index outside [0, n) gives an all-zero row."""
+    return (x.long().unsqueeze(-1) == torch.arange(n, device=x.device)).float()
+
+
+def cosine_similarity_n(x, y):
+    """Cosine similarity mapped to [0, 1], shape [B, 1]."""
+    eps = 1e-8
+    num = (x * y).sum(-1)
+    den = (torch.linalg.vector_norm(x, dim=-1).clamp(min=eps)
+           * torch.linalg.vector_norm(y, dim=-1).clamp(min=eps))
+    return ((num / den + 1.0) / 2.0).reshape(x.shape[0], 1)
+
+
+class Generator(nn.Module):
+    """Fake-label generator MLP; the output passes a final ReLU."""
+
+    def __init__(self, feature_dim: int = 384):
+        super().__init__()
+        dims = (feature_dim, 256, 128, 64, 1)
+        for i in range(4):
+            self.add_module(f"fc{i}", nn.Linear(dims[i], dims[i + 1]))
+
+    def forward(self, x):
+        x = x.float()
+        for i in range(4):
+            x = getattr(self, f"fc{i}")(x)
+            if i < 3:
+                x = F.relu(x)
+        return F.relu(x)
+
+
+class Rewarder(nn.Module):
+    """Pseudo-label reward model, the reference's faithful form."""
+
+    def __init__(self, label_dim: int, label_embedding_dim: int = 128,
+                 feature_dim: int = 384):
+        super().__init__()
+        self.label_dim = label_dim
+        self.feature_fc = nn.Linear(feature_dim, 128)
+        self.feature_norm = nn.LayerNorm(128, eps=1e-5)
+        self.label_embedding = nn.Embedding(label_dim, label_embedding_dim)
+        self.label_norm = nn.LayerNorm(label_embedding_dim, eps=1e-5)
+        self.cross_attention_fc = nn.Linear(128, 1)
+        self.mlp_fc1 = nn.Linear(128, 256)
+        self.mlp_fc2 = nn.Linear(256, 128)
+        self.ffn_fc1 = nn.Linear(128, 64)
+        self.ffn_fc2 = nn.Linear(64, 1)
+
+    def forward(self, features, label_indices):
+        labels = label_indices.long().clamp(0, self.label_dim - 1)
+        f = self.feature_norm(self.feature_fc(features.float()))
+        emb = self.label_norm(self.label_embedding(labels))
+        cat = torch.cat([f, emb], dim=0)                          # [2B, 128]
+        w = F.softmax(self.cross_attention_fc(cat), dim=0)        # [2B, 1]
+        h = (w * cat).sum(0, keepdim=True) + emb                  # [B, 128]
+        h = self.mlp_fc2(F.relu(self.mlp_fc1(h)))
+        h = F.relu(self.ffn_fc1(h))
+        return torch.sigmoid(self.ffn_fc2(h))                     # [B, 1]
+
+
+SR_DEFAULTS = {"start_timing": 20000, "feature_dim": 384, "sr_lr": 0.0005,
+               "N_k": 10, "sr_ema": True, "sr_ema_m": 0.999}
+
+
+def _check_sr_mode(cfg):
+    if cfg.sr_per_sample:
+        raise NotImplementedError(
+            "sr_per_sample is not ported yet (ROADMAP: sr_reforward / "
+            "sr_per_sample)")
+    if int(cfg.extra.get("sr_reforward", 1)) > 1:
+        raise NotImplementedError(
+            "sr_reforward > 1 is not ported yet (ROADMAP: sr_reforward / "
+            "sr_per_sample)")
+
+
+def _build(module_cls, device, generator, *args):
+    with torch.device("meta"):
+        m = module_cls(*args)
+    return init_module_(m.to_empty(device=device or "cpu"), generator)
+
+
+def init_sr_state(cfg, device=None, generator=None) -> SRState:
+    _check_sr_mode(cfg)
+    rewarder = _build(Rewarder, device, generator,
+                      label_dim(cfg.num_classes), 128, cfg.feature_dim)
+    gen = _build(Generator, device, generator, cfg.feature_dim)
+    ema = ([p.detach().clone() for p in rewarder.parameters()]
+           if cfg.sr_ema else None)
+    max_reward = torch.full((), -float("inf"), device=device)
+    return SRState(rewarder=rewarder,
+                   rewarder_opt=build_adam(list(rewarder.parameters()),
+                                           cfg.sr_lr),
+                   rewarder_ema=ema, generator=gen, max_reward=max_reward)
+
+
+@torch.no_grad()
+def score_pseudo_labels(sr_state: SRState, feats, labels):
+    """(rewards [B, 1], keep_mask [B]) with the ``reward >= mean`` filter."""
+    reward = sr_state.rewarder(feats, labels)
+    keep = (reward >= reward.mean()).squeeze(-1).float()
+    return reward, keep
+
+
+def sr_decay(step: int, num_train_iter: int, max_sampling_time: int = 8) -> int:
+    """int(max(max_sampling, 1 + T/it)), in float32 like the JAX version."""
+    it = np.float32(max(step, 1))
+    return max(max_sampling_time,
+               int(np.float32(1.0) + np.float32(num_train_iter) / it))
+
+
+class SemiRewardWrapper(Algorithm):
+    BASE_CLS: type = None
+    DEFAULTS: Dict[str, Any] = {}
+    HAS_SR = True
+
+    def __init__(self, cfg, data_info=None, device=None):
+        super().__init__(cfg, data_info, device)
+        _check_sr_mode(cfg)
+        self.base = self.BASE_CLS(cfg, data_info, device)
+        if self.base.NAME not in ("fixmatch", "flexmatch"):
+            raise NotImplementedError(
+                f"SemiReward over {self.base.NAME} (and its remask loop) is "
+                f"not ported yet (ROADMAP: the other algorithms)")
+        self.BATCH_KEYS = tuple(dict.fromkeys(self.base.BATCH_KEYS
+                                              + ("idx_ulb",)))
+
+    def init_state(self):
+        return self.base.init_state()
+
+    def init_sr(self, generator=None) -> SRState:
+        return init_sr_state(self.cfg, self.device, generator)
+
+    def _remask(self, algo_state, probs_w, idx_ulb):
+        """The base algorithm's masking hook, re-applied as the reference's
+        data generator does."""
+        cfg = self.cfg
+        if self.base.NAME == "flexmatch":
+            return C.flex_mask(algo_state, probs_w, idx_ulb, cfg.p_cutoff,
+                               cfg.thresh_warmup)
+        return algo_state, C.fixed_threshold_mask(probs_w, cfg.p_cutoff)
+
+    @staticmethod
+    def _int_labels(pl):
+        return pl if not pl.is_floating_point() else pl.argmax(-1)
+
+    def loss(self, ctx: StepCtx) -> LossOut:
+        cfg = self.cfg
+        base_out = self.base.loss(ctx)
+        if ctx.step <= cfg.start_timing:
+            ones = torch.ones((), device=base_out.total_loss.device)
+            metrics = dict(base_out.metrics, sr_keep_ratio=ones)
+            return base_out._replace(metrics=metrics)
+        fwd = base_out.fwd
+        probs_w = C.compute_prob(fwd.logits_x_ulb_w)
+        pl = base_out.pseudo_label
+        algo_state, mask_dg = self._remask(base_out.new_algo_state, probs_w,
+                                           ctx.batch.get("idx_ulb"))
+        with torch.no_grad():
+            reward = ctx.sr_state.rewarder(fwd.feats_x_ulb_w.detach(),
+                                           self._int_labels(pl))
+        mask2 = (reward >= reward.mean()).squeeze(-1).float()
+        unsup = consistency_loss(fwd.logits_x_ulb_s, pl, "ce", mask=mask_dg,
+                                 mask2=mask2)
+        total = (base_out.total_loss
+                 + base_out.unsup_weight * (unsup - base_out.unsup_loss))
+        metrics = dict(base_out.metrics, total_loss=total, unsup_loss=unsup,
+                       sr_keep_ratio=mask2.mean())
+        return base_out._replace(total_loss=total, unsup_loss=unsup,
+                                 new_algo_state=algo_state, metrics=metrics)
+
+    # ---- SR online training (after the model's optimizer step) -----------
+    def _train_rewarder(self, sr: SRState, feats, labels, target) -> None:
+        params = list(sr.rewarder.parameters())
+        with torch.enable_grad():
+            reward = sr.rewarder(feats, labels)
+            loss = (torch.mean((reward - 1.0) ** 2)
+                    + torch.mean((reward - target) ** 2))
+            grads = torch.autograd.grad(loss, params)
+        sr.rewarder_opt.step(grads)
+
+    @torch.no_grad()
+    def _gen_labels(self, sr: SRState, feats):
+        ldim = label_dim(self.cfg.num_classes)
+        g = sr.generator(feats)
+        return g.to(torch.int32).clamp(0, ldim - 1).squeeze(-1).long()
+
+    @torch.no_grad()
+    def sr_update(self, sr: SRState, out: LossOut, batch, step: int,
+                  generator=None) -> Dict[str, torch.Tensor]:
+        """Update ``sr`` in place for host step ``step``."""
+        cfg = self.cfg
+        n_cls = cfg.num_classes
+        feats_lb = out.fwd.feats_x_lb.detach().float()
+        feats_u = out.fwd.feats_x_ulb_w.detach().float()
+        pl_int = self._int_labels(out.pseudo_label).long()
+        y_lb = batch["y_lb"].long()
+        if step > 0 and step < cfg.start_timing:
+            glab = self._gen_labels(sr, feats_lb)
+            target = cosine_similarity_n(
+                _one_hot(glab.clamp(0, n_cls - 1), n_cls),
+                _one_hot(y_lb.reshape(glab.shape).clamp(0, n_cls - 1), n_cls))
+            self._train_rewarder(sr, feats_lb, glab, target)
+        elif step > 0:
+            reward_mean = sr.rewarder(feats_u, pl_int).mean()
+            new_max = torch.maximum(sr.max_reward, reward_mean)
+            if step % cfg.N_k == 0 and step > cfg.start_timing:
+                glab = self._gen_labels(sr, feats_u)
+                target = cosine_similarity_n(
+                    _one_hot(glab, n_cls),
+                    _one_hot(pl_int.clamp(0, n_cls - 1), n_cls))
+                self._train_rewarder(sr, feats_u, glab, target)
+                sr.max_reward = torch.full_like(new_max, -float("inf"))
+            else:
+                sr.max_reward = new_max
+        if cfg.sr_ema and sr.rewarder_ema is not None:
+            # one EMA update per rewarder forward, folded into decay**k
+            k = (int(step > 0) + int(step >= cfg.start_timing)
+                 + (sr_decay(step, cfg.num_train_iter, cfg.sr_max_sampling)
+                    if step > cfg.start_timing else 0)
+                 + int(step % cfg.N_k == 0 and step > cfg.start_timing))
+            dk = float(np.float32(cfg.sr_ema_m) ** np.float32(k))
+            params = list(sr.rewarder.parameters())
+            torch._foreach_mul_(sr.rewarder_ema, dk)
+            torch._foreach_add_(sr.rewarder_ema, params, alpha=1.0 - dk)
+        return {"max_reward": sr.max_reward}
+
+
+def _make_sr_variant(name: str, base_name: str):
+    base_cls = ALGORITHMS.get(base_name)
+
+    class _SR(SemiRewardWrapper):
+        NAME = name
+        BASE_CLS = base_cls
+        DEFAULTS = {**getattr(base_cls, "DEFAULTS", {}), **SR_DEFAULTS}
+
+    _SR.__name__ = f"SR_{base_cls.__name__}"
+    ALGORITHMS.register(_SR, name=name)
+    return _SR
+
+
+SRFixMatch = _make_sr_variant("srfixmatch", "fixmatch")
+SRFlexMatch = _make_sr_variant("srflexmatch", "flexmatch")

@@ -1,0 +1,210 @@
+"""Training loop (port of the CV branch of
+``semireward_tpu/core/trainer.py``): build data, model, algorithm and state
+from a ``Config``, run the step loop with the log and eval cadence, and
+evaluate / predict with the EMA weights.
+
+Per step the host gathers a raw uint8 batch (seeded samplers), copies it to
+the device, builds the weak/strong views there, and runs the train step.
+Metrics stay on the device until a log boundary. Not ported yet (ROADMAP):
+checkpoint save/resume, the metrics sink, prefetch, pretrained grafting.
+"""
+from __future__ import annotations
+
+import logging
+import math
+import os
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from semireward_tpu_torch import resolve_device
+from semireward_tpu_torch import algorithms as _algorithms  # noqa: F401
+from semireward_tpu_torch import models as _models  # noqa: F401
+from semireward_tpu_torch.config import Config
+from semireward_tpu_torch.core import metrics as M
+from semireward_tpu_torch.core.optim import cosine_schedule_with_warmup
+from semireward_tpu_torch.core.step import init_train_state, make_train_step
+from semireward_tpu_torch.data.augment import (AugmentSpec, augment_views,
+                                               normalize)
+from semireward_tpu_torch.data.datasets import SSLDataBundle, get_dataset
+from semireward_tpu_torch.data.loader import SSLLoader, eval_batches
+from semireward_tpu_torch.registry import ALGORITHMS, NETS
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+class Trainer:
+    """``Trainer(cfg).train()`` is the CLI path; ``evaluate``/``predict``
+    score the EMA weights. Runs on CUDA unless ``device='cpu'``."""
+
+    def __init__(self, cfg: Config, bundle: Optional[SSLDataBundle] = None,
+                 device=None, logger: Optional[logging.Logger] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.logger = logger or logging.getLogger(
+            f"semireward_tpu_torch.{cfg.save_name}")
+        if cfg.resume and cfg.load_path and os.path.exists(
+                cfg.load_path.replace(".pth", ".ckpt")):
+            _not_ported("resume from a checkpoint", "checkpoint/resume")
+        if cfg.use_pretrain:
+            _not_ported("grafting released pretrained weights",
+                        "pretrained weights")
+        if cfg.imb_algorithm:
+            _not_ported("imbalanced SSL", "imb")
+        if cfg.extra.get("use_flash_attention"):
+            _not_ported("flash attention", "K2")
+        if cfg.gradient_checkpointing:
+            _not_ported("gradient checkpointing", "remat")
+
+        self.bundle = bundle if bundle is not None else get_dataset(
+            cfg, cfg.algorithm)
+        data_info = {"ulb_dest_len": self.bundle.ulb_dest_len,
+                     "lb_dest_len": self.bundle.lb_dest_len}
+
+        builder = NETS.get(cfg.net)
+        fused = cfg.extra.get("use_fused_mlp")
+        net_kw = {"use_fused_mlp": (cfg.net.startswith("vit_")
+                                    if fused is None else bool(fused))}
+        net_kw.update(cfg.extra.get("net_kwargs", {}))
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
+        self.model = builder(num_classes=cfg.num_classes,
+                             dtype=_DTYPES[cfg.compute_dtype],
+                             device=self.device, generator=self.generator,
+                             img_size=cfg.img_size, **net_kw)
+        self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
+        no_color = bool(cfg.extra.get(
+            "randaug_no_color", cfg.dataset in ("tissuemnist", "medmnist")))
+        self.aug_spec = AugmentSpec(
+            crop_size=cfg.img_size,
+            crop_pad=int(cfg.img_size * (1 - cfg.crop_ratio)),
+            mean=self.bundle.mean, std=self.bundle.std, randaug_n=3,
+            exclude_color=no_color)
+        self.state = init_train_state(cfg, self.alg, self.model, builder,
+                                      self.generator)
+        self._step = make_train_step(cfg, self.alg)
+        self._schedule = cosine_schedule_with_warmup(
+            cfg.lr, cfg.num_train_iter, cfg.num_warmup_iter)
+        self.best_metric = -math.inf
+        self.best_it = 0
+        self.log_history = []  # one dict per log boundary
+
+    # ------------------------------------------------------------------
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _make_loader(self) -> SSLLoader:
+        cfg = self.cfg
+        return SSLLoader(self.bundle, cfg.batch_size, cfg.ulb_batch_size,
+                         seed=cfg.seed, sampler=cfg.train_sampler)
+
+    def make_batch(self, raw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Raw host batch -> device views + labels/indices the algorithm
+        consumes."""
+        x_lb = self._to_device(raw["x_lb"])
+        x_ulb = self._to_device(raw["x_ulb"])
+        batch = augment_views(
+            x_lb, x_ulb, self.aug_spec,
+            [k for k in self.alg.BATCH_KEYS if k.startswith("x_")],
+            self.generator, weak_ulb_s=getattr(self.alg, "WEAK_ULB_S", False))
+        for k in ("y_lb", "idx_lb", "idx_ulb"):
+            if k in raw:
+                batch[k] = self._to_device(raw[k].astype(np.int64))
+        return batch
+
+    def train(self, num_iters: Optional[int] = None,
+              eval_hook: Optional[Callable] = None,
+              step_hook: Optional[Callable] = None) -> Dict[str, float]:
+        """Run steps ``state.step .. num_iters``. ``step_hook(step, metrics)``
+        sees each step's device metrics (no host sync)."""
+        cfg = self.cfg
+        num_iters = num_iters or cfg.num_train_iter
+        loader = self._make_loader()
+        for _ in range(self.state.step):  # keep the index stream aligned
+            next(loader)
+        log = self.logger.info
+        results: Dict[str, float] = {}
+        t0 = time.time()
+        window_start = self.state.step
+        for it in range(self.state.step, num_iters):
+            metrics = self._step(self.state, self.make_batch(next(loader)),
+                                 self.generator)
+            step_now = it + 1
+            if step_hook is not None:
+                step_hook(step_now, metrics)
+            if step_now % cfg.num_log_iter == 0:
+                fetched = {k: float(v) for k, v in metrics.items()
+                           if v.ndim == 0}
+                fetched = {k: v for k, v in fetched.items()
+                           if math.isfinite(v) or math.isnan(v)}
+                dt = time.time() - t0
+                n = step_now - window_start
+                sps = n / dt if n else 0.0
+                lr = self._schedule(step_now)
+                log(f"it {step_now}/{num_iters} "
+                    + " ".join(f"{k}={v:.4f}" for k, v in sorted(fetched.items()))
+                    + f" lr={lr:.2e} steps/s={sps:.2f}")
+                self.log_history.append({"step": step_now, "steps": n,
+                                         "seconds": dt, **fetched})
+                t0, window_start = time.time(), step_now
+            if step_now % cfg.num_eval_iter == 0 or step_now == num_iters:
+                eval_m = self.evaluate()
+                key = "top-1-acc" if not cfg.is_regression else "mse"
+                score = eval_m[key] if not cfg.is_regression else -eval_m[key]
+                if score > self.best_metric:
+                    self.best_metric, self.best_it = score, step_now
+                log(f"eval @ {step_now}: "
+                    + " ".join(f"{k}={v:.4f}" for k, v in eval_m.items())
+                    + f" (best {self.best_metric:.4f} @ {self.best_it})")
+                results = {f"eval/{k}": v for k, v in eval_m.items()}
+                results["eval/best_acc"] = self.best_metric
+                results["eval/best_it"] = self.best_it
+                if eval_hook:
+                    eval_hook(step_now, eval_m)
+                t0, window_start = time.time(), step_now
+        return results
+
+    @torch.no_grad()
+    def _logits(self, x: np.ndarray) -> np.ndarray:
+        names = [n for n, _ in self.model.named_parameters()]
+        weights = dict(zip(names, self.state.ema))
+        xs = normalize(self._to_device(x), self.aug_spec.mean,
+                       self.aug_spec.std)
+        out = functional_call(self.model, weights, (xs,), {"train": False})
+        return out["logits"].float().cpu().numpy()
+
+    def evaluate(self) -> Dict[str, float]:
+        """Metrics of the EMA weights on the eval split."""
+        preds, trues, logits_all = [], [], []
+        for b in eval_batches(self.bundle.eval, self.cfg.eval_batch_size):
+            logits = self._logits(b["x"])[b["mask"]]
+            preds.append(logits.argmax(-1))
+            trues.append(b["y"][b["mask"]])
+            logits_all.append(logits)
+        y_pred, y_true = np.concatenate(preds), np.concatenate(trues)
+        y_logits = np.concatenate(logits_all)
+        if self.cfg.is_regression:
+            return M.regression_metrics(y_true, y_logits[:, 0])
+        out = M.classification_metrics(y_true, y_pred, self.cfg.num_classes,
+                                       y_logits)
+        lp = y_logits - y_logits.max(-1, keepdims=True)
+        lse = np.log(np.exp(lp).sum(-1))
+        out["loss"] = float((lse - lp[np.arange(len(y_true)), y_true]).mean())
+        return out
+
+    def predict(self, x: np.ndarray, batch_size: Optional[int] = None
+                ) -> np.ndarray:
+        bs = batch_size or self.cfg.eval_batch_size
+        return np.concatenate([self._logits(x[s:s + bs])
+                               for s in range(0, len(x), bs)])

@@ -1,0 +1,193 @@
+"""Datasets of the port (the parts of ``semireward_tpu/data/datasets.py``
+the headline path uses): raw uint8 arrays in host memory, CIFAR-10/100 from
+local torchvision file layouts, and the seeded synthetic task. numpy only,
+copied so that both packages produce the same arrays for the same seed.
+Augmentation runs on the device (``data/augment``).
+"""
+from __future__ import annotations
+
+import math
+import os
+import pickle
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from semireward_tpu_torch.data.split import split_ssl_data
+
+# per-dataset normalization constants (reference cifar.py:16-21, svhn.py,
+# stl10.py)
+MEAN = {
+    "cifar10": (0.485, 0.456, 0.406),
+    "cifar100": tuple(x / 255 for x in (129.3, 124.1, 112.4)),
+    "synthetic": (0.5, 0.5, 0.5),
+}
+STD = {
+    "cifar10": (0.229, 0.224, 0.225),
+    "cifar100": tuple(x / 255 for x in (68.2, 65.4, 70.4)),
+    "synthetic": (0.25, 0.25, 0.25),
+}
+
+
+@dataclass
+class ArrayDataset:
+    """Raw array dataset: images uint8 [N,H,W,C], integer (or float) targets."""
+
+    data: np.ndarray
+    targets: np.ndarray
+
+    def __len__(self):
+        return len(self.data)
+
+
+@dataclass
+class SSLDataBundle:
+    train_lb: ArrayDataset
+    train_ulb: ArrayDataset
+    eval: ArrayDataset
+    num_classes: int
+    mean: Tuple[float, float, float]
+    std: Tuple[float, float, float]
+
+    @property
+    def ulb_dest_len(self) -> int:
+        return len(self.train_ulb)
+
+    @property
+    def lb_dest_len(self) -> int:
+        return len(self.train_lb)
+
+
+def _load_cifar10(data_dir: str):
+    base = os.path.join(data_dir, "cifar10", "cifar-10-batches-py")
+    if not os.path.isdir(base):
+        base = os.path.join(data_dir, "cifar-10-batches-py")
+    xs, ys = [], []
+    for name in [f"data_batch_{i}" for i in range(1, 6)]:
+        with open(os.path.join(base, name), "rb") as f:
+            d = pickle.load(f, encoding="latin1")
+        xs.append(d["data"])
+        ys.extend(d["labels"])
+    train = (np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1),
+             np.asarray(ys, np.int64))
+    with open(os.path.join(base, "test_batch"), "rb") as f:
+        d = pickle.load(f, encoding="latin1")
+    test = (np.asarray(d["data"]).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1),
+            np.asarray(d["labels"], np.int64))
+    return train, test
+
+
+def _load_cifar100(data_dir: str):
+    base = os.path.join(data_dir, "cifar100", "cifar-100-python")
+    if not os.path.isdir(base):
+        base = os.path.join(data_dir, "cifar-100-python")
+    out = []
+    for name in ("train", "test"):
+        with open(os.path.join(base, name), "rb") as f:
+            d = pickle.load(f, encoding="latin1")
+        out.append((np.asarray(d["data"]).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1),
+                    np.asarray(d["fine_labels"], np.int64)))
+    return out[0], out[1]
+
+
+def make_synthetic(num_classes: int, img_size: int, n_train: int = 512,
+                   n_test: int = 128, seed: int = 0, noise: int = 40,
+                   class_sim: float = 0.0, proto_scale: int = 0):
+    """Class-conditional gaussian-blob images — deterministic, learnable,
+    no files needed. Used by tests and the throughput benchmark. ``noise``
+    controls per-sample difficulty; ``class_sim`` in [0,1) mixes a SHARED
+    global pattern into every class prototype (prototype = class_sim * G +
+    (1 - class_sim) * P_c), compressing inter-class margins so clusters
+    OVERLAP under the same noise — the golden-benchmark headroom knob
+    (VERDICT r2 item 1): with few labels the labeled-only boundary is far
+    from optimal while the unlabeled cluster density still defines the
+    classes. ``proto_scale=k`` draws prototypes on a kxk grid upsampled to
+    img_size — LOW-FREQUENCY patterns that survive RandAugment's geometric
+    ops (a crop/rotation of an iid-pixel pattern is decorrelated from the
+    prototype, so consistency training on a hard iid task optimizes pure
+    noise; real images are low-frequency, and so must the golden task be).
+    class_sim=0, proto_scale=0 reproduces the round-1/2 task
+    byte-for-byte."""
+    rs = np.random.RandomState(seed)
+    # one shared set of class prototypes for BOTH splits (the whole point
+    # of a learnable synthetic task)
+    if proto_scale:
+        rep = img_size // proto_scale
+        small = rs.randint(0, 256, (num_classes, proto_scale, proto_scale, 3))
+        base = np.repeat(np.repeat(small, rep, axis=1), rep, axis=2)
+    else:
+        base = rs.randint(0, 256, (num_classes, img_size, img_size, 3))
+    if class_sim > 0.0:
+        if proto_scale:
+            gs = rs.randint(0, 256, (1, proto_scale, proto_scale, 3))
+            rep = img_size // proto_scale
+            g = np.repeat(np.repeat(gs, rep, axis=1), rep, axis=2)
+        else:
+            g = rs.randint(0, 256, (1, img_size, img_size, 3))
+        base = np.clip(class_sim * g + (1.0 - class_sim) * base,
+                       0, 255).astype(np.int64)
+
+    def gen(n):
+        y = rs.randint(0, num_classes, n)
+        # noise=0 must be legal (clean-task probes): randint(low>=high)
+        # raises. The asymmetric [-noise, noise) range is kept as-is —
+        # committed round-2 QUALITY artifacts calibrated on this stream
+        eps = (rs.randint(-noise, noise, (n, img_size, img_size, 3))
+               if noise > 0 else 0)
+        x = np.clip(base[y] + eps, 0, 255).astype(np.uint8)
+        return x, y.astype(np.int64)
+
+    return gen(n_train), gen(n_test)
+
+
+def get_dataset(cfg, alg: str = "fixmatch") -> SSLDataBundle:
+    """Dataset-name dispatch: cifar10, cifar100 (local files) and synthetic.
+    The other datasets of the JAX package are not ported yet (ROADMAP)."""
+    name = cfg.dataset
+    if name in ("cifar10", "cifar100"):
+        loader = _load_cifar10 if name == "cifar10" else _load_cifar100
+        try:
+            (data, targets), (tdata, ttargets) = loader(cfg.data_dir)
+        except (FileNotFoundError, OSError) as e:
+            raise FileNotFoundError(
+                f"{name} not found under {cfg.data_dir} (place the "
+                f"torchvision-extracted files there, or use "
+                f"dataset='synthetic')") from e
+        mean, std = MEAN[name], STD[name]
+        num_classes = 10 if name == "cifar10" else 100
+    elif name == "synthetic":
+        n_train = int(cfg.extra.get("synthetic_train", 2048))
+        n_test = int(cfg.extra.get("synthetic_test", 256))
+        (data, targets), (tdata, ttargets) = make_synthetic(
+            cfg.num_classes, cfg.img_size, n_train, n_test, seed=cfg.seed,
+            noise=int(cfg.extra.get("synthetic_noise", 40)),
+            class_sim=float(cfg.extra.get("synthetic_class_sim", 0.0)),
+            proto_scale=int(cfg.extra.get("synthetic_proto_scale", 0)))
+        mean, std = MEAN["synthetic"], STD["synthetic"]
+        num_classes = cfg.num_classes
+    else:
+        raise KeyError(f"dataset '{name}' is not ported yet; available: "
+                       f"cifar10, cifar100, synthetic")
+
+    rng = np.random.RandomState(cfg.seed)
+    dump_dir = os.path.join(cfg.data_dir, "data_statistics", name,
+                            "labeled_idx")
+    lb_data, lb_targets, ulb_data, ulb_targets = split_ssl_data(
+        data, targets, num_classes, cfg.num_labels,
+        ulb_num_labels=cfg.ulb_num_labels,
+        lb_imbalance_ratio=cfg.lb_imb_ratio,
+        ulb_imbalance_ratio=cfg.ulb_imb_ratio,
+        include_lb_to_ulb=cfg.include_lb_to_ulb,
+        rng=rng,
+        dump_dir=dump_dir if name != "synthetic" else None,
+        dump_tag=f"labels{cfg.num_labels}_{cfg.lb_imb_ratio}"
+                 f"_ulb{cfg.ulb_num_labels}_{cfg.ulb_imb_ratio}"
+                 f"_seed{cfg.seed}")
+    if alg == "fullysupervised":
+        lb_data, lb_targets = data, targets
+    return SSLDataBundle(
+        train_lb=ArrayDataset(lb_data, lb_targets),
+        train_ulb=ArrayDataset(ulb_data, ulb_targets),
+        eval=ArrayDataset(tdata, ttargets),
+        num_classes=num_classes, mean=mean, std=std)

@@ -1,0 +1,18 @@
+"""Model zoo of the port: the ViT builders, registered under the JAX
+package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
+``{'logits', 'feat'}`` like the flax models."""
+from __future__ import annotations
+
+from semireward_tpu_torch.models import vit as _vit
+from semireward_tpu_torch.registry import NETS
+
+for _name in ("vit_tiny_patch2_32", "vit_small_patch2_32",
+              "vit_small_patch16_224", "vit_base_patch16_96",
+              "vit_base_patch16_224"):
+    NETS.register(getattr(_vit, _name), name=_name)
+
+
+def get_net_builder(net_name: str):
+    """Name -> builder. Nets the port does not have yet raise KeyError
+    listing the ones it has."""
+    return NETS.get(net_name)

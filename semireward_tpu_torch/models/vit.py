@@ -1,0 +1,239 @@
+"""Vision Transformer (port of ``semireward_tpu/models/vit.py``).
+
+Same parameters and dtype policy as the flax model: parameters in float32;
+patch embedding, attention projections and MLP compute in ``dtype``
+(bfloat16 by default); attention scores, softmax and LayerNorms in float32,
+probabilities cast back to ``dtype``; the residual stream in ``dtype``;
+features and head in float32. The MLP runs the fused kernel
+(``ops/fused_mlp.py``) under the same gate as the JAX model: fused unless
+training with MLP dropout. Module names follow torch idiom (``blocks.0``
+for flax ``blocks0``); ``semireward_tpu_torch.convert`` maps one onto the
+other.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from semireward_tpu_torch.models.initializers import init_module_
+from semireward_tpu_torch.ops.fused_mlp import fused_mlp
+
+
+def _linear(x, layer: nn.Linear, dtype):
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _dropout(x, rate: float, train: bool, generator):
+    if not train or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _drop_path(x, rate: float, train: bool, generator):
+    """Stochastic depth per sample (timm DropPath)."""
+    if not train or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def _layer_norm(x, norm: nn.LayerNorm):
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
+                        norm.bias, norm.eps)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0,
+                 dtype=torch.bfloat16, use_fused: bool = False):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+        self.drop, self.dtype, self.use_fused = drop, dtype, use_fused
+
+    def forward(self, x, train: bool, generator=None):
+        if self.use_fused and not (train and self.drop > 0):
+            return fused_mlp(x.to(self.dtype), self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias)
+        h = F.gelu(_linear(x, self.fc1, self.dtype))
+        h = _dropout(h, self.drop, train, generator)
+        h = _linear(h, self.fc2, self.dtype)
+        return _dropout(h, self.drop, train, generator)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self.attn_drop, self.proj_drop, self.dtype = attn_drop, proj_drop, dtype
+
+    def forward(self, x, train: bool, generator=None):
+        B, N, C = x.shape
+        H = self.num_heads
+        hd = C // H
+        qkv = _linear(x, self.qkv, self.dtype)
+        # contiguous thirds of the fused projection, as in the flax model
+        q, k, v = (t.reshape(B, N, H, hd).transpose(1, 2)
+                   for t in qkv.split(C, dim=-1))          # [B, H, N, hd]
+        # bf16 products are exact in f32, so the f32 product reproduces the
+        # JAX einsum with preferred_element_type=float32
+        a = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
+        a = _dropout(F.softmax(a, dim=-1), self.attn_drop, train, generator)
+        out = torch.matmul(a.to(self.dtype), v)
+        out = out.transpose(1, 2).reshape(B, N, C)
+        out = _linear(out, self.proj, self.dtype)
+        return _dropout(out, self.proj_drop, train, generator)
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0,
+                 dtype=torch.bfloat16, use_fused_mlp: bool = False):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop, dtype)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype, use_fused_mlp)
+        self.drop_path, self.dtype = drop_path, dtype
+
+    def forward(self, x, train: bool, generator=None):
+        h = self.attn(_layer_norm(x, self.norm1).to(self.dtype), train,
+                      generator)
+        x = x + _drop_path(h.to(x.dtype), self.drop_path, train, generator)
+        h = self.mlp(_layer_norm(x, self.norm2).to(self.dtype), train,
+                     generator)
+        return x + _drop_path(h.to(x.dtype), self.drop_path, train, generator)
+
+
+class VisionTransformer(nn.Module):
+    """Input NHWC float, like the flax model. ``forward`` returns
+    ``{'logits', 'feat'}`` (or features / logits with ``only_feat`` /
+    ``only_fc``)."""
+
+    def __init__(self, num_classes: int, img_size: int = 224,
+                 patch_size: int = 16, in_chans: int = 3,
+                 global_pool: str = "token", embed_dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 dtype=torch.bfloat16, use_fused_mlp: bool = False):
+        super().__init__()
+        self.num_classes, self.img_size, self.patch_size = (num_classes,
+                                                            img_size,
+                                                            patch_size)
+        self.global_pool, self.embed_dim, self.depth = (global_pool,
+                                                        embed_dim, depth)
+        self.drop_rate, self.dtype = drop_rate, dtype
+        num_patches = (img_size // patch_size) ** 2
+        self.patch_embed = nn.Conv2d(in_chans, embed_dim, patch_size,
+                                     stride=patch_size)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, num_patches + 1,
+                                                  embed_dim))
+        dpr = [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate,
+                  attn_drop_rate, dpr[i], dtype, use_fused_mlp)
+            for i in range(depth))
+        if global_pool == "avg":
+            self.fc_norm = nn.LayerNorm(embed_dim, eps=1e-6)
+        else:
+            self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
+        self.head = nn.Linear(embed_dim, num_classes)
+
+    @property
+    def num_features(self) -> int:
+        return self.embed_dim
+
+    def forward(self, x, train: bool = True, only_fc: bool = False,
+                only_feat: bool = False, generator=None):
+        if only_fc:
+            return F.linear(x.float(), self.head.weight, self.head.bias)
+        dt = self.dtype
+        B = x.shape[0]
+        x = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.patch_embed.weight.to(dt),
+                     self.patch_embed.bias.to(dt), stride=self.patch_size)
+        x = x.flatten(2).transpose(1, 2)                      # [B, N-1, C]
+        cls = self.cls_token.to(dt).expand(B, 1, self.embed_dim)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        x = _dropout(x, self.drop_rate, train, generator)
+        for blk in self.blocks:
+            x = blk(x, train, generator)
+        if self.global_pool == "avg":
+            feat = _layer_norm(x[:, 1:].mean(1), self.fc_norm)
+        else:
+            x = _layer_norm(x, self.norm)
+            feat = x[:, 0] if self.global_pool else x
+        feat = feat.float()
+        if only_feat:
+            return feat
+        return {"logits": F.linear(feat, self.head.weight, self.head.bias),
+                "feat": feat}
+
+
+def layer_id(names: List[str], num_layers: int) -> int:
+    """Layer-decay group: embeddings = 0, block i = i + 1, norm/head = last
+    (names are the dot-split parameter name, e.g. ['blocks', '3', ...])."""
+    if not names:
+        return num_layers
+    head = names[0]
+    if head in ("cls_token", "pos_embed", "patch_embed"):
+        return 0
+    if head == "blocks":
+        return int(names[1]) + 1
+    return num_layers
+
+
+_VIT_ARGS = set(inspect.signature(VisionTransformer.__init__).parameters) - {
+    "self", "num_classes", "dtype"}
+
+
+def _builder(name, **cfg):
+    def build(num_classes: int, dtype=torch.bfloat16, device=None,
+              generator: Optional[torch.Generator] = None,
+              **kw) -> VisionTransformer:
+        merged = dict(cfg)
+        merged.update({k: v for k, v in kw.items() if k in _VIT_ARGS})
+        with torch.device("meta"):
+            model = VisionTransformer(num_classes=num_classes, dtype=dtype,
+                                      **merged)
+        model = model.to_empty(device=device or "cpu")
+        init_module_(model, generator)
+        with torch.no_grad():
+            model.cls_token.zero_()
+            model.pos_embed.zero_()
+        return model
+
+    build.__name__ = name
+    build.layer_id_fn = layer_id
+    build.num_layers = cfg.get("depth", 12) + 1
+    return build
+
+
+vit_tiny_patch2_32 = _builder("vit_tiny_patch2_32", img_size=32, patch_size=2,
+                              embed_dim=192, depth=12, num_heads=3,
+                              drop_path_rate=0.1)
+vit_small_patch2_32 = _builder("vit_small_patch2_32", img_size=32,
+                               patch_size=2, embed_dim=384, depth=12,
+                               num_heads=6, drop_path_rate=0.2)
+vit_small_patch16_224 = _builder("vit_small_patch16_224", img_size=224,
+                                 patch_size=16, embed_dim=384, depth=12,
+                                 num_heads=6, drop_path_rate=0.2)
+vit_base_patch16_96 = _builder("vit_base_patch16_96", img_size=96,
+                               patch_size=16, embed_dim=768, depth=12,
+                               num_heads=12, drop_path_rate=0.2)
+vit_base_patch16_224 = _builder("vit_base_patch16_224", img_size=224,
+                                patch_size=16, embed_dim=768, depth=12,
+                                num_heads=12, drop_path_rate=0.2)

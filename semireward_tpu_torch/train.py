@@ -1,0 +1,64 @@
+"""Training CLI of the port.
+
+    python -m semireward_tpu_torch.train --c <yaml> [--key value ...]
+
+Takes the same YAML files and ``--key value`` overrides as the JAX
+package's ``train.py`` and trains on the first CUDA card
+(``--device cpu`` runs the plain PyTorch path on the CPU).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="semireward_tpu_torch trainer")
+    p.add_argument("--c", "--config", dest="config", default=None,
+                   help="YAML config (reference key names accepted)")
+    p.add_argument("--device", default=None,
+                   help="torch device; default: the first CUDA card")
+    p.add_argument("--resume", action="store_true", default=None)
+    args, unknown = p.parse_known_args(argv)
+    overrides, key = {}, None
+    for tok in unknown:
+        if tok.startswith("--"):
+            if "=" in tok:
+                k, v = tok[2:].split("=", 1)
+                overrides[k] = v
+            else:
+                key = tok[2:]
+        elif key is not None:
+            overrides[key] = tok
+            key = None
+    if args.resume is not None:
+        overrides["resume"] = args.resume
+    return args.config, args.device, overrides
+
+
+def main(argv=None):
+    config_path, device, overrides = parse_args(argv)
+    from semireward_tpu_torch import config as config_lib
+    from semireward_tpu_torch.core.trainer import Trainer
+
+    cfg = (config_lib.from_yaml(config_path, overrides) if config_path
+           else config_lib.from_dict(overrides))
+    save_path = os.path.join(cfg.save_dir, cfg.save_name)
+    os.makedirs(save_path, exist_ok=True)
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(message)s",
+        handlers=[logging.StreamHandler(),
+                  logging.FileHandler(os.path.join(save_path, "log.txt"))])
+    logger = logging.getLogger(f"semireward_tpu_torch.{cfg.save_name}")
+    logger.info(f"algorithm={cfg.algorithm} net={cfg.net} "
+                f"dataset={cfg.dataset} num_labels={cfg.num_labels} "
+                f"iters={cfg.num_train_iter}")
+    results = Trainer(cfg, device=device, logger=logger).train()
+    for k, v in sorted(results.items()):
+        logger.info(f"{k}: {v}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,85 @@
+"""The port's fused MLP (semireward_tpu_torch/ops/fused_mlp.py) against the
+JAX Pallas kernel run in interpret mode (as tests/test_fused_mlp.py runs it),
+forward and all five gradients, with a ragged last row block.
+
+On the CPU the port runs its plain PyTorch version, which does the kernel's
+arithmetic. Tolerances: in float32 both sides compute the same f32 products
+and sums in another order, and GELU's erf differs by <= 1.5e-7 (the TPU
+kernel's A&S approximation): 1e-5 of the largest magnitude. In bfloat16 the
+outputs and dW are rounded to 8 significant bits after sums taken in another
+order: 2e-2 of the largest magnitude.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from semireward_tpu.ops.fused_mlp import fused_mlp as jax_fused_mlp
+from semireward_tpu_torch.ops import fused_mlp as F
+
+M, C, H = 40, 64, 256  # block_m=16 on the JAX side: 3 blocks, last partial
+
+
+def _inputs():
+    rs = np.random.RandomState(0)
+    return (rs.randn(M, C).astype(np.float32),
+            (rs.randn(C, H) * 0.05).astype(np.float32),
+            (rs.randn(H) * 0.1).astype(np.float32),
+            (rs.randn(H, C) * 0.05).astype(np.float32),
+            (rs.randn(C) * 0.1).astype(np.float32),
+            rs.randn(M, C).astype(np.float32))
+
+
+def _close(got, want, rel):
+    scale = float(np.abs(want).max()) + 1e-12
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale)
+
+
+@pytest.mark.parametrize("dtype,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_forward_and_grads_match_jax(dtype, rel):
+    x, w1, b1, w2, b2, coef = _inputs()
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+
+    def jloss(x32, w1, b1, w2, b2):
+        out = jax_fused_mlp(x32.astype(jdt), w1, b1, w2, b2, block_m=16,
+                            interpret=True)
+        return (out.astype(jnp.float32) * coef).sum(), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3, 4),
+                                           has_aux=True)(
+        *(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+
+    # the port takes torch.nn.Linear layouts: w1 [H, C], w2 [C, H]
+    tx, tw1, tb1, tw2, tb2 = (torch.tensor(a, requires_grad=True) for a in
+                              (x, w1.T.copy(), b1, w2.T.copy(), b2))
+    tout = F.fused_mlp(tx.to(tdt), tw1, tb1, tw2, tb2)
+    (tout.float() * torch.from_numpy(coef)).sum().backward()
+
+    _close(tout.float().detach().numpy(),
+           np.asarray(jout.astype(jnp.float32)), rel)
+    jdx, jdw1, jdb1, jdw2, jdb2 = (np.asarray(g, np.float32) for g in jgrads)
+    _close(tx.grad.numpy(), jdx, rel)
+    _close(tw1.grad.numpy().T, jdw1, rel)
+    _close(tb1.grad.numpy(), jdb1, rel)
+    _close(tw2.grad.numpy().T, jdw2, rel)
+    _close(tb2.grad.numpy(), jdb2, rel)
+
+
+def test_plain_bwd_is_autograd_of_plain_fwd_in_f32():
+    """The hand-written backward is the gradient of the forward."""
+    x, w1, b1, w2, b2, g = (torch.from_numpy(a) for a in _inputs())
+    w1, w2 = w1.T.contiguous(), w2.T.contiguous()
+    args = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    F.plain_fwd(*args).backward(g)
+    dx, dw1, dw2, db1, db2 = F.plain_bwd(x, w1, b1, w2, g)
+    for got, a in zip((dx, dw1, db1, dw2, db2), args):
+        torch.testing.assert_close(got, a.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_rejects_devices_without_a_path():
+    x = torch.empty(4, C, device="meta")
+    with pytest.raises(ValueError, match="no path"):
+        F.fused_mlp(x, torch.empty(H, C), torch.empty(H), torch.empty(C, H),
+                    torch.empty(C))

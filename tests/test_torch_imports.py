@@ -1,0 +1,39 @@
+"""The port imports with no JAX, Flax, optax or JAX-package module loaded."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CODE = """
+import sys
+import semireward_tpu_torch
+import semireward_tpu_torch.train
+import semireward_tpu_torch.convert
+import semireward_tpu_torch.core.trainer
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                    'semireward_tpu'))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_without_jax():
+    r = subprocess.run([sys.executable, "-c", CODE], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_need_a_device(monkeypatch):
+    """With no card and no device='cpu', entry points raise; they never drop
+    to the CPU on their own."""
+    import pytest
+    import torch
+
+    from semireward_tpu_torch import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
