@@ -6,15 +6,29 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA source of ``semireward_tpu_torch/csrc`` (one nvcc per
    source, all started together);
-3. kernel phase: holds each kernel against its plain PyTorch version at the
-   headline shape and at a small ragged one, and times kernel, plain version
-   and the one-call PyTorch equivalent (yardstick only) beside the bound;
-4. train phase: the port's ``Trainer`` on the headline config
-   (``config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml``,
-   SRFlexMatch, ViT-S/2-32 at full width and depth, 8+8 images) on synthetic
-   data for 1200 steps through stage 1, stage 2 and rewarder updates, with an
-   eval at the end; checks losses, SemiReward/FlexMatch state and that every
-   kernel of the path launched;
+3. kernel phases: hold each kernel against its plain PyTorch version and
+   time kernel, plain version and the one-call PyTorch equivalent (yardstick
+   only) beside the bound:
+   - K1, the fused MLP, at the headline shape and a small ragged one;
+   - K2, flash attention (forward; dq + dk/dv), at the BERT-base train shape
+     (12 x 12 heads, N 512, key-padding bias, dropout 0.1), at ViT-S's
+     shape (24 x 6 heads, N 257, no bias) and at a small ragged shape; the
+     dropout stream read out of the forward kernel bit for bit at the BERT
+     shape; and flash against the unfused attention at both model shapes;
+4. train phases, each with every kernel count set to 0 just before it and
+   read just after, exact launch counts, losses, SemiReward and FlexMatch
+   state checked, an eval at the end:
+   - ViT: the headline config
+     (``config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml``,
+     SRFlexMatch, ViT-S/2-32 at full width and depth, 8+8 images) on
+     synthetic images for 1200 steps through the fused MLP (K1) and, as
+     the port's default on a card, flash attention (K2, no bias);
+   - BERT: the usb_nlp config
+     (``config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml``,
+     SRFlexMatch, BERT-base at full width and depth, max_length 512, 4+4
+     texts, ``use_cat``) on a synthetic aclImdb-layout corpus for
+     ``BERT_STEPS`` steps, every attention call on K2, the MLP as two dense
+     layers;
 5. prints one ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 Any failed check raises, so the exit code is not 0 and the ``ok`` line is
@@ -34,16 +48,21 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADLINE_YAML = os.path.join(
     HERE, "config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml")
+NLP_YAML = os.path.join(
+    HERE, "config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml")
 # H100 SXM published peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# the YAML's own schedule (204800 steps) and eval cadence stay; the run stops
-# after TRAIN_STEPS and evaluates there. From random weights (layer decay 0.5
-# leaves the early blocks nearly still) the first weak view passes FlexMatch's
-# 0.95 cutoff only after several hundred steps (H100 run: max prob 0.93 over
-# 512 unlabeled images at step 400), so the run is long enough for
-# selected_label to move (800 steps: 2 entries).
+# the YAMLs' own schedules and eval cadences stay; a run stops after its
+# step count and evaluates there. From random weights (layer decay 0.5
+# leaves the early blocks nearly still) the ViT's first weak view passes
+# FlexMatch's 0.95 cutoff only after several hundred steps (H100 run: max
+# prob 0.93 over 512 unlabeled images at step 400), so the run is long
+# enough for selected_label to move (800 steps: 2 entries). BERT-base on the
+# synthetic corpus first passes the cutoff between steps 250 and 500 (H100
+# run: 11 entries changed at step 500, 686 at step 750).
 TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 1200, 10, 10, 100
+BERT_STEPS, BERT_LOG_EVERY = 700, 100
 
 
 def card_line() -> str:
@@ -72,7 +91,7 @@ def bound_ms(nbytes: int, flops: float):
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def check_close(name, got, want, rel_tol):
@@ -153,22 +172,194 @@ def fused_mlp_phase(F):
     return results
 
 
-def train_phase(F):
-    from semireward_tpu_torch import config as config_lib
-    from semireward_tpu_torch.core.trainer import Trainer
+def _attn_inputs(B, N, H, d, padded: bool, seed: int = 0):
+    """bf16 q, k, v, dO [B, N, H, d] and, with ``padded``, a BERT padding
+    bias [B, 1, 1, N] (-1e9 past each row's length; some rows full)."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, N, H, d, generator=g).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    bias = None
+    if padded:
+        lens = torch.randint(N // 4, N + 1, (B,), generator=g)
+        lens[::3] = N
+        keep = torch.arange(N)[None, :] < lens[:, None]
+        bias = torch.where(keep, 0.0, -1e9)[:, None, None, :].to(dev)
+    return q, k, v, do, bias
 
-    cfg = config_lib.from_yaml(HEADLINE_YAML, {
-        "dataset": "synthetic", "use_pretrain": False, "resume": False,
-        "num_log_iter": LOG_EVERY, "start_timing": START_TIMING,
-        "N_k": N_K})
+
+def _unfused_attention(q, k, v, bias, rate, generator):
+    """The models' attention without K2 (f32 scores of the bf16 values,
+    softmax in f32, dropout from torch's stream, probs in bf16 before PV)."""
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    a = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if bias is not None:
+        a = a + bias
+    a = torch.softmax(a, dim=-1)
+    if rate:
+        keep = torch.rand(a.shape, generator=generator, device=a.device) >= rate
+        a = torch.where(keep, a / (1.0 - rate), torch.zeros_like(a))
+    return torch.matmul(a.to(v.dtype), v).transpose(1, 2)
+
+
+def _fwd_bwd_ms(fn, q, k, v, do):
+    """One forward and its backward through autograd."""
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    return time_ms(lambda: torch.autograd.grad(fn(ql, kl, vl), (ql, kl, vl),
+                                               do), iters=10)
+
+
+def flash_phase(A):
+    """K2 forward (out, lse) and backward (dq, dk, dv) vs the plain version
+    on the same bf16 inputs. The kernels round P, dS and P^T to bf16 before
+    their tensor-core products (the JAX kernels keep them in f32): bf16
+    outputs within 1% of max|plain| (one bf16 rounding is 0.4%); lse, an f32
+    row statistic, within 1e-5 of max|plain|."""
+    dev = torch.device("cuda")
+    results, versus = {}, {}
+    seed = torch.tensor([20240601], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, (B, N, H, d, padded, rate) in (
+            ("ragged", (2, 77, 3, 64, True, 0.1)),
+            ("ragged_130", (3, 130, 2, 64, True, 0.1)),
+            ("vit", (24, 257, 6, 64, False, 0.0)),
+            ("bert", (12, 512, 12, 64, True, 0.1))):
+        q, k, v, do, bias4 = _attn_inputs(B, N, H, d, padded)
+        kb = A._key_bias_of(bias4, B, H, N) if padded else None
+        args = (q, k, v, kb, seed, rate)
+        print(f"flash_attention {name} B={B} N={N} H={H} d={d} "
+              f"bias={padded} dropout={rate}")
+        out, lse = A.kernel_fwd(*args)
+        torch.cuda.synchronize()
+        p_out, p_lse = A.plain_fwd(*args)
+        err_f = check_close("fwd out", out, p_out, 1e-2)
+        check_close("fwd lse", lse, p_lse, 1e-5)
+        delta = A.delta_of(do, out)
+        grads = A.kernel_bwd(*args, do, lse, delta)
+        torch.cuda.synchronize()
+        err_b = 0.0
+        for n, a, b in zip(("dq", "dk", "dv"), grads,
+                           A.plain_bwd(*args, do, lse, delta)):
+            err_b = max(err_b, check_close(f"bwd {n}", a, b, 1e-2))
+        if name in ("vit", "bert"):
+            versus[name] = dict(
+                shape=[B, N, H, d], bias=padded, dropout=rate,
+                flash_fwd_bwd_ms=_fwd_bwd_ms(
+                    lambda a, b, c: A.flash_attention(
+                        a, b, c, bias=bias4, dropout_rate=rate,
+                        dropout_seed=seed), q, k, v, do),
+                unfused_fwd_bwd_ms=_fwd_bwd_ms(
+                    lambda a, b, c: _unfused_attention(a, b, c, bias4, rate,
+                                                       gen), q, k, v, do))
+            print(f"  flash vs unfused attention (fwd + bwd): "
+                  f"{json.dumps(versus[name])}")
+        if name != "bert":
+            continue
+        check_dropout_stream(A, B, N, H, d, seed, rate)
+        # F.scaled_dot_product_attention with the float key mask and the same
+        # dropout rate (its own RNG stream), timed as a yardstick only
+        ql, kl, vl = (t.detach().transpose(1, 2).clone().requires_grad_()
+                      for t in (q, k, v))
+        mask = bias4.to(torch.bfloat16)
+
+        def lib_fwd():
+            return torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, dropout_p=rate)
+
+        lib_out = lib_fwd()
+        do_t = do.transpose(1, 2)
+        flops = 2.0 * B * H * N * N * d          # one N x N x d product
+        bf, byf = bound_ms(nbytes(q, k, v, kb, seed, out, lse), 2 * flops)
+        bb, byb = bound_ms(nbytes(q, k, v, kb, seed, do, lse, delta, *grads),
+                           7 * flops)
+        results["flash_attention_fwd"] = dict(
+            max_abs_err=err_f,
+            ms=time_ms(lambda: A.kernel_fwd(*args)),
+            plain_ms=time_ms(lambda: A.plain_fwd(*args), iters=5),
+            bound_ms=bf, bound_by=byf,
+            library_ms=time_ms(lambda: lib_fwd().detach()))
+        results["flash_attention_bwd"] = dict(
+            max_abs_err=err_b,
+            ms=time_ms(lambda: A.kernel_bwd(*args, do, lse, delta)),
+            plain_ms=time_ms(lambda: A.plain_bwd(*args, do, lse, delta),
+                             iters=5),
+            bound_ms=bb, bound_by=byb,
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), do_t, retain_graph=True)))
+    for name, r in results.items():
+        print(json.dumps({"kernel": name, "kernel_ms": r["ms"],
+                          "plain_ms": r["plain_ms"],
+                          "library_ms": r["library_ms"],
+                          "bound_ms": r["bound_ms"],
+                          "bound_by": r["bound_by"]}))
+    print(json.dumps({"flash_vs_unfused_attention": versus,
+                      "card": card_line()}))
+    return results
+
+
+def check_dropout_stream(A, B, N, H, d, seed, rate):
+    """The forward kernel's keep mask, read out exactly: q = k = 0 makes
+    every score equal; a key bias of -1e9 outside a window of d keys leaves
+    p = 1/d inside it and exactly 0 elsewhere; v one-hot per window key puts
+    keep[q, key] / keep_prob / d in output column key - window start. Zero
+    against non-zero is exact, so the mask is held bit for bit against
+    attention_keep_mask."""
+    dev = torch.device("cuda")
+    z = torch.zeros(B, N, H, d, device=dev, dtype=torch.bfloat16)
+    want = A.attention_keep_mask(seed, B * H, N, A.padded_len(N),
+                                 A.keep_threshold(rate))
+    got = torch.zeros_like(want)
+    keys = torch.arange(N, device=dev)
+    for w in range(0, N, d):
+        width = min(d, N - w)
+        v = torch.zeros_like(z)
+        v[:, w:w + width, :, :width] = torch.eye(width, device=dev).to(
+            v.dtype)[:, None, :]
+        kb = torch.where((keys >= w) & (keys < w + width), 0.0, -1e9)
+        out, _ = A.kernel_fwd(z, z, v, kb.expand(B * H, N).contiguous(),
+                              seed, rate)
+        got[:, :, w:w + width] = (out[..., :width] != 0).permute(
+            0, 2, 1, 3).reshape(B * H, N, width)
+    diff = int((got != want).sum())
+    print(f"  dropout stream at BH={B * H} N={N}: {diff} of {want.numel()} "
+          f"keep bits differ, keep share {want.float().mean().item():.5f} "
+          f"{'ok' if diff == 0 else 'FAIL'}")
+    if diff:
+        raise AssertionError("the kernel's dropout stream differs from "
+                             "attention_keep_mask")
+
+
+def _counts(F, A):
+    return {**F.launches, **A.launches,
+            "einsum_routes": A.plain_routes["flash_attention"]}
+
+
+def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
+                main_kernels):
+    """Train ``steps`` steps through ``Trainer.train`` with every count set
+    to 0 just before and read just after; checks the launch counts exactly
+    (one forward per step with ``use_cat``, one per eval batch, one
+    backward per step, for every layer on a kernel), that the path's
+    kernels launched, losses, the stage-2 reward filter and rewarder update,
+    FlexMatch's selected_label and the eval."""
+    from semireward_tpu_torch.core.trainer import Trainer
+    from semireward_tpu_torch.profile_step import synthetic_config
+
+    cfg = synthetic_config(yaml_path, {"num_log_iter": log_every,
+                                       "start_timing": START_TIMING,
+                                       "N_k": N_K, **overrides})
     trainer = Trainer(cfg)
     model = trainer.model
-    depth = len(model.blocks)
-    print(f"train: {cfg.algorithm} {cfg.net} depth={depth} "
-          f"C={model.embed_dim} batch={cfg.batch_size}+{cfg.ulb_batch_size} "
-          f"use_cat={cfg.use_cat} steps={TRAIN_STEPS}")
+    n_fused = sum(bool(getattr(m, "use_fused", False))
+                  for m in model.modules())
+    n_flash = sum(bool(getattr(m, "use_flash", False))
+                  for m in model.modules()
+                  if not getattr(m, "attn_drop", 0.0))
+    print(f"train {name}: {cfg.algorithm} {cfg.net} "
+          f"batch={cfg.batch_size}+{cfg.ulb_batch_size} use_cat={cfg.use_cat} "
+          f"steps={steps} fused MLP layers={n_fused} flash layers={n_flash}")
     sel0 = trainer.state.algo.selected_label.clone()
-    history, rewarder_snaps = [], {}
+    history, rewarder_snaps, first_select = [], {}, []
 
     def step_hook(step, metrics):
         history.append((step, metrics))
@@ -176,18 +367,26 @@ def train_phase(F):
         if step in (20, 21):
             rewarder_snaps[step] = [p.detach().clone() for p in
                                     trainer.state.sr.rewarder.parameters()]
+        # read at the log boundaries, where the trainer syncs anyway
+        if not first_select and step % log_every == 0 and bool(
+                (trainer.state.algo.selected_label != sel0).any()):
+            first_select.append(step)
 
     F.reset_launches()
-    results = trainer.train(num_iters=TRAIN_STEPS, step_hook=step_hook)
+    A.reset_launches()
+    results = trainer.train(num_iters=steps, step_hook=step_hook)
     torch.cuda.synchronize()
-    launches = dict(F.launches)
+    launches = _counts(F, A)
 
-    n_eval_batches = math.ceil(len(trainer.bundle.eval) / cfg.eval_batch_size)
-    want_fwd = depth * (TRAIN_STEPS + n_eval_batches)
-    want_bwd = depth * TRAIN_STEPS
-    print(f"  launches {launches} (expected fwd {want_fwd}, bwd {want_bwd})")
-    assert launches["fused_mlp_fwd"] == want_fwd, launches
-    assert launches["fused_mlp_bwd"] == want_bwd, launches
+    n_eval = math.ceil(len(trainer.bundle.eval) / cfg.eval_batch_size)
+    want = {"fused_mlp_fwd": n_fused * (steps + n_eval),
+            "fused_mlp_bwd": n_fused * steps,
+            "flash_attention_fwd": n_flash * (steps + n_eval),
+            "flash_attention_bwd": n_flash * steps, "einsum_routes": 0}
+    print(f"  launches {launches} (expected {want})")
+    assert launches == want, (launches, want)
+    for k in main_kernels:
+        assert launches[k] > 0, f"{k} never launched on the {name} path"
     for step, m in history:
         for k in ("total_loss", "sup_loss", "unsup_loss"):
             v = float(m[k])
@@ -207,12 +406,16 @@ def train_phase(F):
     windows = trainer.log_history[1:]  # after the first (warm-up) window
     sps = sum(w["steps"] for w in windows) / sum(w["seconds"] for w in windows)
     print(f"  losses finite over {len(history)} steps; stage-2 keep ratio in "
-          f"(0, 1]; selected_label changed at {changed} entries; eval "
-          f"top-1 {results['eval/top-1-acc']:.4f}")
-    print(json.dumps({"train_steps_per_sec": sps,
+          f"(0, 1]; selected_label changed at {changed} entries (first seen "
+          f"at step {first_select[0] if first_select else 'after the last check'}); "
+          f"eval top-1 {results['eval/top-1-acc']:.4f}")
+    print(json.dumps({"phase": name, "train_steps_per_sec": sps,
                       "measured_steps": sum(w["steps"] for w in windows),
-                      "card": card_line(),
-                      "log": trainer.log_history}))
+                      "selected_label_changed": changed,
+                      "first_selected_at_step": (first_select or [None])[0],
+                      "card": card_line(), "log": trainer.log_history}))
+    del trainer, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -222,6 +425,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from semireward_tpu_torch.ops import _build
+    from semireward_tpu_torch.ops import attention as A
     from semireward_tpu_torch.ops import fused_mlp as F
 
     card = card_line()
@@ -238,13 +442,23 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     kernels = fused_mlp_phase(F)
-    launches = train_phase(F)
+    kernels.update(flash_phase(A))
+    launches = train_phase("vit", HEADLINE_YAML, {}, TRAIN_STEPS, LOG_EVERY,
+                           F, A, ("fused_mlp_fwd", "fused_mlp_bwd"))
+    bert = train_phase("bert", NLP_YAML, {"use_flash_attention": True,
+                                          "use_fused_mlp": False},
+                       BERT_STEPS, BERT_LOG_EVERY, F, A,
+                       ("flash_attention_fwd", "flash_attention_bwd"))
+    launches = {k: launches[k] + bert[k] for k in launches}
 
-    source = "semireward_tpu_torch/csrc/fused_mlp.cu"
-    replaces = {"fused_mlp_fwd": "semireward_tpu/ops/fused_mlp.py:71",
-                "fused_mlp_bwd": "semireward_tpu/ops/fused_mlp.py:107"}
-    line = [{"name": name, "route": "cuda", "source": source,
-             "replaces": replaces[name], "launches": launches[name],
+    where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),
+             "fused_mlp_bwd": ("fused_mlp.cu", "fused_mlp.py:107"),
+             "flash_attention_fwd": ("flash_attention.cu", "attention.py:110"),
+             "flash_attention_bwd": ("flash_attention.cu", "attention.py:372")}
+    line = [{"name": name, "route": "cuda",
+             "source": f"semireward_tpu_torch/csrc/{where[name][0]}",
+             "replaces": f"semireward_tpu/ops/{where[name][1]}",
+             "launches": launches[name],
              **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")}}
             for name, r in kernels.items()]

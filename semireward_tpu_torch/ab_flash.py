@@ -1,0 +1,100 @@
+"""A/B of the flash attention path (K2) in the training step, on one CUDA card.
+
+    python -m semireward_tpu_torch.ab_flash [--steps 100] [--warmup 30]
+        [--out ab.json]
+
+For the usb_nlp BERT-base config
+(config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml, the MLP
+as two dense layers) and the headline ViT-S config, builds two trainers
+(``use_flash_attention`` True and False) as ``profile_step.synthetic_config``
+sets them up, warms each up, then times windows of ``--steps`` steps in the
+order on, off, off, on (host clock, each window ends in a device sync) so a
+drift of the host shows as a difference between the two windows of one arm.
+Prints one JSON object with steps/s per window and per arm and the card's
+name and power limit. These numbers set ``flash_auto_default`` in
+``core/trainer.py``.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+from semireward_tpu_torch.profile_step import HEADLINE, synthetic_config
+
+NLP = "config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml"
+CONFIGS = {
+    "bert_base_L512": (NLP, {"use_fused_mlp": False}),
+    "vit_small_N257": (HEADLINE, {}),
+}
+
+
+def _window(trainer, loader, steps: int) -> float:
+    """Steps/s of ``steps`` train steps, as ``Trainer.train`` runs them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer._step(trainer.state, trainer.make_batch(next(loader)),
+                      trainer.generator)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def ab(path: str, overrides: dict, steps: int, warmup: int) -> dict:
+    from semireward_tpu_torch.core.trainer import Trainer
+
+    arms = {}
+    for flash in (True, False):
+        cfg = synthetic_config(path, {**overrides, "num_log_iter": 10 ** 9,
+                                      "use_flash_attention": flash})
+        trainer = Trainer(cfg)
+        loader = trainer._make_loader()
+        _window(trainer, loader, warmup)
+        arms[flash] = (trainer, loader)
+    windows = []
+    for flash in (True, False, False, True):
+        windows.append({"flash": flash,
+                        "steps_per_sec": _window(*arms[flash], steps)})
+    arms.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mean = {arm: sum(w["steps_per_sec"] for w in windows
+                     if w["flash"] == arm) / 2 for arm in (True, False)}
+    return {"config": path, "overrides": overrides, "steps": steps,
+            "warmup": warmup, "windows": windows,
+            "flash_steps_per_sec": mean[True],
+            "unfused_steps_per_sec": mean[False],
+            "flash_over_unfused": mean[True] / mean[False]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--warmup", type=int, default=30)
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON result to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_flash needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    result = {"card": card}
+    for name, (path, overrides) in CONFIGS.items():
+        result[name] = ab(path, overrides, args.steps, args.warmup)
+        print(json.dumps({name: result[name]}), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -22,14 +22,29 @@ class ForwardOut(NamedTuple):
     feats_x_ulb_s: torch.Tensor
 
 
+def batch_dim(x) -> int:
+    """Rows of a view: an image tensor or a dict of token tensors."""
+    return (next(iter(x.values())) if isinstance(x, dict) else x).shape[0]
+
+
+def cat_views(*xs):
+    """Concatenate views along the batch; token dicts key by key (the JAX
+    package's pytree concat)."""
+    if isinstance(xs[0], dict):
+        return {k: torch.cat([x[k] for x in xs]) for k in xs[0]}
+    return torch.cat(xs)
+
+
 def ssl_forward(model, x_lb, x_ulb_w, x_ulb_s, generator=None,
                 train: bool = True, use_cat: bool = True,
                 stop_grad_w: bool = True) -> ForwardOut:
-    """Concat [x_lb, x_ulb_w, x_ulb_s] -> one model pass -> split.
-    ``use_cat=False`` runs three passes, the weak one without gradient."""
-    n_lb, n_ulb = x_lb.shape[0], x_ulb_w.shape[0]
+    """Concat [x_lb, x_ulb_w, x_ulb_s] -> one model pass -> split. Views
+    are image tensors or token dicts. ``use_cat=False`` runs three passes,
+    the weak one without gradient; each draws its own dropout from the
+    generator's stream."""
+    n_lb, n_ulb = batch_dim(x_lb), batch_dim(x_ulb_w)
     if use_cat:
-        out = model(torch.cat([x_lb, x_ulb_w, x_ulb_s]), train=train,
+        out = model(cat_views(x_lb, x_ulb_w, x_ulb_s), train=train,
                     generator=generator)
         l_lb, l_w, l_s = torch.split(out["logits"], [n_lb, n_ulb, n_ulb])
         f_lb, f_w, f_s = torch.split(out["feat"], [n_lb, n_ulb, n_ulb])

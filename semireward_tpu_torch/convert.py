@@ -5,9 +5,11 @@ JAX needed at run time).
   kernel keeps its q/k/v thirds in place.
 - Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW.
 - LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``.
-- flax's ``blocks3`` module name -> torch's ``blocks.3``.
+- flax's ``blocks3`` / ``layer3`` module names -> torch's ``blocks.3`` /
+  ``layer.3``; raw params (BERT's ``position_embeddings``) keep their name.
 
-Works for the ViT and for the SemiReward ``Rewarder``/``Generator``.
+Works for the ViT, the BERT classifier and the SemiReward
+``Rewarder``/``Generator``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_BLOCK = re.compile(r"^(blocks)(\d+)$")
+_BLOCK = re.compile(r"^(blocks|layer)(\d+)$")
 
 
 def _name(part: str) -> str:

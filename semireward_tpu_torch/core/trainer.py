@@ -1,15 +1,18 @@
-"""Training loop (port of the CV branch of
+"""Training loop (port of the CV and NLP branches of
 ``semireward_tpu/core/trainer.py``): build data, model, algorithm and state
 from a ``Config``, run the step loop with the log and eval cadence, and
 evaluate / predict with the EMA weights.
 
-Per step the host gathers a raw uint8 batch (seeded samplers), copies it to
-the device, builds the weak/strong views there, and runs the train step.
-Metrics stay on the device until a log boundary. Not ported yet (ROADMAP):
-checkpoint save/resume, the metrics sink, prefetch, pretrained grafting.
+Per step, CV: the host gathers a raw uint8 batch (seeded samplers), copies
+it to the device, builds the weak/strong views there. NLP: the host
+tokenizes the views into one static length bucket and copies the token
+dicts over. Then the train step runs. Metrics stay on the device until a log
+boundary. Not ported yet (ROADMAP): checkpoint save/resume, the metrics
+sink, prefetch, pretrained grafting, audio and bio data.
 """
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
@@ -31,6 +34,9 @@ from semireward_tpu_torch.data.augment import (AugmentSpec, augment_views,
                                                normalize)
 from semireward_tpu_torch.data.datasets import SSLDataBundle, get_dataset
 from semireward_tpu_torch.data.loader import SSLLoader, eval_batches
+from semireward_tpu_torch.data.modality import (GenericBundle, NLPSSLLoader,
+                                                modality_of)
+from semireward_tpu_torch.ops import fused_mlp as fused_mlp_ops
 from semireward_tpu_torch.registry import ALGORITHMS, NETS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -39,6 +45,44 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+def flash_auto_default(cfg: Config, device: torch.device) -> bool:
+    """``use_flash_attention`` when the config leaves it unset, set by the
+    H100 A/B of ``python -m semireward_tpu_torch.ab_flash`` (PERF.md): on a
+    CUDA card, on for the ViTs (ViT-S/2-32, N = 257: a fifth less device
+    time per step, 0.98-1.12x the steps/s of the unfused attention) and for
+    BERT at ``max_length`` >= 384 (BERT-base at 512: 1.10-1.72x). Shorter
+    BERT runs are not measured yet and stay off, as in the JAX package. The
+    CPU runs the plain version either way."""
+    return device.type == "cuda" and (
+        cfg.net.startswith("vit_")
+        or (cfg.net.startswith("bert_") and cfg.max_length >= 384))
+
+
+def fused_widths(model: torch.nn.Module):
+    """(C, H) of every MLP of ``model`` that runs the fused kernel."""
+    for m in model.modules():
+        if getattr(m, "use_fused", False):
+            w = (m.fc1 if hasattr(m, "fc1") else m.intermediate).weight
+            yield int(w.shape[1]), int(w.shape[0])
+
+
+def check_fused_widths(model: torch.nn.Module, device: torch.device) -> None:
+    """On a CUDA card, refuse at construction a fused MLP whose width the
+    full-resident kernel (K1) does not take: its hidden-blocked sibling (K3)
+    is not ported yet. The CPU runs the plain version at any width."""
+    if device.type != "cuda":
+        return
+    bad = sorted({(c, h) for c, h in fused_widths(model)
+                  if not fused_mlp_ops.supported(c, h)})
+    if bad:
+        c, h = bad[0]
+        raise NotImplementedError(
+            f"fused MLP at C={c}, H={h}: the full-resident kernel (K1) takes "
+            f"C in (128, 256, 384); the hidden-blocked fused MLP for wider "
+            f"nets (K3) is not ported yet (ROADMAP: K3). Set "
+            f"use_fused_mlp False to run the MLP as two dense layers.")
 
 
 class Trainer:
@@ -59,27 +103,53 @@ class Trainer:
                         "pretrained weights")
         if cfg.imb_algorithm:
             _not_ported("imbalanced SSL", "imb")
-        if cfg.extra.get("use_flash_attention"):
-            _not_ported("flash attention", "K2")
         if cfg.gradient_checkpointing:
             _not_ported("gradient checkpointing", "remat")
+        self.modality = modality_of(cfg.net)
+        if self.modality == "audio":
+            _not_ported("audio data and nets", "audio")
+        if cfg.net.startswith("dnabert"):
+            _not_ported("bio/DNA data", "NLP and bio")
 
-        self.bundle = bundle if bundle is not None else get_dataset(
-            cfg, cfg.algorithm)
+        if self.modality == "nlp":
+            from semireward_tpu_torch.data.nlp import (NLPCollator,
+                                                       auto_buckets,
+                                                       get_nlp_dataset,
+                                                       get_tokenizer)
+            self.bundle = bundle if bundle is not None else GenericBundle(
+                get_nlp_dataset(cfg, cfg.algorithm), cfg.num_classes)
+            # static length buckets (default 64/128/256/max_length):
+            # extra['length_buckets'] = a list to override, False/[] to
+            # pin the single max_length bucket
+            bk = cfg.extra.get("length_buckets", "auto")
+            bk = auto_buckets(cfg.max_length) if bk == "auto" else (bk or None)
+            self.collator = NLPCollator(get_tokenizer(cfg.net),
+                                        max_length=cfg.max_length, buckets=bk)
+        else:
+            self.bundle = bundle if bundle is not None else get_dataset(
+                cfg, cfg.algorithm)
         data_info = {"ulb_dest_len": self.bundle.ulb_dest_len,
                      "lb_dest_len": self.bundle.lb_dest_len}
 
         builder = NETS.get(cfg.net)
         fused = cfg.extra.get("use_fused_mlp")
+        flash = cfg.extra.get("use_flash_attention")
         net_kw = {"use_fused_mlp": (cfg.net.startswith("vit_")
-                                    if fused is None else bool(fused))}
-        net_kw.update(cfg.extra.get("net_kwargs", {}))
+                                    if fused is None else bool(fused)),
+                  "use_flash": (flash_auto_default(cfg, self.device)
+                                if flash is None else bool(flash))}
+        # explicit geometry overrides for the builder (small runs); a JSON
+        # object when it comes from the command line
+        extra_kw = cfg.extra.get("net_kwargs", {})
+        net_kw.update(json.loads(extra_kw) if isinstance(extra_kw, str)
+                      else extra_kw)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
         self.model = builder(num_classes=cfg.num_classes,
                              dtype=_DTYPES[cfg.compute_dtype],
                              device=self.device, generator=self.generator,
                              img_size=cfg.img_size, **net_kw)
+        check_fused_widths(self.model, self.device)
         self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
         no_color = bool(cfg.extra.get(
             "randaug_no_color", cfg.dataset in ("tissuemnist", "medmnist")))
@@ -87,7 +157,7 @@ class Trainer:
             crop_size=cfg.img_size,
             crop_pad=int(cfg.img_size * (1 - cfg.crop_ratio)),
             mean=self.bundle.mean, std=self.bundle.std, randaug_n=3,
-            exclude_color=no_color)
+            exclude_color=no_color) if self.modality == "cv" else None
         self.state = init_train_state(cfg, self.alg, self.model, builder,
                                       self.generator)
         self._step = make_train_step(cfg, self.alg)
@@ -104,20 +174,30 @@ class Trainer:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _make_loader(self) -> SSLLoader:
+    def _make_loader(self):
         cfg = self.cfg
+        if self.modality == "nlp":
+            return NLPSSLLoader(
+                {"train_lb": self.bundle.train_lb,
+                 "train_ulb": self.bundle.train_ulb},
+                self.collator, cfg.batch_size, cfg.ulb_batch_size,
+                self.alg.BATCH_KEYS, seed=cfg.seed)
         return SSLLoader(self.bundle, cfg.batch_size, cfg.ulb_batch_size,
                          seed=cfg.seed, sampler=cfg.train_sampler)
 
     def make_batch(self, raw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Raw host batch -> device views + labels/indices the algorithm
-        consumes."""
-        x_lb = self._to_device(raw["x_lb"])
-        x_ulb = self._to_device(raw["x_ulb"])
-        batch = augment_views(
-            x_lb, x_ulb, self.aug_spec,
-            [k for k in self.alg.BATCH_KEYS if k.startswith("x_")],
-            self.generator, weak_ulb_s=getattr(self.alg, "WEAK_ULB_S", False))
+        consumes. Token views go over as they are (no augmentation)."""
+        if self.modality == "nlp":
+            batch = {k: {kk: self._to_device(vv) for kk, vv in v.items()}
+                     for k, v in raw.items() if k.startswith("x_")}
+        else:
+            batch = augment_views(
+                self._to_device(raw["x_lb"]), self._to_device(raw["x_ulb"]),
+                self.aug_spec,
+                [k for k in self.alg.BATCH_KEYS if k.startswith("x_")],
+                self.generator,
+                weak_ulb_s=getattr(self.alg, "WEAK_ULB_S", False))
         for k in ("y_lb", "idx_lb", "idx_ulb"):
             if k in raw:
                 batch[k] = self._to_device(raw[k].astype(np.int64))
@@ -176,18 +256,42 @@ class Trainer:
         return results
 
     @torch.no_grad()
-    def _logits(self, x: np.ndarray) -> np.ndarray:
+    def _logits(self, x) -> np.ndarray:
+        """Logits of the EMA weights for an image batch or a token dict (no
+        normalization for tokens)."""
         names = [n for n, _ in self.model.named_parameters()]
         weights = dict(zip(names, self.state.ema))
-        xs = normalize(self._to_device(x), self.aug_spec.mean,
-                       self.aug_spec.std)
+        if isinstance(x, dict):
+            xs = {k: self._to_device(v) for k, v in x.items()}
+        else:
+            xs = normalize(self._to_device(x), self.aug_spec.mean,
+                           self.aug_spec.std)
         out = functional_call(self.model, weights, (xs,), {"train": False})
         return out["logits"].float().cpu().numpy()
+
+    def _eval_batches(self, ds):
+        """Fixed-shape eval batches with a validity mask; NLP texts are
+        tokenized into one bucket per batch."""
+        bs = self.cfg.eval_batch_size
+        if self.modality == "cv":
+            yield from eval_batches(ds, bs)
+            return
+        n = len(ds)
+        for start in range(0, n, bs):
+            stop = min(start + bs, n)
+            idx = np.arange(start, stop)
+            pad = bs - len(idx)
+            mask = np.ones(bs, bool)
+            if pad:
+                idx = np.concatenate([idx, np.full(pad, stop - 1)])
+                mask[bs - pad:] = False
+            yield {"x": self.collator([ds.texts[i] for i in idx]),
+                   "y": np.asarray(ds.targets)[idx], "mask": mask}
 
     def evaluate(self) -> Dict[str, float]:
         """Metrics of the EMA weights on the eval split."""
         preds, trues, logits_all = [], [], []
-        for b in eval_batches(self.bundle.eval, self.cfg.eval_batch_size):
+        for b in self._eval_batches(self.bundle.eval):
             logits = self._logits(b["x"])[b["mask"]]
             preds.append(logits.argmax(-1))
             trues.append(b["y"][b["mask"]])
@@ -203,8 +307,12 @@ class Trainer:
         out["loss"] = float((lse - lp[np.arange(len(y_true)), y_true]).mean())
         return out
 
-    def predict(self, x: np.ndarray, batch_size: Optional[int] = None
-                ) -> np.ndarray:
+    def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
+        """Logits for images ``[n, H, W, 3]`` or, for NLP nets, a list of
+        texts."""
         bs = batch_size or self.cfg.eval_batch_size
+        if self.modality == "nlp":
+            return np.concatenate([self._logits(self.collator(x[s:s + bs]))
+                                   for s in range(0, len(x), bs)])
         return np.concatenate([self._logits(x[s:s + bs])
                                for s in range(0, len(x), bs)])

@@ -1,0 +1,81 @@
+"""Modality pipelines (port of ``semireward_tpu/data/modality.py``, numpy
+only): how raw datasets become per-step view batches.
+
+- CV: the loader ships raw uint8; weak/strong views are built on the device
+  (``data/augment``).
+- NLP: the loader tokenizes on the host into a static length bucket; weak =
+  the 'ori' text, strong = a random back-translation (the reference's
+  "augmentation" is a table lookup, so there is nothing to run on the
+  device).
+
+The audio loader (``AudioSSLLoader``) is not ported yet (ROADMAP: audio).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from semireward_tpu_torch.data.loader import batched, infinite_indices
+
+
+class GenericBundle:
+    """Bundle facade for non-CV datasets (duck-types SSLDataBundle)."""
+
+    def __init__(self, splits, num_classes):
+        self.train_lb = splits["train_lb"]
+        self.train_ulb = splits["train_ulb"]
+        self.eval = splits["eval"]
+        self.test = splits.get("test")
+        self.num_classes = num_classes
+        self.mean = (0.0, 0.0, 0.0)
+        self.std = (1.0, 1.0, 1.0)
+
+    @property
+    def ulb_dest_len(self):
+        return len(self.train_ulb)
+
+    @property
+    def lb_dest_len(self):
+        return len(self.train_lb)
+
+
+def modality_of(net_name: str) -> str:
+    if net_name.startswith("bert") or net_name.startswith("dnabert") \
+            or "hf_text" in net_name:
+        return "nlp"
+    if net_name.startswith(("hubert", "wave2vec", "wav2vec")):
+        return "audio"
+    return "cv"
+
+
+class NLPSSLLoader:
+    """Yields tokenized view batches (keys shaped like the reference's nlp
+    collator output), every view of a step padded to one static length
+    bucket (data/nlp.py:NLPCollator.collate_views). The same seeds and
+    RandomState streams as the JAX loader on one process, so both give the
+    same batches. Several processes come with the mesh (ROADMAP: K4)."""
+
+    def __init__(self, splits, collator, batch_size, ulb_batch_size,
+                 batch_keys, seed=0):
+        self.lb = splits["train_lb"]
+        self.ulb = splits["train_ulb"]
+        self.col = collator
+        self.keys = batch_keys
+        self._lb = batched(infinite_indices(len(self.lb), seed, 0, 1),
+                           batch_size)
+        self._ulb = batched(infinite_indices(len(self.ulb), seed + 1, 0, 1),
+                            ulb_batch_size)
+        self._rs = np.random.RandomState(seed + 2)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict:
+        li = next(self._lb)
+        ui = next(self._ulb)
+        return {"y_lb": self.lb.targets[li],
+                "idx_lb": li.astype(np.int32),
+                "idx_ulb": ui.astype(np.int32),
+                **self.col.collate_views(self.lb, self.ulb, li, ui, self.keys,
+                                         self._rs)}

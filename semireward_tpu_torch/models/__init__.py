@@ -1,8 +1,9 @@
-"""Model zoo of the port: the ViT builders, registered under the JAX
-package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
+"""Model zoo of the port: the ViT and BERT builders, registered under the
+JAX package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
 ``{'logits', 'feat'}`` like the flax models."""
 from __future__ import annotations
 
+from semireward_tpu_torch.models import bert as _bert
 from semireward_tpu_torch.models import vit as _vit
 from semireward_tpu_torch.registry import NETS
 
@@ -10,6 +11,8 @@ for _name in ("vit_tiny_patch2_32", "vit_small_patch2_32",
               "vit_small_patch16_224", "vit_base_patch16_96",
               "vit_base_patch16_224"):
     NETS.register(getattr(_vit, _name), name=_name)
+for _name in ("bert_base_uncased", "bert_base_cased"):
+    NETS.register(getattr(_bert, _name), name=_name)
 
 
 def get_net_builder(net_name: str):

@@ -6,9 +6,11 @@ patch embedding, attention projections and MLP compute in ``dtype``
 probabilities cast back to ``dtype``; the residual stream in ``dtype``;
 features and head in float32. The MLP runs the fused kernel
 (``ops/fused_mlp.py``) under the same gate as the JAX model: fused unless
-training with MLP dropout. Module names follow torch idiom (``blocks.0``
-for flax ``blocks0``); ``semireward_tpu_torch.convert`` maps one onto the
-other.
+training with MLP dropout. With ``use_flash`` the attention runs the
+flash kernel (``ops/attention.py``, no bias, no dropout) under the JAX
+model's gate: unless training with attention dropout. Module names follow
+torch idiom (``blocks.0`` for flax ``blocks0``);
+``semireward_tpu_torch.convert`` maps one onto the other.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from semireward_tpu_torch.models.initializers import init_module_
+from semireward_tpu_torch.ops.attention import flash_attention
 from semireward_tpu_torch.ops.fused_mlp import fused_mlp
 
 
@@ -71,12 +74,13 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, use_flash: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.attn_drop, self.proj_drop, self.dtype = attn_drop, proj_drop, dtype
+        self.use_flash = use_flash
 
     def forward(self, x, train: bool, generator=None):
         B, N, C = x.shape
@@ -84,14 +88,17 @@ class Attention(nn.Module):
         hd = C // H
         qkv = _linear(x, self.qkv, self.dtype)
         # contiguous thirds of the fused projection, as in the flax model
-        q, k, v = (t.reshape(B, N, H, hd).transpose(1, 2)
-                   for t in qkv.split(C, dim=-1))          # [B, H, N, hd]
-        # bf16 products are exact in f32, so the f32 product reproduces the
-        # JAX einsum with preferred_element_type=float32
-        a = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
-        a = _dropout(F.softmax(a, dim=-1), self.attn_drop, train, generator)
-        out = torch.matmul(a.to(self.dtype), v)
-        out = out.transpose(1, 2).reshape(B, N, C)
+        q, k, v = (t.reshape(B, N, H, hd) for t in qkv.split(C, dim=-1))
+        if self.use_flash and not (train and self.attn_drop > 0):
+            out = flash_attention(q, k, v).reshape(B, N, C)
+        else:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, N, hd]
+            # bf16 products are exact in f32, so the f32 product reproduces
+            # the JAX einsum with preferred_element_type=float32
+            a = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
+            a = _dropout(F.softmax(a, dim=-1), self.attn_drop, train, generator)
+            out = torch.matmul(a.to(self.dtype), v)
+            out = out.transpose(1, 2).reshape(B, N, C)
         out = _linear(out, self.proj, self.dtype)
         return _dropout(out, self.proj_drop, train, generator)
 
@@ -100,10 +107,12 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
-                 dtype=torch.bfloat16, use_fused_mlp: bool = False):
+                 dtype=torch.bfloat16, use_fused_mlp: bool = False,
+                 use_flash: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop, dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop, dtype,
+                              use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype, use_fused_mlp)
         self.drop_path, self.dtype = drop_path, dtype
@@ -128,7 +137,8 @@ class VisionTransformer(nn.Module):
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 dtype=torch.bfloat16, use_fused_mlp: bool = False):
+                 dtype=torch.bfloat16, use_fused_mlp: bool = False,
+                 use_flash: bool = False):
         super().__init__()
         self.num_classes, self.img_size, self.patch_size = (num_classes,
                                                             img_size,
@@ -145,7 +155,7 @@ class VisionTransformer(nn.Module):
         dpr = [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate,
-                  attn_drop_rate, dpr[i], dtype, use_fused_mlp)
+                  attn_drop_rate, dpr[i], dtype, use_fused_mlp, use_flash)
             for i in range(depth))
         if global_pool == "avg":
             self.fc_norm = nn.LayerNorm(embed_dim, eps=1e-6)

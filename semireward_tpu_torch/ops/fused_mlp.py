@@ -35,6 +35,12 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def supported(c: int, h: int) -> bool:
+    """The widths the CUDA kernels are built for (the C side's
+    ``srt_fused_mlp_supported``): C in (128, 256, 384), H a multiple of 32."""
+    return c in (128, 256, 384) and h > 0 and h % 32 == 0
+
+
 def _gelu(u):
     return 0.5 * u * (1.0 + torch.erf(u * _INV_SQRT2))
 

@@ -1,16 +1,18 @@
 """Where the time of the port's training step goes, on one CUDA card.
 
-    python -m semireward_tpu_torch.profile_step [--steps 20] [--warmup 30]
-        [--out profile.json]
+    python -m semireward_tpu_torch.profile_step [--config <yaml>]
+        [--set key=value ...] [--steps 20] [--warmup 30] [--out profile.json]
 
-Builds the port's Trainer on the headline config
-(config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml, synthetic
-data, random weights, start_timing 10 so the measured steps are in stage 2),
-runs ``--warmup`` steps, then traces ``--steps`` steps with torch.profiler
-(CPU and CUDA). Prints one JSON object: wall time per step, device busy time
-per step (union of kernel intervals) and the idle share, and device time per
-kernel group (fused MLP kernels, other GEMMs, elementwise/reduction, ...)
-and per top kernel. Needs a CUDA card.
+Builds the port's Trainer on ``--config`` (default: the headline
+config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml) as
+:func:`synthetic_config` sets it up (synthetic data, random weights,
+start_timing 10 so the measured steps are in stage 2), with ``--set``
+overrides on top, runs ``--warmup`` steps, then traces ``--steps`` steps with
+torch.profiler (CPU and CUDA). Prints one JSON object: wall time per step,
+device busy time per step (union of kernel intervals) and the idle share,
+and device time per kernel group (fused MLP and flash attention kernels,
+other GEMMs, elementwise/reduction, ...) and per top kernel. Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -24,24 +26,60 @@ from collections import defaultdict
 import torch
 
 HEADLINE = "config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml"
+# the seeded text corpus of data/nlp.py:write_synthetic_corpus (git-ignored)
+SYNTH_TEXT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "build", "synth_text")
+
+
+def synthetic_config(path: str, overrides=None):
+    """``path``'s config as the smoke run, the profile and the A/B run it:
+    random weights and no resume (the repo ships no weights), start_timing
+    10 and N_k 10 (stage 2 and the reward filter within a short run), and
+    synthetic data: CIFAR-shaped images (``dataset synthetic``) for an
+    image net; for a text net the seeded aclImdb-layout corpus, written
+    under ``build/synth_text`` on first use. ``overrides`` go on top."""
+    from semireward_tpu_torch import config as config_lib
+    from semireward_tpu_torch.data.modality import modality_of
+
+    overrides = {"use_pretrain": False, "resume": False, "start_timing": 10,
+                 "N_k": 10, **(overrides or {})}
+    cfg = config_lib.from_yaml(path, overrides)
+    if modality_of(cfg.net) != "nlp":
+        return config_lib.from_yaml(path, {"dataset": "synthetic",
+                                           **overrides})
+    from semireward_tpu_torch.data.nlp import write_synthetic_corpus
+
+    write_synthetic_corpus(SYNTH_TEXT, cfg.dataset, cfg.num_classes)
+    return config_lib.from_yaml(path, {"data_dir": SYNTH_TEXT, **overrides})
 
 
 def _group(name: str) -> str:
     n = name.lower()
-    if "fwd_kernel" in n:
+    # the port's own kernels live in an anonymous namespace of csrc/*.cu
+    # (a template's name carries its return type, a plain function's not)
+    ours = n.startswith(("void (anonymous namespace)::",
+                         "(anonymous namespace)::"))
+    if ours and "flash_fwd_kernel" in n:
+        return "flash_attention_fwd"
+    if ours and ("flash_dq_kernel" in n or "flash_dkv_kernel" in n):
+        return "flash_attention_bwd"
+    if ours and "fwd_kernel" in n:
         return "fused_mlp_fwd"
-    if "dx_kernel" in n or "dw_kernel" in n or "reduce_kernel" in n:
+    if ours and ("dx_kernel" in n or "dw_kernel" in n
+                 or "reduce_kernel" in n):
         return "fused_mlp_bwd"
-    if "gemm" in n or "cutlass" in n or "sm90" in n or "matmul" in n:
+    if any(s in n for s in ("gemm", "cutlass", "sm90", "matmul", "nvjet")):
         return "gemm (attention, qkv/proj, head, rewarder)"
     if "conv" in n:
         return "conv (patch embed)"
     if "softmax" in n:
         return "softmax"
-    if "layer_norm" in n or "layernorm" in n:
+    if "layer_norm" in n or "layernorm" in n or "gammabeta" in n:
         return "layer_norm"
     if "foreach" in n or "multi_tensor" in n:
         return "optimizer/EMA (foreach)"
+    if "copy_kernel" in n:
+        return "copies and casts"
     if "memcpy" in n or "memset" in n:
         return "memcpy/memset"
     return "other elementwise/reduction/index"
@@ -62,6 +100,8 @@ def _union_us(intervals):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=HEADLINE)
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE", help="config override (repeatable)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--out", default=None,
@@ -72,12 +112,11 @@ def main(argv=None):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from semireward_tpu_torch import config as config_lib
     from semireward_tpu_torch.core.trainer import Trainer
 
-    cfg = config_lib.from_yaml(args.config, {
-        "dataset": "synthetic", "use_pretrain": False, "resume": False,
-        "start_timing": 10, "N_k": 10, "num_log_iter": 10 ** 9})
+    overrides = dict(kv.split("=", 1) for kv in args.set)
+    cfg = synthetic_config(args.config,
+                           {"num_log_iter": 10 ** 9, **overrides})
     trainer = Trainer(cfg)
     trainer.train(num_iters=args.warmup)
     torch.cuda.synchronize()
@@ -108,7 +147,8 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     result = {
-        "card": card, "config": args.config, "steps": n,
+        "card": card, "config": args.config, "overrides": overrides,
+        "steps": n,
         "wall_ms_per_step": wall * 1e3 / n,
         "device_busy_ms_per_step": busy_us / 1e3 / n,
         "device_idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall),
