@@ -36,7 +36,6 @@ from semireward_tpu_torch.data.datasets import SSLDataBundle, get_dataset
 from semireward_tpu_torch.data.loader import SSLLoader, eval_batches
 from semireward_tpu_torch.data.modality import (GenericBundle, NLPSSLLoader,
                                                 modality_of)
-from semireward_tpu_torch.ops import fused_mlp as fused_mlp_ops
 from semireward_tpu_torch.registry import ALGORITHMS, NETS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -58,31 +57,6 @@ def flash_auto_default(cfg: Config, device: torch.device) -> bool:
     return device.type == "cuda" and (
         cfg.net.startswith("vit_")
         or (cfg.net.startswith("bert_") and cfg.max_length >= 384))
-
-
-def fused_widths(model: torch.nn.Module):
-    """(C, H) of every MLP of ``model`` that runs the fused kernel."""
-    for m in model.modules():
-        if getattr(m, "use_fused", False):
-            w = (m.fc1 if hasattr(m, "fc1") else m.intermediate).weight
-            yield int(w.shape[1]), int(w.shape[0])
-
-
-def check_fused_widths(model: torch.nn.Module, device: torch.device) -> None:
-    """On a CUDA card, refuse at construction a fused MLP whose width the
-    full-resident kernel (K1) does not take: its hidden-blocked sibling (K3)
-    is not ported yet. The CPU runs the plain version at any width."""
-    if device.type != "cuda":
-        return
-    bad = sorted({(c, h) for c, h in fused_widths(model)
-                  if not fused_mlp_ops.supported(c, h)})
-    if bad:
-        c, h = bad[0]
-        raise NotImplementedError(
-            f"fused MLP at C={c}, H={h}: the full-resident kernel (K1) takes "
-            f"C in (128, 256, 384); the hidden-blocked fused MLP for wider "
-            f"nets (K3) is not ported yet (ROADMAP: K3). Set "
-            f"use_fused_mlp False to run the MLP as two dense layers.")
 
 
 class Trainer:
@@ -149,7 +123,6 @@ class Trainer:
                              dtype=_DTYPES[cfg.compute_dtype],
                              device=self.device, generator=self.generator,
                              img_size=cfg.img_size, **net_kw)
-        check_fused_widths(self.model, self.device)
         self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
         no_color = bool(cfg.extra.get(
             "randaug_no_color", cfg.dataset in ("tissuemnist", "medmnist")))

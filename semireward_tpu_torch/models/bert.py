@@ -34,7 +34,7 @@ from torch import nn
 
 from semireward_tpu_torch.models.vit import _dropout, _layer_norm, _linear
 from semireward_tpu_torch.ops.attention import flash_attention
-from semireward_tpu_torch.ops.fused_mlp import fused_mlp
+from semireward_tpu_torch.ops.fused_mlp import fused_mlp, require_supported
 
 ATTN_DROP = 0.1
 HIDDEN_DROP = 0.1
@@ -204,6 +204,10 @@ def _builder(name: str, vocab_size: int):
         with torch.device("meta"):
             model = ClassificationBert(num_classes, vocab_size=vocab_size,
                                        dtype=dtype, **fields)
+        layer = model.layer[0]
+        if layer.use_fused:
+            require_supported(layer.intermediate.in_features,
+                              layer.intermediate.out_features, device or "cpu")
         return init_bert_(model.to_empty(device=device or "cpu"), generator)
 
     build.__name__ = name

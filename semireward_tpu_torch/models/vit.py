@@ -23,7 +23,7 @@ from torch import nn
 
 from semireward_tpu_torch.models.initializers import init_module_
 from semireward_tpu_torch.ops.attention import flash_attention
-from semireward_tpu_torch.ops.fused_mlp import fused_mlp
+from semireward_tpu_torch.ops.fused_mlp import fused_mlp, require_supported
 
 
 def _linear(x, layer: nn.Linear, dtype):
@@ -219,6 +219,10 @@ def _builder(name, **cfg):
         with torch.device("meta"):
             model = VisionTransformer(num_classes=num_classes, dtype=dtype,
                                       **merged)
+        mlp = model.blocks[0].mlp
+        if mlp.use_fused:
+            require_supported(mlp.fc1.in_features, mlp.fc1.out_features,
+                              device or "cpu")
         model = model.to_empty(device=device or "cpu")
         init_module_(model, generator)
         with torch.no_grad():

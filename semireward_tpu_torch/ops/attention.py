@@ -24,13 +24,13 @@ thresh`` with ``ctr = (bh * Np + q) * Np + k`` in wrapping uint32 arithmetic
 and ``Np`` = N rounded up to 128. The port pads nothing, so the kernels mask
 a ragged tail themselves and take any N; ``Np`` stays because it is part of
 the stream. The seed is an int32 tensor that the kernels read on the device.
+A counter past ``2**32`` (``B * H * Np**2``) wraps in the kernels as in
+:func:`attention_keep_mask`, so the stream stays the JAX one there too.
 
-As in the JAX package, a bias that is not key-only, or a dropout counter
-that would pass ``2**32`` (``B * H * Np**2``), takes the einsum path
-(:func:`einsum_attention`, same hash mask); ``plain_routes`` counts those
-calls. ``flash_attention_sharded``, and with it the batch*head offsets of a
-shard in the counter, come with the mesh (ROADMAP: K4);
-:func:`attention_keep_mask` already takes them.
+A bias that is not key-only is refused (the JAX package sends it to an
+einsum path; no net of the port passes one). ``flash_attention_sharded``,
+and with it the batch*head offsets of a shard in the counter, come with the
+mesh (ROADMAP: K4); :func:`attention_keep_mask` already takes them.
 """
 from __future__ import annotations
 
@@ -44,18 +44,14 @@ from semireward_tpu_torch.ops import _build
 # launches of each kernel wrapper (the backward counts once per call of its
 # dq + dk/dv pair)
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
-# calls routed to the einsum path (non-key-only bias, counter past uint32)
-plain_routes = {"flash_attention": 0}
 
-_NEG_INF = -1e30
 _BQ = 128          # the JAX kernel's tile: the counter's Np rounds N up to it
 _U32 = 0xFFFFFFFF
 
 
 def reset_launches() -> None:
-    for d in (launches, plain_routes):
-        for k in d:
-            d[k] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -301,36 +297,18 @@ class _Flash(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# the einsum path and the public function
+# the public function
 # ---------------------------------------------------------------------------
 
 def _key_bias_of(bias, B, H, N):
-    """``[B*H, N]`` f32 key-only bias, or None if ``bias`` is not a key-only
-    broadcast (``[B,1,1,N]`` / ``[1,1,1,N]`` / ``[B,H,1,N]``)."""
-    if bias is None or bias.ndim != 4:
-        return None
-    b0, h0, n0, n1 = bias.shape
-    if n0 != 1 or n1 != N or b0 not in (1, B) or h0 not in (1, H):
-        return None
+    """``[B*H, N]`` f32 key-only bias (``bias`` a ``[B,1,1,N]`` /
+    ``[1,1,1,N]`` / ``[B,H,1,N]`` broadcast); raises for any other shape."""
+    shape = tuple(bias.shape)
+    if (len(shape) != 4 or shape[2] != 1 or shape[3] != N
+            or shape[0] not in (1, B) or shape[1] not in (1, H)):
+        raise ValueError(f"flash_attention: the bias must be key-only "
+                         f"([B|1, H|1, 1, N] with N={N}), got {shape}")
     return bias.float().expand(B, H, 1, N).reshape(B * H, N).contiguous()
-
-
-def einsum_attention(q, k, v, bias, rate: float, seed):
-    """The JAX package's fused-einsum path (``_xla_attention``): softmax of
-    ``q k^T * scale + bias`` in f32, the same hash dropout mask, probs cast
-    to q's dtype before ``PV``. Autograd differentiates it."""
-    B, N, H, d = q.shape
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) / math.sqrt(d)
-    if bias is not None:
-        s = s + bias.float()
-    p = torch.softmax(s, dim=-1)
-    if rate:
-        keep = attention_keep_mask(seed, B * H, N, padded_len(N),
-                                   keep_threshold(rate),
-                                   device=q.device).view(B, H, N, N)
-        p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
-    out = torch.einsum("bhnm,bmhd->bnhd", p.to(q.dtype).float(), v.float())
-    return out.to(q.dtype)
 
 
 def _seed_tensor(seed, device):
@@ -351,12 +329,7 @@ def flash_attention(q, k, v, bias=None, dropout_rate: float = 0.0,
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no path for device {q.device}")
-    key_bias = _key_bias_of(bias, B, H, N)
-    Np = padded_len(N)
-    drop_ok = rate == 0.0 or B * H * Np * Np < 2 ** 32
-    if (bias is not None and key_bias is None) or not drop_ok:
-        plain_routes["flash_attention"] += 1
-        return einsum_attention(q, k, v, bias, rate, dropout_seed)
+    key_bias = None if bias is None else _key_bias_of(bias, B, H, N)
     seed = _seed_tensor(dropout_seed, q.device) if rate else None
     return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                         key_bias, seed, rate)

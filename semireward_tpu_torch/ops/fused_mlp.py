@@ -35,12 +35,6 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def supported(c: int, h: int) -> bool:
-    """The widths the CUDA kernels are built for (the C side's
-    ``srt_fused_mlp_supported``): C in (128, 256, 384), H a multiple of 32."""
-    return c in (128, 256, 384) and h > 0 and h % 32 == 0
-
-
 def _gelu(u):
     return 0.5 * u * (1.0 + torch.erf(u * _INV_SQRT2))
 
@@ -92,6 +86,22 @@ def _lib():
     return lib
 
 
+def require_supported(c: int, h: int, device) -> None:
+    """On a CUDA ``device``, raise ``NotImplementedError`` when the Hopper
+    kernels (built for the widths that ``srt_fused_mlp_supported`` names)
+    do not take an MLP of width ``c`` and hidden ``h``: the hidden-blocked
+    kernel for wider MLPs (K3) is not ported yet. The CPU runs the plain
+    version at any width."""
+    if torch.device(device).type != "cuda":
+        return
+    if not _lib().srt_fused_mlp_supported(c, h):
+        raise NotImplementedError(
+            f"fused MLP at C={c}, H={h}: the full-resident kernel (K1) does "
+            f"not take this width and the hidden-blocked one (K3) is not "
+            f"ported yet (ROADMAP: K3). Set use_fused_mlp False to run the "
+            f"MLP as two dense layers.")
+
+
 def _check(name, t, shape, dtype):
     if not t.is_cuda:
         raise ValueError(f"fused_mlp: {name} is on {t.device}, expected CUDA")
@@ -111,11 +121,8 @@ def _check_args(x, w1, b1, w2):
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_mlp: the CUDA kernel takes bfloat16 "
                          f"activations, got {x.dtype}")
-    if not _lib().srt_fused_mlp_supported(c, h):
-        raise ValueError(f"fused_mlp: the CUDA kernel takes C in "
-                         f"(128, 256, 384) and H a multiple of 32, got "
-                         f"C={c}, H={h}")
     _check("x", x, (m, c), torch.bfloat16)
+    require_supported(c, h, x.device)
     _check("w1", w1, (h, c), torch.bfloat16)
     _check("b1", b1, (h,), torch.float32)
     _check("w2", w2, (c, h), torch.bfloat16)

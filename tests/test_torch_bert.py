@@ -9,8 +9,10 @@ rounded to bf16 after every sublayer on both sides, and XLA and torch round
 the bf16 GELU and the bf16 projections at different points.
 
 Also: layer-decay groups and weight-decay mask equal JAX's, the
-``inputs_embeds`` contract, and the K1 width gate of the trainer.
+``inputs_embeds`` contract, and the K1 width gate of the model builders.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,12 +31,21 @@ VOCAB, NC, L = 1000, 3, 48
 
 
 def make_pair(use_flash, dtype="float32", seed=0):
+    """(flax model, its params, the torch model with those weights); built
+    once per geometry, the tests only read them."""
+    return _pair(bool(use_flash), dtype, seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(use_flash, dtype, seed):
     jm = jbert.ClassificationBert(num_classes=NC, vocab_size=VOCAB,
                                   dtype=getattr(jnp, dtype),
                                   use_flash=use_flash, **GEOM)
     sample = {"input_ids": jnp.zeros((2, L), jnp.int32),
               "attention_mask": jnp.ones((2, L), jnp.int32)}
-    params = jm.init(jax.random.PRNGKey(seed), sample, train=False)["params"]
+    # one compiled init instead of one eager program per op
+    params = jax.jit(lambda key: jm.init(key, sample, train=False))(
+        jax.random.PRNGKey(seed))["params"]
     with torch.device("meta"):
         tm = tbert.ClassificationBert(NC, vocab_size=VOCAB,
                                       dtype=getattr(torch, dtype),
@@ -80,7 +91,8 @@ def test_inputs_embeds_and_return_embed():
         head = tm(feat, only_fc=True)
     torch.testing.assert_close(via["logits"], base["logits"])
     torch.testing.assert_close(head, base["logits"])
-    want = jm.apply({"params": params}, jx, train=False, return_embed=True)
+    want = jax.jit(lambda p, x: jm.apply({"params": p}, x, train=False,
+                                         return_embed=True))(params, jx)
     assert_rel_close(base["embed"], np.asarray(want["embed"]), 1e-5, "embed")
 
 
@@ -120,30 +132,34 @@ def test_registered_builders():
         assert float(m.layer[0].attention.query.bias.abs().max()) == 0.0
 
 
-def test_k1_width_gate_refuses_what_only_k3_takes():
-    """On a CUDA device the trainer refuses, at construction, a fused MLP
-    whose width the full-resident kernel (K1) does not take (ViT-B, BERT
-    with the fused MLP): the hidden-blocked kernel (K3) is not ported. The
-    decision reads only shapes, so meta-device models show it here."""
-    from semireward_tpu_torch.core.trainer import check_fused_widths
-    from semireward_tpu_torch.models import vit as tvit
+def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
+    """On a CUDA device the model builders (and so the trainer) refuse,
+    before they allocate anything, a fused MLP whose width the kernel
+    library (K1) does not take (ViT-B, BERT with the fused MLP): the
+    hidden-blocked kernel (K3) is not ported. Without a card a stand-in
+    library answers as ``srt_fused_mlp_supported`` does (C in 128/256/384,
+    H a multiple of 32); the card test asks the real one."""
+    from semireward_tpu_torch.models import get_net_builder
+    from semireward_tpu_torch.ops import fused_mlp as tfm
 
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    with torch.device("meta"):
-        vit_b = tvit.VisionTransformer(10, img_size=96, patch_size=16,
-                                       embed_dim=768, depth=1, num_heads=12,
-                                       use_fused_mlp=True)
-        vit_s = tvit.VisionTransformer(10, img_size=32, patch_size=2,
-                                       embed_dim=384, depth=1, num_heads=6,
-                                       use_fused_mlp=True)
-        bert_fused = tbert.ClassificationBert(2, layers=1, use_fused_mlp=True)
-        bert_dense = tbert.ClassificationBert(2, layers=1)
-    for m in (vit_b, bert_fused):
+    asked = []
+
+    class StandIn:
+        @staticmethod
+        def srt_fused_mlp_supported(c, h):
+            asked.append((c, h))
+            return int(c in (128, 256, 384) and h % 32 == 0)
+
+    monkeypatch.setattr(tfm, "_lib", lambda: StandIn)
+    for net, kw in (("vit_base_patch16_96", {}),
+                    ("bert_base_uncased", {"layers": 1})):
         with pytest.raises(NotImplementedError, match="K3"):
-            check_fused_widths(m, cuda)
-        check_fused_widths(m, cpu)   # the plain version takes any width
-    check_fused_widths(vit_s, cuda)
-    check_fused_widths(bert_dense, cuda)
+            get_net_builder(net)(num_classes=2, device="cuda",
+                                 use_fused_mlp=True, **kw)
+    assert asked == [(768, 3072)] * 2
+    tfm.require_supported(384, 1536, "cuda")     # ViT-S: K1 takes it
+    tfm.require_supported(768, 3072, "cpu")      # the CPU never asks
+    assert asked[2:] == [(384, 1536)]
 
 
 @pytest.mark.parametrize("net,max_length,device,want", [

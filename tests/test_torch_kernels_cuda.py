@@ -48,10 +48,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     w2 = torch.zeros(64, 256, device=cuda_device, dtype=torch.bfloat16)
     b1 = torch.zeros(256, device=cuda_device)
     b2 = torch.zeros(64, device=cuda_device)
-    with pytest.raises(ValueError, match="C in"):
+    with pytest.raises(NotImplementedError, match="K3"):
         F.fused_mlp(x, w1, b1, w2, b2)             # C = 64 is not built
     with pytest.raises(ValueError, match="bfloat16"):
         F.fused_mlp(x.float(), w1, b1, w2, b2)     # no f32 kernel
+    # the model builders' gate asks the same kernel library
+    F.require_supported(384, 1536, cuda_device)    # ViT-S
+    for c, h in ((768, 3072), (64, 256)):          # ViT-B / BERT-base, C=64
+        with pytest.raises(NotImplementedError, match="K3"):
+            F.require_supported(c, h, cuda_device)
 
 
 def _attn_inputs(dev, B, N, H, d, pad, seed=0):
@@ -121,7 +126,8 @@ def test_flash_dropout_stream_is_bit_exact_on_the_card(cuda_device, N):
 @pytest.mark.cuda
 def test_flash_autograd_uses_the_kernels(cuda_device):
     """flash_attention on CUDA tensors launches the forward once and the
-    backward once, and a non-key-only bias takes the einsum path."""
+    backward once, and refuses a bias that is not key-only (no plain
+    route on the card)."""
     q, k, v, do, kb = _attn_inputs(cuda_device, 2, 128, 2, 64, pad=9)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     A.reset_launches()
@@ -131,6 +137,6 @@ def test_flash_autograd_uses_the_kernels(cuda_device):
     torch.cuda.synchronize()
     assert A.launches == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
     full = torch.zeros(2, 1, 128, 128, device=cuda_device)
-    A.flash_attention(q, k, v, bias=full)
-    assert A.plain_routes["flash_attention"] == 1
+    with pytest.raises(ValueError, match="key-only"):
+        A.flash_attention(q, k, v, bias=full)
     assert A.launches["flash_attention_fwd"] == 1

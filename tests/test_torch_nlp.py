@@ -3,6 +3,8 @@ copies) against the JAX package on a tiny JSON corpus: the dataset split,
 the tokenizer, the length buckets, ``collate_views`` and ``NLPSSLLoader``
 give bit-equal batches for the same seeds."""
 import json
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -79,12 +81,47 @@ def test_buckets_and_tokenizer(max_length):
     assert_batches_equal(tcol(texts), jcol(texts), "collate")
 
 
-def test_get_tokenizer_gives_the_same_ids():
+def test_get_tokenizer_gives_the_same_ids(monkeypatch):
+    """Without ``transformers`` (hidden here: with no local vocabulary it
+    falls back either way, and importing it costs seconds) both packages
+    take the hash tokenizer."""
+    monkeypatch.setitem(sys.modules, "transformers", None)
     t, j = tnlp.get_tokenizer("bert_base_uncased"), \
         jnlp.get_tokenizer("bert_base_uncased")
-    assert type(t).__name__ == type(j).__name__
+    assert type(t).__name__ == type(j).__name__ == "HashTokenizer"
     for text in ("a short review", "Another, longer one: it was great!"):
         np.testing.assert_array_equal(t.encode(text, 16), j.encode(text, 16))
+
+
+def test_get_tokenizer_wraps_a_local_vocabulary(monkeypatch):
+    """With a local vocabulary both packages wrap the same AutoTokenizer the
+    same way; a stand-in ``transformers`` plays the HF tokenizer."""
+    asked = []
+
+    class StandIn:
+        def __call__(self, text, max_length, truncation, padding=None):
+            assert truncation
+            ids = [101] + [1000 + len(w) for w in text.split()][
+                :max_length - 2] + [102]
+            if padding == "max_length":
+                ids += [0] * (max_length - len(ids))
+            return {"input_ids": ids}
+
+    def from_pretrained(path, local_files_only):
+        asked.append((path, local_files_only))
+        return StandIn()
+
+    fake = types.ModuleType("transformers")
+    fake.AutoTokenizer = types.SimpleNamespace(from_pretrained=from_pretrained)
+    monkeypatch.setitem(sys.modules, "transformers", fake)
+    t, j = tnlp.get_tokenizer("bert_base_uncased"), \
+        jnlp.get_tokenizer("bert_base_uncased")
+    assert asked == [("bert-base-uncased", True)] * 2
+    for text in ("a short review", " ".join(["word"] * 40)):
+        assert t.encode_ids(text, 16) == j.encode_ids(text, 16)
+        got, want = t.encode(text, 16), j.encode(text, 16)
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
 
 
 def test_collate_views_bit_equal(tmp_path):

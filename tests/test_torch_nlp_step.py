@@ -23,6 +23,7 @@ YAML, with the small geometry, on the CPU.
 """
 import json
 import math
+import sys
 import types
 
 import flax.linen as fnn
@@ -109,9 +110,16 @@ def test_three_srflexmatch_bert_steps_match_jax():
         **GEOM))
     sample = {"input_ids": jnp.zeros((2, L), jnp.int32),
               "attention_mask": jnp.ones((2, L), jnp.int32)}
-    jstate, tx = jax_init(jcfg, jalg, jmodel, jax.random.PRNGKey(0), sample,
-                          builder=_layer_decay(jbert._layer_id))
-    jstep = jax.jit(jax_make_step(jcfg, jalg, jmodel, tx))
+    txs = []
+
+    def init(rng):   # one compiled program instead of ~160 eager ones
+        state, tx = jax_init(jcfg, jalg, jmodel, rng, sample,
+                             builder=_layer_decay(jbert._layer_id))
+        txs.append(tx)
+        return state
+
+    jstate = jax.jit(init)(jax.random.PRNGKey(0))
+    jstep = jax.jit(jax_make_step(jcfg, jalg, jmodel, txs[0]))
 
     talg = TALGS.get("srflexmatch")(tcfg, DATA_INFO, torch.device("cpu"))
     with torch.device("meta"):
@@ -172,11 +180,14 @@ def test_three_srflexmatch_bert_steps_match_jax():
     assert A.launches == {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 
-def test_cli_trains_the_nlp_yaml_on_cpu(tmp_path):
+def test_cli_trains_the_nlp_yaml_on_cpu(tmp_path, monkeypatch):
     """``python -m semireward_tpu_torch.train --c <aclImdb yaml>`` with the
-    small geometry, the flash path on, two steps and an eval, on the CPU."""
+    small geometry, the flash path on, two steps and an eval, on the CPU.
+    ``transformers`` is hidden: with no local vocabulary the tokenizer falls
+    back to the hash tokenizer either way, and importing it costs seconds."""
     from semireward_tpu_torch import train as cli
 
+    monkeypatch.setitem(sys.modules, "transformers", None)
     root = tmp_path / "data" / "aclImdb"
     root.mkdir(parents=True)
     rs = np.random.RandomState(0)
