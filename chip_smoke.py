@@ -9,26 +9,38 @@
 3. kernel phases: hold each kernel against its plain PyTorch version and
    time kernel, plain version and the one-call PyTorch equivalent (yardstick
    only) beside the bound:
-   - K1, the fused MLP, at the headline shape and a small ragged one;
+   - K1, the full-resident fused MLP, at the headline shape and a small
+     ragged one;
+   - K3, the hidden-blocked fused MLP (forward; dx + dW), at the HuBERT-base
+     train shape (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M
+     12*512 = 6144) and a small ragged M, dW deterministic across two
+     launches;
    - K2, flash attention (forward; dq + dk/dv), at the BERT-base train shape
-     (12 x 12 heads, N 512, key-padding bias, dropout 0.1), at ViT-S's
-     shape (24 x 6 heads, N 257, no bias) and at a small ragged shape; the
-     dropout stream read out of the forward kernel bit for bit at the BERT
-     shape; and flash against the unfused attention at both model shapes;
+     (12 x 12 heads, N 512, key-padding bias, dropout 0.1), at HuBERT-base's
+     (24 x 12 heads, N 199, dropout 0.1, no bias), at ViT-S's (24 x 6 heads,
+     N 257, no bias) and at small ragged shapes; the dropout stream read out
+     of the forward kernel bit for bit at the BERT shape; and flash against
+     the unfused attention at the three model shapes;
 4. train phases, each with every kernel count set to 0 just before it and
    read just after, exact launch counts, losses, SemiReward and FlexMatch
-   state checked, an eval at the end:
+   state checked, an eval at the end, all on the port's defaults on a card:
    - ViT: the headline config
      (``config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml``,
      SRFlexMatch, ViT-S/2-32 at full width and depth, 8+8 images) on
-     synthetic images for 1200 steps through the fused MLP (K1) and, as
-     the port's default on a card, flash attention (K2, no bias);
+     synthetic images for ``TRAIN_STEPS`` steps through K1 and K2 (no
+     bias);
    - BERT: the usb_nlp config
      (``config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml``,
      SRFlexMatch, BERT-base at full width and depth, max_length 512, 4+4
      texts, ``use_cat``) on a synthetic aclImdb-layout corpus for
-     ``BERT_STEPS`` steps, every attention call on K2, the MLP as two dense
-     layers;
+     ``BERT_STEPS`` steps, every attention call on K2, every MLP on K3;
+   - audio: the usb_audio config
+     (``config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml``,
+     SRFlexMatch, HuBERT-base at full width and depth, 4 s at 16 kHz = 199
+     frames, 8+8 clips, ``use_cat``: M = 4776 rows in every MLP) on a
+     synthetic ESC-50-layout corpus for ``AUDIO_STEPS`` steps, every MLP
+     on K3 and every attention call on K2 (no bias, dropout 0.1; eval too,
+     at N 199 >= 128), the strong views' sox effects on the device;
 5. prints one ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 Any failed check raises, so the exit code is not 0 and the ``ok`` line is
@@ -37,6 +49,7 @@ not printed. Needs one CUDA card; fails without one.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -50,6 +63,8 @@ HEADLINE_YAML = os.path.join(
     HERE, "config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml")
 NLP_YAML = os.path.join(
     HERE, "config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml")
+AUDIO_YAML = os.path.join(
+    HERE, "config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml")
 # H100 SXM published peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -60,9 +75,13 @@ PEAK_BYTES = 3.35e12
 # prob 0.93 over 512 unlabeled images at step 400), so the run is long
 # enough for selected_label to move (800 steps: 2 entries). BERT-base on the
 # synthetic corpus first passes the cutoff between steps 250 and 500 (H100
-# run: 11 entries changed at step 500, 686 at step 750).
+# run: 11 entries changed at step 500, 686 at step 750). HuBERT-base on the
+# synthetic ESC-50 corpus first passed it by step 300 with the unfused
+# attention and by step 500 with flash attention (H100 runs: 584 entries
+# changed by step 1500, 22 by step 600), so its phase runs twice that.
 TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 1200, 10, 10, 100
 BERT_STEPS, BERT_LOG_EVERY = 700, 100
+AUDIO_STEPS, AUDIO_LOG_EVERY = 1000, 100
 
 
 def card_line() -> str:
@@ -108,13 +127,20 @@ def check_close(name, got, want, rel_tol):
 
 
 def fused_mlp_phase(F):
-    """K1 forward/backward vs the plain version. Tolerances: bf16 outputs
-    (out, dx, dW) carry 8 significant bits, so one rounding at the largest
-    magnitude is 0.4% of it and sums run in another order: 1% of max|plain|.
-    Bias grads are f32 sums of the same terms: 0.1%."""
+    """K1 and K3 forward/backward vs the plain version. Tolerances: bf16
+    outputs (out, dx, dW) carry 8 significant bits, so one rounding at the
+    largest magnitude is 0.4% of it and sums run in another order: 1% of
+    max|plain|. Bias grads are f32 sums of the same terms: 0.1%. Timed at
+    the headline shape (K1) and the HuBERT-base train shape (K3); K3's
+    numbers at the BERT-base shape are printed beside them."""
     dev = torch.device("cuda")
     results = {}
-    for m, c, h in ((100, 128, 256), (6168, 384, 1536)):
+    for m, c, h in ((100, 128, 256), (6168, 384, 1536), (100, 768, 3072),
+                    (4776, 768, 3072), (6144, 768, 3072)):
+        blocked = c == 768
+        fwd = F.kernel_blocked_fwd if blocked else F.kernel_fwd
+        bwd = F.kernel_blocked_bwd if blocked else F.kernel_bwd
+        name = "fused_mlp_blocked" if blocked else "fused_mlp"
         g = torch.Generator().manual_seed(0)
         x = torch.randn(m, c, generator=g).to(dev, torch.bfloat16)
         w1 = (torch.randn(h, c, generator=g) * 0.05).to(dev, torch.bfloat16)
@@ -122,19 +148,24 @@ def fused_mlp_phase(F):
         w2 = (torch.randn(c, h, generator=g) * 0.05).to(dev, torch.bfloat16)
         b2 = (torch.randn(c, generator=g) * 0.1).to(dev)
         gy = torch.randn(m, c, generator=g).to(dev, torch.bfloat16)
-        print(f"fused_mlp M={m} C={c} H={h}")
-        out = F.kernel_fwd(x, w1, b1, w2, b2)
+        print(f"{name} M={m} C={c} H={h}")
+        out = fwd(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         err_f = check_close("fwd out", out, F.plain_fwd(x, w1, b1, w2, b2),
                             1e-2)
-        grads = F.kernel_bwd(x, w1, b1, w2, gy)
+        grads = bwd(x, w1, b1, w2, gy)
         torch.cuda.synchronize()
         err_b = 0.0
         for n, a, b in zip(("dx", "dw1", "dw2", "db1", "db2"), grads,
                            F.plain_bwd(x, w1, b1, w2, gy)):
             err_b = max(err_b, check_close(
                 f"bwd {n}", a, b, 1e-3 if n.startswith("db") else 1e-2))
-        if m != 6168:
+        again = bwd(x, w1, b1, w2, gy)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"{name} backward is not deterministic")
+        print("  backward bit-equal across two launches: ok")
+        if m == 100:
             continue
         # the one-call PyTorch equivalent, timed as a yardstick only
         xl, w1l, b1l, w2l, b2l = (t.detach().clone().requires_grad_()
@@ -148,27 +179,34 @@ def fused_mlp_phase(F):
         lib_out = lib_fwd()
         fwd_flops = 4.0 * m * c * h
         bwd_flops = 10.0 * m * c * h
+        # the forward needs 2 products, the backward 5 (u again, dh, dx, dW1,
+        # dW2); K3's dx / dW split computes 3 + 4
         bf, byf = bound_ms(nbytes(x, w1, b1, w2, b2, out), fwd_flops)
         bb, byb = bound_ms(nbytes(x, w1, b1, w2, gy, *grads), bwd_flops)
-        results["fused_mlp_fwd"] = dict(
-            max_abs_err=err_f,
-            ms=time_ms(lambda: F.kernel_fwd(x, w1, b1, w2, b2)),
-            plain_ms=time_ms(lambda: F.plain_fwd(x, w1, b1, w2, b2)),
-            bound_ms=bf, bound_by=byf,
-            library_ms=time_ms(lambda: lib_fwd().detach()))
-        results["fused_mlp_bwd"] = dict(
-            max_abs_err=err_b,
-            ms=time_ms(lambda: F.kernel_bwd(x, w1, b1, w2, gy)),
-            plain_ms=time_ms(lambda: F.plain_bwd(x, w1, b1, w2, gy)),
-            bound_ms=bb, bound_by=byb,
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                lib_out, (xl, w1l, b1l, w2l, b2l), gy, retain_graph=True)))
-    for name, r in results.items():
-        print(json.dumps({"kernel": name, "kernel_ms": r["ms"],
-                          "plain_ms": r["plain_ms"],
-                          "library_ms": r["library_ms"],
-                          "bound_ms": r["bound_ms"],
-                          "bound_by": r["bound_by"]}))
+        timed = {
+            f"{name}_fwd": dict(
+                max_abs_err=err_f,
+                ms=time_ms(lambda: fwd(x, w1, b1, w2, b2)),
+                plain_ms=time_ms(lambda: F.plain_fwd(x, w1, b1, w2, b2)),
+                bound_ms=bf, bound_by=byf,
+                library_ms=time_ms(lambda: lib_fwd().detach())),
+            f"{name}_bwd": dict(
+                max_abs_err=err_b,
+                ms=time_ms(lambda: bwd(x, w1, b1, w2, gy)),
+                plain_ms=time_ms(lambda: F.plain_bwd(x, w1, b1, w2, gy)),
+                bound_ms=bb, bound_by=byb,
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    lib_out, (xl, w1l, b1l, w2l, b2l), gy,
+                    retain_graph=True)))}
+        for k, r in timed.items():
+            print(json.dumps({"kernel": k, "M": m, "C": c, "H": h,
+                              "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+                              "library_ms": r["library_ms"],
+                              "bound_ms": r["bound_ms"],
+                              "bound_by": r["bound_by"],
+                              "max_abs_err": r["max_abs_err"]}))
+        if m != 6144:  # the kernels line carries K3 at the HuBERT shape
+            results.update(timed)
     return results
 
 
@@ -223,6 +261,7 @@ def flash_phase(A):
             ("ragged", (2, 77, 3, 64, True, 0.1)),
             ("ragged_130", (3, 130, 2, 64, True, 0.1)),
             ("vit", (24, 257, 6, 64, False, 0.0)),
+            ("hubert", (24, 199, 12, 64, False, 0.1)),
             ("bert", (12, 512, 12, 64, True, 0.1))):
         q, k, v, do, bias4 = _attn_inputs(B, N, H, d, padded)
         kb = A._key_bias_of(bias4, B, H, N) if padded else None
@@ -241,7 +280,7 @@ def flash_phase(A):
         for n, a, b in zip(("dq", "dk", "dv"), grads,
                            A.plain_bwd(*args, do, lse, delta)):
             err_b = max(err_b, check_close(f"bwd {n}", a, b, 1e-2))
-        if name in ("vit", "bert"):
+        if name in ("vit", "hubert", "bert"):
             versus[name] = dict(
                 shape=[B, N, H, d], bias=padded, dropout=rate,
                 flash_fwd_bwd_ms=_fwd_bwd_ms(
@@ -253,14 +292,15 @@ def flash_phase(A):
                                                        gen), q, k, v, do))
             print(f"  flash vs unfused attention (fwd + bwd): "
                   f"{json.dumps(versus[name])}")
-        if name != "bert":
+        if name not in ("hubert", "bert"):
             continue
-        check_dropout_stream(A, B, N, H, d, seed, rate)
-        # F.scaled_dot_product_attention with the float key mask and the same
-        # dropout rate (its own RNG stream), timed as a yardstick only
+        if name == "bert":
+            check_dropout_stream(A, B, N, H, d, seed, rate)
+        # F.scaled_dot_product_attention with the float key mask (BERT) and
+        # the same dropout rate (its own RNG stream), timed as a yardstick
         ql, kl, vl = (t.detach().transpose(1, 2).clone().requires_grad_()
                       for t in (q, k, v))
-        mask = bias4.to(torch.bfloat16)
+        mask = bias4.to(torch.bfloat16) if padded else None
 
         def lib_fwd():
             return torch.nn.functional.scaled_dot_product_attention(
@@ -274,26 +314,31 @@ def flash_phase(A):
         # kernels' dq / dk-dv split recomputes S and dP once more (7)
         bb, byb = bound_ms(nbytes(q, k, v, kb, seed, do, lse, delta, *grads),
                            5 * flops)
-        results["flash_attention_fwd"] = dict(
-            max_abs_err=err_f,
-            ms=time_ms(lambda: A.kernel_fwd(*args)),
-            plain_ms=time_ms(lambda: A.plain_fwd(*args), iters=5),
-            bound_ms=bf, bound_by=byf,
-            library_ms=time_ms(lambda: lib_fwd().detach()))
-        results["flash_attention_bwd"] = dict(
-            max_abs_err=err_b,
-            ms=time_ms(lambda: A.kernel_bwd(*args, do, lse, delta)),
-            plain_ms=time_ms(lambda: A.plain_bwd(*args, do, lse, delta),
-                             iters=5),
-            bound_ms=bb, bound_by=byb,
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                lib_out, (ql, kl, vl), do_t, retain_graph=True)))
-    for name, r in results.items():
-        print(json.dumps({"kernel": name, "kernel_ms": r["ms"],
-                          "plain_ms": r["plain_ms"],
-                          "library_ms": r["library_ms"],
-                          "bound_ms": r["bound_ms"],
-                          "bound_by": r["bound_by"]}))
+        timed = {
+            "flash_attention_fwd": dict(
+                max_abs_err=err_f,
+                ms=time_ms(lambda: A.kernel_fwd(*args)),
+                plain_ms=time_ms(lambda: A.plain_fwd(*args), iters=5),
+                bound_ms=bf, bound_by=byf,
+                library_ms=time_ms(lambda: lib_fwd().detach())),
+            "flash_attention_bwd": dict(
+                max_abs_err=err_b,
+                ms=time_ms(lambda: A.kernel_bwd(*args, do, lse, delta)),
+                plain_ms=time_ms(lambda: A.plain_bwd(*args, do, lse, delta),
+                                 iters=5),
+                bound_ms=bb, bound_by=byb,
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    lib_out, (ql, kl, vl), do_t, retain_graph=True)))}
+        for k, r in timed.items():
+            print(json.dumps({"kernel": k, "shape": name, "B": B, "N": N,
+                              "H": H, "kernel_ms": r["ms"],
+                              "plain_ms": r["plain_ms"],
+                              "library_ms": r["library_ms"],
+                              "bound_ms": r["bound_ms"],
+                              "bound_by": r["bound_by"],
+                              "max_abs_err": r["max_abs_err"]}))
+        if name == "bert":  # the kernels line carries K2 at the BERT shape
+            results.update(timed)
     print(json.dumps({"flash_vs_unfused_attention": versus,
                       "card": card_line()}))
     return results
@@ -347,14 +392,21 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                                        "N_k": N_K, **overrides})
     trainer = Trainer(cfg)
     model = trainer.model
-    n_fused = sum(bool(getattr(m, "use_fused", False))
-                  for m in model.modules())
+    # fused MLP layers by the kernel their width takes (K1 or K3)
+    fused = {"full": 0, "blocked": 0}
+    for m in model.modules():
+        if getattr(m, "use_fused", False):
+            fc1 = next(c for c in m.children()
+                       if isinstance(c, torch.nn.Linear)
+                       and c.out_features > c.in_features)
+            fused[F.route(fc1.in_features, fc1.out_features, "cuda")] += 1
     n_flash = sum(bool(getattr(m, "use_flash", False))
                   for m in model.modules()
                   if not getattr(m, "attn_drop", 0.0))
     print(f"train {name}: {cfg.algorithm} {cfg.net} "
           f"batch={cfg.batch_size}+{cfg.ulb_batch_size} use_cat={cfg.use_cat} "
-          f"steps={steps} fused MLP layers={n_fused} flash layers={n_flash}")
+          f"steps={steps} fused MLP layers K1={fused['full']} "
+          f"K3={fused['blocked']} flash layers={n_flash}")
     sel0 = trainer.state.algo.selected_label.clone()
     history, rewarder_snaps, first_select = [], {}, []
 
@@ -376,8 +428,10 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     launches = {**F.launches, **A.launches}
 
     n_eval = math.ceil(len(trainer.bundle.eval) / cfg.eval_batch_size)
-    want = {"fused_mlp_fwd": n_fused * (steps + n_eval),
-            "fused_mlp_bwd": n_fused * steps,
+    want = {"fused_mlp_fwd": fused["full"] * (steps + n_eval),
+            "fused_mlp_bwd": fused["full"] * steps,
+            "fused_mlp_blocked_fwd": fused["blocked"] * (steps + n_eval),
+            "fused_mlp_blocked_bwd": fused["blocked"] * steps,
             "flash_attention_fwd": n_flash * (steps + n_eval),
             "flash_attention_bwd": n_flash * steps}
     print(f"  launches {launches} (expected {want})")
@@ -421,6 +475,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    # the trainers' log and eval lines go to stderr as they come
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     from semireward_tpu_torch.ops import _build
     from semireward_tpu_torch.ops import attention as A
     from semireward_tpu_torch.ops import fused_mlp as F
@@ -440,16 +496,23 @@ def main() -> int:
 
     kernels = fused_mlp_phase(F)
     kernels.update(flash_phase(A))
-    launches = train_phase("vit", HEADLINE_YAML, {}, TRAIN_STEPS, LOG_EVERY,
-                           F, A, ("fused_mlp_fwd", "fused_mlp_bwd"))
-    bert = train_phase("bert", NLP_YAML, {"use_flash_attention": True,
-                                          "use_fused_mlp": False},
-                       BERT_STEPS, BERT_LOG_EVERY, F, A,
-                       ("flash_attention_fwd", "flash_attention_bwd"))
-    launches = {k: launches[k] + bert[k] for k in launches}
+    k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
+    k2 = ("flash_attention_fwd", "flash_attention_bwd")
+    phases = [
+        train_phase("vit", HEADLINE_YAML, {}, TRAIN_STEPS, LOG_EVERY, F, A,
+                    ("fused_mlp_fwd", "fused_mlp_bwd") + k2),
+        train_phase("bert", NLP_YAML, {}, BERT_STEPS, BERT_LOG_EVERY, F, A,
+                    k2 + k3),
+        train_phase("audio", AUDIO_YAML, {}, AUDIO_STEPS, AUDIO_LOG_EVERY, F,
+                    A, k2 + k3)]
+    launches = {k: sum(p[k] for p in phases) for k in phases[0]}
 
     where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),
              "fused_mlp_bwd": ("fused_mlp.cu", "fused_mlp.py:107"),
+             "fused_mlp_blocked_fwd": ("fused_mlp_blocked.cu",
+                                       "fused_mlp.py:202"),
+             "fused_mlp_blocked_bwd": ("fused_mlp_blocked.cu",
+                                       "fused_mlp.py:319"),
              "flash_attention_fwd": ("flash_attention.cu", "attention.py:110"),
              "flash_attention_bwd": ("flash_attention.cu", "attention.py:372")}
     line = [{"name": name, "route": "cuda",

@@ -1,18 +1,22 @@
-"""A/B of the flash attention path (K2) in the training step, on one CUDA card.
+"""A/B of a kernel path in the training step, on one CUDA card.
 
-    python -m semireward_tpu_torch.ab_flash [--steps 100] [--warmup 30]
-        [--out ab.json]
+    python -m semireward_tpu_torch.ab_flash [--knob use_flash_attention]
+        [--configs bert_base_L512,vit_small_N257,hubert_base_N199]
+        [--steps 100] [--warmup 30] [--out ab.json]
 
-For the usb_nlp BERT-base config
-(config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml, the MLP
-as two dense layers) and the headline ViT-S config, builds two trainers
-(``use_flash_attention`` True and False) as ``profile_step.synthetic_config``
+For each named config (the usb_nlp BERT-base config
+config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml, the
+headline ViT-S config, the usb_audio HuBERT-base config
+config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml), builds
+two trainers with ``--knob`` (``use_flash_attention``, K2, or
+``use_fused_mlp``, K1/K3) True and False as ``profile_step.synthetic_config``
 sets them up, warms each up, then times windows of ``--steps`` steps in the
 order on, off, off, on (host clock, each window ends in a device sync) so a
 drift of the host shows as a difference between the two windows of one arm.
 Prints one JSON object with steps/s per window and per arm and the card's
-name and power limit. These numbers set ``flash_auto_default`` in
-``core/trainer.py``.
+name and power limit. The flash numbers set ``flash_auto_default`` in
+``core/trainer.py``; the fused-MLP default follows the JAX package, and its
+A/B is recorded only.
 """
 from __future__ import annotations
 
@@ -28,9 +32,11 @@ import torch
 from semireward_tpu_torch.profile_step import HEADLINE, synthetic_config
 
 NLP = "config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml"
+AUDIO = "config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml"
 CONFIGS = {
-    "bert_base_L512": (NLP, {"use_fused_mlp": False}),
+    "bert_base_L512": (NLP, {}),
     "vit_small_N257": (HEADLINE, {}),
+    "hubert_base_N199": (AUDIO, {}),
 }
 
 
@@ -45,35 +51,40 @@ def _window(trainer, loader, steps: int) -> float:
     return steps / (time.perf_counter() - t0)
 
 
-def ab(path: str, overrides: dict, steps: int, warmup: int) -> dict:
+def ab(path: str, overrides: dict, steps: int, warmup: int,
+       knob: str = "use_flash_attention") -> dict:
     from semireward_tpu_torch.core.trainer import Trainer
 
     arms = {}
-    for flash in (True, False):
+    for on in (True, False):
         cfg = synthetic_config(path, {**overrides, "num_log_iter": 10 ** 9,
-                                      "use_flash_attention": flash})
+                                      knob: on})
         trainer = Trainer(cfg)
         loader = trainer._make_loader()
         _window(trainer, loader, warmup)
-        arms[flash] = (trainer, loader)
+        arms[on] = (trainer, loader)
     windows = []
-    for flash in (True, False, False, True):
-        windows.append({"flash": flash,
-                        "steps_per_sec": _window(*arms[flash], steps)})
+    for on in (True, False, False, True):
+        windows.append({knob: on,
+                        "steps_per_sec": _window(*arms[on], steps)})
     arms.clear()
     gc.collect()
     torch.cuda.empty_cache()
     mean = {arm: sum(w["steps_per_sec"] for w in windows
-                     if w["flash"] == arm) / 2 for arm in (True, False)}
-    return {"config": path, "overrides": overrides, "steps": steps,
-            "warmup": warmup, "windows": windows,
-            "flash_steps_per_sec": mean[True],
-            "unfused_steps_per_sec": mean[False],
-            "flash_over_unfused": mean[True] / mean[False]}
+                     if w[knob] == arm) / 2 for arm in (True, False)}
+    return {"config": path, "knob": knob, "overrides": overrides,
+            "steps": steps, "warmup": warmup, "windows": windows,
+            "on_steps_per_sec": mean[True],
+            "off_steps_per_sec": mean[False],
+            "on_over_off": mean[True] / mean[False]}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--knob", default="use_flash_attention",
+                    choices=("use_flash_attention", "use_fused_mlp"))
+    ap.add_argument("--configs", default=",".join(CONFIGS),
+                    help="comma-separated names of CONFIGS")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--out", default=None,
@@ -85,8 +96,10 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     result = {"card": card}
-    for name, (path, overrides) in CONFIGS.items():
-        result[name] = ab(path, overrides, args.steps, args.warmup)
+    for name in args.configs.split(","):
+        path, overrides = CONFIGS[name]
+        result[name] = ab(path, overrides, args.steps, args.warmup,
+                          args.knob)
         print(json.dumps({name: result[name]}), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -3,12 +3,13 @@ JAX needed at run time).
 
 - Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``; a fused ``qkv``
   kernel keeps its q/k/v thirds in place.
-- Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW.
+- Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW; a 1-D conv's
+  ``[k, in/groups, out]`` -> Conv1d ``[out, in/groups, k]`` (groups kept).
 - LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``.
 - flax's ``blocks3`` / ``layer3`` module names -> torch's ``blocks.3`` /
   ``layer.3``; raw params (BERT's ``position_embeddings``) keep their name.
 
-Works for the ViT, the BERT classifier and the SemiReward
+Works for the ViT, the BERT and HuBERT/wav2vec2 classifiers and the SemiReward
 ``Rewarder``/``Generator``.
 """
 from __future__ import annotations
@@ -39,6 +40,8 @@ def _value(leaf: str, value: np.ndarray) -> np.ndarray:
     if leaf == "kernel":
         if value.ndim == 2:
             return value.T
+        if value.ndim == 3:
+            return value.transpose(2, 1, 0)
         if value.ndim == 4:
             return value.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {value.ndim}")

@@ -51,7 +51,12 @@ def make_train_step(cfg, alg: Algorithm) -> Callable:
                       sr_state=state.sr)
         out = alg.loss(ctx)
         params = list(state.model.parameters())
-        state.opt.step(torch.autograd.grad(out.total_loss, params))
+        # parameters outside the graph (a frozen feature extractor) get a
+        # zero gradient, as optax gives them: Adam's moments still decay
+        # and AdamW's weight decay still shrinks them
+        state.opt.step(torch.autograd.grad(out.total_loss, params,
+                                           allow_unused=True,
+                                           materialize_grads=True))
         tree_ema(state.ema, params, cfg.ema_m)
         state.algo = out.new_algo_state
         metrics = {k: v.detach() for k, v in out.metrics.items()}

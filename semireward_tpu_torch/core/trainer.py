@@ -1,4 +1,4 @@
-"""Training loop (port of the CV and NLP branches of
+"""Training loop (port of the CV, NLP and audio branches of
 ``semireward_tpu/core/trainer.py``): build data, model, algorithm and state
 from a ``Config``, run the step loop with the log and eval cadence, and
 evaluate / predict with the EMA weights.
@@ -6,9 +6,11 @@ evaluate / predict with the EMA weights.
 Per step, CV: the host gathers a raw uint8 batch (seeded samplers), copies
 it to the device, builds the weak/strong views there. NLP: the host
 tokenizes the views into one static length bucket and copies the token
-dicts over. Then the train step runs. Metrics stay on the device until a log
+dicts over. Audio: the host crops / pads the waveforms into the fixed
+bucket, the strong views' crops go over raw and get their sox effects on
+the device. Then the train step runs. Metrics stay on the device until a log
 boundary. Not ported yet (ROADMAP): checkpoint save/resume, the metrics
-sink, prefetch, pretrained grafting, audio and bio data.
+sink, prefetch, pretrained grafting, bio data.
 """
 from __future__ import annotations
 
@@ -34,12 +36,16 @@ from semireward_tpu_torch.data.augment import (AugmentSpec, augment_views,
                                                normalize)
 from semireward_tpu_torch.data.datasets import SSLDataBundle, get_dataset
 from semireward_tpu_torch.data.loader import SSLLoader, eval_batches
-from semireward_tpu_torch.data.modality import (GenericBundle, NLPSSLLoader,
+from semireward_tpu_torch.data.modality import (AudioSSLLoader,
+                                                GenericBundle, NLPSSLLoader,
                                                 modality_of)
 from semireward_tpu_torch.registry import ALGORITHMS, NETS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+# nets whose MLP runs the fused kernels unless the config says otherwise, as
+# in the JAX package (K1 at ViT-S widths, K3 at C = 768)
+FUSED_MLP_NETS = ("vit_", "bert_", "hubert_", "wave2vecv2_")
 
 
 def _not_ported(what: str, item: str):
@@ -48,14 +54,16 @@ def _not_ported(what: str, item: str):
 
 def flash_auto_default(cfg: Config, device: torch.device) -> bool:
     """``use_flash_attention`` when the config leaves it unset, set by the
-    H100 A/B of ``python -m semireward_tpu_torch.ab_flash`` (PERF.md): on a
+    H100 A/Bs of ``python -m semireward_tpu_torch.ab_flash`` (PERF.md): on a
     CUDA card, on for the ViTs (ViT-S/2-32, N = 257: a fifth less device
-    time per step, 0.98-1.12x the steps/s of the unfused attention) and for
-    BERT at ``max_length`` >= 384 (BERT-base at 512: 1.10-1.72x). Shorter
-    BERT runs are not measured yet and stay off, as in the JAX package. The
-    CPU runs the plain version either way."""
+    time per step, 0.98-1.12x the steps/s of the unfused attention), for
+    BERT at ``max_length`` >= 384 (BERT-base at 512: 1.10-1.72x) and for
+    HuBERT / wav2vec2 (HuBERT-base at N = 199: 1.08x, every flash window
+    faster than every unfused one). Shorter BERT runs are not measured yet
+    and stay off, as in the JAX package. The CPU runs the plain version
+    either way."""
     return device.type == "cuda" and (
-        cfg.net.startswith("vit_")
+        cfg.net.startswith(("vit_", "hubert_", "wave2vecv2_"))
         or (cfg.net.startswith("bert_") and cfg.max_length >= 384))
 
 
@@ -80,8 +88,9 @@ class Trainer:
         if cfg.gradient_checkpointing:
             _not_ported("gradient checkpointing", "remat")
         self.modality = modality_of(cfg.net)
-        if self.modality == "audio":
-            _not_ported("audio data and nets", "audio")
+        if self.modality == "audio" and not cfg.extra.get("audio_exact_reverb",
+                                                          True):
+            _not_ported("the fast reverb (audio_exact_reverb False)", "audio")
         if cfg.net.startswith("dnabert"):
             _not_ported("bio/DNA data", "NLP and bio")
 
@@ -99,6 +108,13 @@ class Trainer:
             bk = auto_buckets(cfg.max_length) if bk == "auto" else (bk or None)
             self.collator = NLPCollator(get_tokenizer(cfg.net),
                                         max_length=cfg.max_length, buckets=bk)
+        elif self.modality == "audio":
+            from semireward_tpu_torch.data.audio import (AudioCollator,
+                                                         get_audio_dataset)
+            self.bundle = bundle if bundle is not None else GenericBundle(
+                get_audio_dataset(cfg, cfg.algorithm), cfg.num_classes)
+            self.collator = AudioCollator(cfg.max_length_seconds,
+                                          cfg.sample_rate)
         else:
             self.bundle = bundle if bundle is not None else get_dataset(
                 cfg, cfg.algorithm)
@@ -108,7 +124,7 @@ class Trainer:
         builder = NETS.get(cfg.net)
         fused = cfg.extra.get("use_fused_mlp")
         flash = cfg.extra.get("use_flash_attention")
-        net_kw = {"use_fused_mlp": (cfg.net.startswith("vit_")
+        net_kw = {"use_fused_mlp": (cfg.net.startswith(FUSED_MLP_NETS)
                                     if fused is None else bool(fused)),
                   "use_flash": (flash_auto_default(cfg, self.device)
                                 if flash is None else bool(flash))}
@@ -149,8 +165,9 @@ class Trainer:
 
     def _make_loader(self):
         cfg = self.cfg
-        if self.modality == "nlp":
-            return NLPSSLLoader(
+        if self.modality in ("nlp", "audio"):
+            loader = NLPSSLLoader if self.modality == "nlp" else AudioSSLLoader
+            return loader(
                 {"train_lb": self.bundle.train_lb,
                  "train_ulb": self.bundle.train_ulb},
                 self.collator, cfg.batch_size, cfg.ulb_batch_size,
@@ -160,10 +177,24 @@ class Trainer:
 
     def make_batch(self, raw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Raw host batch -> device views + labels/indices the algorithm
-        consumes. Token views go over as they are (no augmentation)."""
+        consumes. Token views go over as they are (no augmentation);
+        waveform crops under ``<view>_base`` become that strong view on the
+        device, with draws from the trainer's generator."""
         if self.modality == "nlp":
             batch = {k: {kk: self._to_device(vv) for kk, vv in v.items()}
                      for k, v in raw.items() if k.startswith("x_")}
+        elif self.modality == "audio":
+            from semireward_tpu_torch.data.audio import (apply_strong_wave,
+                                                         draw_strong_wave)
+            batch = {}
+            for k, v in raw.items():
+                if k.endswith("_base"):
+                    x = self._to_device(v)
+                    batch[k[:-5]] = apply_strong_wave(
+                        x, draw_strong_wave(self.generator, x.shape[0],
+                                            self.device))
+                elif k.startswith("x_"):
+                    batch[k] = self._to_device(v)
         else:
             batch = augment_views(
                 self._to_device(raw["x_lb"]), self._to_device(raw["x_ulb"]),
@@ -230,12 +261,14 @@ class Trainer:
 
     @torch.no_grad()
     def _logits(self, x) -> np.ndarray:
-        """Logits of the EMA weights for an image batch or a token dict (no
-        normalization for tokens)."""
+        """Logits of the EMA weights for an image batch, a token dict or a
+        waveform batch (no normalization for tokens and waveforms)."""
         names = [n for n, _ in self.model.named_parameters()]
         weights = dict(zip(names, self.state.ema))
         if isinstance(x, dict):
             xs = {k: self._to_device(v) for k, v in x.items()}
+        elif self.modality == "audio":
+            xs = self._to_device(x)
         else:
             xs = normalize(self._to_device(x), self.aug_spec.mean,
                            self.aug_spec.std)
@@ -244,7 +277,8 @@ class Trainer:
 
     def _eval_batches(self, ds):
         """Fixed-shape eval batches with a validity mask; NLP texts are
-        tokenized into one bucket per batch."""
+        tokenized into one bucket per batch, waveforms cropped / padded to
+        the bucket."""
         bs = self.cfg.eval_batch_size
         if self.modality == "cv":
             yield from eval_batches(ds, bs)
@@ -258,7 +292,8 @@ class Trainer:
             if pad:
                 idx = np.concatenate([idx, np.full(pad, stop - 1)])
                 mask[bs - pad:] = False
-            yield {"x": self.collator([ds.texts[i] for i in idx]),
+            items = ds.texts if self.modality == "nlp" else ds.waves
+            yield {"x": self.collator([items[i] for i in idx]),
                    "y": np.asarray(ds.targets)[idx], "mask": mask}
 
     def evaluate(self) -> Dict[str, float]:
@@ -281,10 +316,10 @@ class Trainer:
         return out
 
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
-        """Logits for images ``[n, H, W, 3]`` or, for NLP nets, a list of
-        texts."""
+        """Logits for images ``[n, H, W, 3]`` or, for NLP and audio nets, a
+        list of texts or waveforms."""
         bs = batch_size or self.cfg.eval_batch_size
-        if self.modality == "nlp":
+        if self.modality in ("nlp", "audio"):
             return np.concatenate([self._logits(self.collator(x[s:s + bs]))
                                    for s in range(0, len(x), bs)])
         return np.concatenate([self._logits(x[s:s + bs])

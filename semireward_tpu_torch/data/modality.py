@@ -7,8 +7,9 @@ only): how raw datasets become per-step view batches.
   the 'ori' text, strong = a random back-translation (the reference's
   "augmentation" is a table lookup, so there is nothing to run on the
   device).
-
-The audio loader (``AudioSSLLoader``) is not ported yet (ROADMAP: audio).
+- Audio: the loader random-crops to the fixed bucket; the strong views
+  leave as raw crops under ``<key>_base`` and are transformed on the device
+  (``data/audio.apply_strong_wave``).
 """
 from __future__ import annotations
 
@@ -79,3 +80,42 @@ class NLPSSLLoader:
                 "idx_ulb": ui.astype(np.int32),
                 **self.col.collate_views(self.lb, self.ulb, li, ui, self.keys,
                                          self._rs)}
+
+
+class AudioSSLLoader:
+    """Yields fixed-bucket waveform batches; the strong views carry a fresh
+    raw crop under ``x_ulb_s*_base`` and are transformed on the device. The
+    same seeds and RandomState stream as the JAX loader on one process, so
+    both give the same batches."""
+
+    def __init__(self, splits, collator, batch_size, ulb_batch_size,
+                 batch_keys, seed=0):
+        self.lb = splits["train_lb"]
+        self.ulb = splits["train_ulb"]
+        self.col = collator
+        self.keys = batch_keys
+        self._lb = batched(infinite_indices(len(self.lb), seed, 0, 1),
+                           batch_size)
+        self._ulb = batched(infinite_indices(len(self.ulb), seed + 1, 0, 1),
+                            ulb_batch_size)
+        self._rs = np.random.RandomState(seed + 2)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict:
+        li = next(self._lb)
+        ui = next(self._ulb)
+        out = {"y_lb": self.lb.targets[li],
+               "idx_lb": li.astype(np.int32),
+               "idx_ulb": ui.astype(np.int32)}
+        lb_waves = [self.lb.waves[i] for i in li]
+        ulb_waves = [self.ulb.waves[i] for i in ui]
+        for k in self.keys:
+            if k == "x_lb":
+                out[k] = self.col(lb_waves, self._rs)
+            elif k in ("x_ulb_w", "x_ulb_w_2"):
+                out[k] = self.col(ulb_waves, self._rs)
+            elif k.startswith("x_ulb_s"):
+                out[k + "_base"] = self.col(ulb_waves, self._rs)
+        return out

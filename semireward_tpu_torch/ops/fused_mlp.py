@@ -1,15 +1,27 @@
 """Fused transformer MLP: ``gelu(x @ W1^T + b1) @ W2^T + b2``.
 
-Port of ``semireward_tpu/ops/fused_mlp.py`` (the full-resident pair
-``_fwd_kernel``/``_bwd_kernel``). On a CUDA tensor the forward and backward
-run the hand-written Hopper kernels in ``csrc/fused_mlp.cu``, which keep the
-``[rows, hidden]`` activation out of device memory. On a CPU tensor they run
-the plain PyTorch version below, which does the same arithmetic: bf16 (or
-the activation dtype) products with f32 accumulation, bias adds and GELU in
-f32, the hidden rounded to the activation dtype before the second product,
-``dh`` rounded before ``dx``/``dW1``, f32 bias grads and weight grads in the
-weights' dtype. GELU is the exact erf form in both; the TPU kernel used an
-erf approximation only because Mosaic had no ``erf`` (max error 1.5e-7).
+Port of ``semireward_tpu/ops/fused_mlp.py``. On a CUDA tensor the forward and
+backward run hand-written Hopper kernels that keep the ``[rows, hidden]``
+activation out of device memory:
+
+- K1 (``csrc/fused_mlp.cu``), the full-resident pair
+  ``_fwd_kernel``/``_bwd_kernel``, for the widths it takes (C in 128/256/384,
+  ViT-S);
+- K3 (``csrc/fused_mlp_blocked.cu``), the hidden-blocked
+  ``_fwd_blocked_kernel``/``_bwd_dx_kernel``/``_bwd_dw_kernel``, for C = 768
+  (ViT-B, BERT-base, HuBERT-base, wav2vec2-base; H = 3072), or wherever
+  ``block_h`` < H forces the blocked form.
+
+A width neither kernel takes raises on a CUDA tensor: there is no plain path
+on the card. On a CPU tensor both run the plain PyTorch version below, which
+does K1's arithmetic: bf16 (or the activation dtype) products with f32
+accumulation, bias adds and GELU in f32, the hidden rounded to the activation
+dtype before the second product, ``dh`` rounded before ``dx``/``dW1``, f32
+bias grads from the unrounded ``dh``, weight grads in the weights' dtype. The
+blocked kernels compute the same function with the f32 sums taken in another
+order (per hidden slice), so the same plain version is theirs too. GELU is
+the exact erf form everywhere; the TPU kernel used an erf approximation only
+because Mosaic had no ``erf`` (max error 1.5e-7).
 
 Weights use ``torch.nn.Linear``'s layout: ``w1 [H, C]``, ``w2 [C, H]``.
 """
@@ -22,9 +34,10 @@ import torch
 
 from semireward_tpu_torch.ops import _build
 
-# launches of each kernel wrapper (the backward counts once per call of its
-# three-kernel sequence)
-launches = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+# launches of each kernel wrapper (a backward counts once per call of its
+# kernel sequence)
+launches = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
+            "fused_mlp_blocked_fwd": 0, "fused_mlp_blocked_bwd": 0}
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -73,6 +86,7 @@ def plain_bwd(x, w1, b1, w2, g):
 # ---------------------------------------------------------------------------
 
 def _lib():
+    """K1, the full-resident kernels."""
     lib = _build.load("fused_mlp")
     if not getattr(lib, "_srt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -86,20 +100,57 @@ def _lib():
     return lib
 
 
-def require_supported(c: int, h: int, device) -> None:
-    """On a CUDA ``device``, raise ``NotImplementedError`` when the Hopper
-    kernels (built for the widths that ``srt_fused_mlp_supported`` names)
-    do not take an MLP of width ``c`` and hidden ``h``: the hidden-blocked
-    kernel for wider MLPs (K3) is not ported yet. The CPU runs the plain
-    version at any width."""
+def _blocked_lib():
+    """K3, the hidden-blocked kernels."""
+    lib = _build.load("fused_mlp_blocked")
+    if not getattr(lib, "_srt_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.srt_fused_mlp_blocked_supported.argtypes = [i, i]
+        lib.srt_fused_mlp_blocked_supported.restype = i
+        lib.srt_fused_mlp_blocked_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.srt_fused_mlp_blocked_fwd.restype = i
+        lib.srt_fused_mlp_blocked_bwd.argtypes = [p] * 11 + [i, i, i, i, p]
+        lib.srt_fused_mlp_blocked_bwd.restype = i
+        lib._srt_typed = True
+    return lib
+
+
+def check_block_h(h: int, block_h) -> None:
+    """The JAX call contract: a ``block_h`` that does not divide the hidden
+    dim raises (the TPU grid would silently drop the last partial block)."""
+    if block_h is not None and (block_h <= 0 or h % block_h != 0):
+        raise ValueError(f"block_h={block_h} must divide hidden dim {h}")
+
+
+def route(c: int, h: int, device, block_h=None) -> str:
+    """Which kernel an MLP of width ``c`` and hidden ``h`` takes on
+    ``device``: ``'plain'`` on the CPU; on a CUDA device ``'full'`` (K1)
+    where K1 takes the width and ``block_h`` does not force hidden blocks
+    (``block_h`` < ``h``), else ``'blocked'`` (K3). Raises
+    ``NotImplementedError`` when neither kernel takes the width, and
+    ``ValueError`` for a ``block_h`` that does not divide ``h``."""
+    check_block_h(h, block_h)
     if torch.device(device).type != "cuda":
-        return
-    if not _lib().srt_fused_mlp_supported(c, h):
-        raise NotImplementedError(
-            f"fused MLP at C={c}, H={h}: the full-resident kernel (K1) does "
-            f"not take this width and the hidden-blocked one (K3) is not "
-            f"ported yet (ROADMAP: K3). Set use_fused_mlp False to run the "
-            f"MLP as two dense layers.")
+        return "plain"
+    forced = block_h is not None and block_h < h
+    if not forced and _lib().srt_fused_mlp_supported(c, h):
+        return "full"
+    if _blocked_lib().srt_fused_mlp_blocked_supported(c, h):
+        return "blocked"
+    raise NotImplementedError(
+        f"fused MLP at C={c}, H={h}: neither the full-resident kernel (K1: "
+        f"C in 128/256/384, H a multiple of 32"
+        f"{'' if not forced else f'; block_h={block_h} forces hidden blocks'}"
+        f") nor the hidden-blocked one (K3: C = 768, H a multiple of 32) "
+        f"takes this width. Set use_fused_mlp False to run the MLP as two "
+        f"dense layers.")
+
+
+def require_supported(c: int, h: int, device) -> None:
+    """On a CUDA ``device``, raise ``NotImplementedError`` unless K1 or K3
+    takes an MLP of width ``c`` and hidden ``h`` (see :func:`route`). The
+    CPU runs the plain version at any width."""
+    route(c, h, device)
 
 
 def _check(name, t, shape, dtype):
@@ -115,14 +166,17 @@ def _check(name, t, shape, dtype):
                          f"16-byte aligned")
 
 
-def _check_args(x, w1, b1, w2):
+def _check_args(x, w1, b1, w2, supported):
     m, c = x.shape
     h = w1.shape[0]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_mlp: the CUDA kernel takes bfloat16 "
                          f"activations, got {x.dtype}")
     _check("x", x, (m, c), torch.bfloat16)
-    require_supported(c, h, x.device)
+    if not supported(c, h):
+        raise NotImplementedError(f"fused_mlp: this kernel does not take "
+                                  f"C={c}, H={h} (route() picks the one "
+                                  f"that does)")
     _check("w1", w1, (h, c), torch.bfloat16)
     _check("b1", b1, (h,), torch.float32)
     _check("w2", w2, (c, h), torch.bfloat16)
@@ -140,7 +194,8 @@ def _raise_if(err, what):
 
 
 def kernel_fwd(x, w1, b1, w2, b2):
-    m, c, h = _check_args(x, w1, b1, w2)
+    """K1 forward."""
+    m, c, h = _check_args(x, w1, b1, w2, _lib().srt_fused_mlp_supported)
     _check("b2", b2, (c,), torch.float32)
     out = torch.empty_like(x)
     err = _lib().srt_fused_mlp_fwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
@@ -152,14 +207,15 @@ def kernel_fwd(x, w1, b1, w2, b2):
 
 
 def bwd_splits(m: int, h: int, device) -> int:
-    """Row splits of the dW kernel: as many (hidden chunk, split) CTAs as fit
-    one wave on the card's SMs, at least one."""
+    """Row splits of K1's dW kernel: as many (hidden chunk, split) CTAs as
+    fit one wave on the card's SMs, at least one."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(math.ceil(m / 64), sms // (h // 32)))
 
 
 def kernel_bwd(x, w1, b1, w2, g):
-    m, c, h = _check_args(x, w1, b1, w2)
+    """K1 backward -> (dx, dw1, dw2, db1, db2)."""
+    m, c, h = _check_args(x, w1, b1, w2, _lib().srt_fused_mlp_supported)
     _check("g", g, (m, c), torch.bfloat16)
     splits = bwd_splits(m, h, x.device)
     dx = torch.empty_like(x)
@@ -178,41 +234,81 @@ def kernel_bwd(x, w1, b1, w2, g):
     return dx, dw1, dw2, db1, db2
 
 
-def _fwd(x, w1, b1, w2, b2):
-    if x.device.type == "cpu":
-        return plain_fwd(x, w1, b1, w2, b2)
-    return kernel_fwd(x, w1, b1, w2, b2)
+def kernel_blocked_fwd(x, w1, b1, w2, b2):
+    """K3 forward."""
+    lib = _blocked_lib()
+    m, c, h = _check_args(x, w1, b1, w2, lib.srt_fused_mlp_blocked_supported)
+    _check("b2", b2, (c,), torch.float32)
+    out = torch.empty_like(x)
+    err = lib.srt_fused_mlp_blocked_fwd(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), m, c, h, _stream(x))
+    _raise_if(err, "blocked forward")
+    launches["fused_mlp_blocked_fwd"] += 1
+    return out
 
 
-def _bwd(x, w1, b1, w2, g):
-    if x.device.type == "cpu":
-        return plain_bwd(x, w1, b1, w2, g)
-    return kernel_bwd(x, w1, b1, w2, g.contiguous())
+# Row splits of K3's dW kernel: one gives H / 16 = 192 CTAs at H = 3072,
+# 1.45 waves of one CTA per SM on 132 SMs; two give 384, at the price of a
+# 2 x 18.9 MB f32 workspace and a reduction pass.
+BLOCKED_BWD_SPLITS = 2
+
+
+def kernel_blocked_bwd(x, w1, b1, w2, g):
+    """K3 backward (dx kernel, dW kernel, reduction) -> (dx, dw1, dw2, db1,
+    db2)."""
+    lib = _blocked_lib()
+    m, c, h = _check_args(x, w1, b1, w2, lib.srt_fused_mlp_blocked_supported)
+    _check("g", g, (m, c), torch.bfloat16)
+    splits = BLOCKED_BWD_SPLITS
+    dx = torch.empty_like(x)
+    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    db1 = torch.empty(h, device=x.device, dtype=torch.float32)
+    db2 = torch.empty(c, device=x.device, dtype=torch.float32)
+    ws = torch.empty(splits * (2 * c * h + h + c), device=x.device,
+                     dtype=torch.float32)
+    err = lib.srt_fused_mlp_blocked_bwd(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+        db1.data_ptr(), db2.data_ptr(), ws.data_ptr(), m, c, h, splits,
+        _stream(x))
+    _raise_if(err, "blocked backward")
+    launches["fused_mlp_blocked_bwd"] += 1
+    return dx, dw1, dw2, db1, db2
+
+
+_FWD = {"plain": plain_fwd, "full": kernel_fwd, "blocked": kernel_blocked_fwd}
+_BWD = {"plain": plain_bwd, "full": kernel_bwd, "blocked": kernel_blocked_bwd}
 
 
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
+    def forward(ctx, x, w1, b1, w2, b2, kind):
         ctx.save_for_backward(x, w1, b1, w2)
-        return _fwd(x, w1, b1, w2, b2)
+        ctx.kind = kind
+        return _FWD[kind](x, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2 = ctx.saved_tensors
-        dx, dw1, dw2, db1, db2 = _bwd(x, w1, b1, w2, g.to(x.dtype))
-        return dx, dw1, db1, dw2, db2
+        dx, dw1, dw2, db1, db2 = _BWD[ctx.kind](
+            x, w1, b1, w2, g.to(x.dtype).contiguous())
+        return dx, dw1, db1, dw2, db2, None
 
 
-def fused_mlp(x, w1, b1, w2, b2):
+def fused_mlp(x, w1, b1, w2, b2, block_h=None):
     """``x`` [..., C] in the activation dtype; ``w1`` [H, C], ``w2`` [C, H]
     cast to it (as a Linear with a compute dtype does); biases in f32.
-    CPU tensors take the plain version, CUDA tensors the kernels (or an
-    error when the kernels do not take the shape or dtype)."""
+    CPU tensors take the plain version, CUDA tensors K1 or K3
+    (:func:`route`; ``block_h`` < H forces K3, and must divide H as in the
+    JAX package), or an error when neither kernel takes the shape or
+    dtype."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mlp: no path for device {x.device}")
     lead, c = x.shape[:-1], x.shape[-1]
+    kind = route(c, w1.shape[0], x.device, block_h)
     dt = x.dtype
     out = _FusedMLP.apply(x.reshape(-1, c).contiguous(), w1.to(dt).contiguous(),
                           b1.float().contiguous(), w2.to(dt).contiguous(),
-                          b2.float().contiguous())
+                          b2.float().contiguous(), kind)
     return out.reshape(*lead, -1)

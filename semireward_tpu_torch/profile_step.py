@@ -10,9 +10,11 @@ start_timing 10 so the measured steps are in stage 2), with ``--set``
 overrides on top, runs ``--warmup`` steps, then traces ``--steps`` steps with
 torch.profiler (CPU and CUDA). Prints one JSON object: wall time per step,
 device busy time per step (union of kernel intervals) and the idle share,
-and device time per kernel group (fused MLP and flash attention kernels,
-other GEMMs, elementwise/reduction, ...) and per top kernel. Needs a CUDA
-card.
+and device time per kernel group (the fused MLP's K1 and K3 and the flash
+attention kernels by their own names, other GEMMs, convolutions,
+elementwise/reduction, ...) and per top kernel. Takes the audio config
+(config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml) as the
+others. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -26,9 +28,12 @@ from collections import defaultdict
 import torch
 
 HEADLINE = "config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml"
-# the seeded text corpus of data/nlp.py:write_synthetic_corpus (git-ignored)
-SYNTH_TEXT = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "build", "synth_text")
+# the seeded corpora of data/nlp.py and data/audio.py:write_synthetic_corpus
+# (git-ignored)
+_BUILD = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "build")
+SYNTH_TEXT = os.path.join(_BUILD, "synth_text")
+SYNTH_AUDIO = os.path.join(_BUILD, "synth_audio")
 
 
 def synthetic_config(path: str, overrides=None):
@@ -37,20 +42,27 @@ def synthetic_config(path: str, overrides=None):
     10 and N_k 10 (stage 2 and the reward filter within a short run), and
     synthetic data: CIFAR-shaped images (``dataset synthetic``) for an
     image net; for a text net the seeded aclImdb-layout corpus, written
-    under ``build/synth_text`` on first use. ``overrides`` go on top."""
+    under ``build/synth_text`` on first use; for an audio net the seeded
+    ESC-50-layout corpus under ``build/synth_audio``. ``overrides`` go on
+    top."""
     from semireward_tpu_torch import config as config_lib
     from semireward_tpu_torch.data.modality import modality_of
 
     overrides = {"use_pretrain": False, "resume": False, "start_timing": 10,
                  "N_k": 10, **(overrides or {})}
     cfg = config_lib.from_yaml(path, overrides)
-    if modality_of(cfg.net) != "nlp":
+    modality = modality_of(cfg.net)
+    if modality == "cv":
         return config_lib.from_yaml(path, {"dataset": "synthetic",
                                            **overrides})
-    from semireward_tpu_torch.data.nlp import write_synthetic_corpus
-
-    write_synthetic_corpus(SYNTH_TEXT, cfg.dataset, cfg.num_classes)
-    return config_lib.from_yaml(path, {"data_dir": SYNTH_TEXT, **overrides})
+    if modality == "nlp":
+        from semireward_tpu_torch.data.nlp import write_synthetic_corpus
+        root = SYNTH_TEXT
+    else:
+        from semireward_tpu_torch.data.audio import write_synthetic_corpus
+        root = SYNTH_AUDIO
+    write_synthetic_corpus(root, cfg.dataset, cfg.num_classes)
+    return config_lib.from_yaml(path, {"data_dir": root, **overrides})
 
 
 def _group(name: str) -> str:
@@ -63,15 +75,21 @@ def _group(name: str) -> str:
         return "flash_attention_fwd"
     if ours and ("flash_dq_kernel" in n or "flash_dkv_kernel" in n):
         return "flash_attention_bwd"
+    if ours and "fwd_blocked_kernel" in n:
+        return "fused_mlp_blocked_fwd"
+    if ours and ("dx_blocked_kernel" in n or "dw_blocked_kernel" in n
+                 or "reduce_blocked_kernel" in n):
+        return "fused_mlp_blocked_bwd"
     if ours and "fwd_kernel" in n:
         return "fused_mlp_fwd"
     if ours and ("dx_kernel" in n or "dw_kernel" in n
                  or "reduce_kernel" in n):
         return "fused_mlp_bwd"
+    # cuDNN's convolutions, some of them CUTLASS kernels by name
+    if any(s in n for s in ("conv", "dgrad", "wgrad", "fprop")):
+        return "conv (patch embed; audio feature extractor, pos conv)"
     if any(s in n for s in ("gemm", "cutlass", "sm90", "matmul", "nvjet")):
         return "gemm (attention, qkv/proj, head, rewarder)"
-    if "conv" in n:
-        return "conv (patch embed)"
     if "softmax" in n:
         return "softmax"
     if "layer_norm" in n or "layernorm" in n or "gammabeta" in n:

@@ -9,7 +9,8 @@ rounded to bf16 after every sublayer on both sides, and XLA and torch round
 the bf16 GELU and the bf16 projections at different points.
 
 Also: layer-decay groups and weight-decay mask equal JAX's, the
-``inputs_embeds`` contract, and the K1 width gate of the model builders.
+``inputs_embeds`` contract, and the fused-MLP dispatch (K1 / K3) that the
+model builders ask.
 """
 import functools
 
@@ -133,12 +134,13 @@ def test_registered_builders():
 
 
 def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
-    """On a CUDA device the model builders (and so the trainer) refuse,
-    before they allocate anything, a fused MLP whose width the kernel
-    library (K1) does not take (ViT-B, BERT with the fused MLP): the
-    hidden-blocked kernel (K3) is not ported. Without a card a stand-in
-    library answers as ``srt_fused_mlp_supported`` does (C in 128/256/384,
-    H a multiple of 32); the card test asks the real one."""
+    """The fused-MLP dispatch the model builders (and so the trainer) ask on
+    a CUDA device before they allocate anything: K1 widths go to K1,
+    C = 768 / H = 3072 (ViT-B, BERT-base) to K3, and a width neither kernel
+    takes raises ``NotImplementedError``. Without a card stand-in libraries
+    answer as ``srt_fused_mlp_supported`` (C in 128/256/384, H a multiple
+    of 32) and ``srt_fused_mlp_blocked_supported`` (C = 768, H a multiple of
+    32) do; the card test asks the real ones."""
     from semireward_tpu_torch.models import get_net_builder
     from semireward_tpu_torch.ops import fused_mlp as tfm
 
@@ -147,19 +149,37 @@ def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
     class StandIn:
         @staticmethod
         def srt_fused_mlp_supported(c, h):
-            asked.append((c, h))
+            asked.append(("K1", c, h))
             return int(c in (128, 256, 384) and h % 32 == 0)
 
+        @staticmethod
+        def srt_fused_mlp_blocked_supported(c, h):
+            asked.append(("K3", c, h))
+            return int(c == 768 and h % 32 == 0)
+
     monkeypatch.setattr(tfm, "_lib", lambda: StandIn)
-    for net, kw in (("vit_base_patch16_96", {}),
-                    ("bert_base_uncased", {"layers": 1})):
-        with pytest.raises(NotImplementedError, match="K3"):
-            get_net_builder(net)(num_classes=2, device="cuda",
-                                 use_fused_mlp=True, **kw)
-    assert asked == [(768, 3072)] * 2
-    tfm.require_supported(384, 1536, "cuda")     # ViT-S: K1 takes it
-    tfm.require_supported(768, 3072, "cpu")      # the CPU never asks
-    assert asked[2:] == [(384, 1536)]
+    monkeypatch.setattr(tfm, "_blocked_lib", lambda: StandIn)
+    assert tfm.route(384, 1536, "cuda") == "full"           # ViT-S: K1
+    assert tfm.route(768, 3072, "cuda") == "blocked"        # ViT-B/BERT: K3
+    assert tfm.route(768, 3072, "cuda", block_h=768) == "blocked"
+    assert tfm.route(768, 3072, "cpu") == "plain"           # never asks
+    assert asked == [("K1", 384, 1536), ("K1", 768, 3072), ("K3", 768, 3072),
+                     ("K3", 768, 3072)]
+    with pytest.raises(NotImplementedError, match="forces hidden blocks"):
+        tfm.route(384, 1536, "cuda", block_h=512)           # K3 is C = 768
+    with pytest.raises(NotImplementedError, match="neither"):
+        tfm.require_supported(192, 768, "cuda")             # ViT-Ti
+    with pytest.raises(ValueError, match="must divide"):
+        tfm.route(768, 3072, "cuda", block_h=1000)
+    # the builders ask before they allocate: a width neither takes raises
+    # on a CUDA device without touching it
+    with pytest.raises(NotImplementedError, match="neither"):
+        get_net_builder("bert_base_uncased")(
+            num_classes=2, device="cuda", use_fused_mlp=True, layers=1,
+            hidden=64, heads=2, intermediate=256)
+    with pytest.raises(NotImplementedError, match="neither"):
+        get_net_builder("vit_tiny_patch2_32")(num_classes=2, device="cuda",
+                                              use_fused_mlp=True)
 
 
 @pytest.mark.parametrize("net,max_length,device,want", [
@@ -167,13 +187,16 @@ def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
     ("bert_base_uncased", 128, "cuda", False),
     ("vit_small_patch2_32", 512, "cuda", True),
     ("vit_base_patch16_224", 512, "cuda", True),
+    ("hubert_base", 512, "cuda", True),
+    ("wave2vecv2_base", 512, "cuda", True),
+    ("hubert_base", 512, "cpu", False),
     ("bert_base_uncased", 512, "cpu", False),
     ("vit_small_patch2_32", 512, "cpu", False),
 ])
 def test_flash_auto_default(net, max_length, device, want):
     """The port's default for an unset use_flash_attention, set by the H100
-    A/B: on for the ViTs and for BERT at max_length >= 384 on a card; the
-    CPU runs the plain version and leaves it off."""
+    A/Bs: on for the ViTs, for BERT at max_length >= 384 and for HuBERT /
+    wav2vec2 on a card; the CPU runs the plain version and leaves it off."""
     from semireward_tpu_torch.config import get_config
     from semireward_tpu_torch.core.trainer import flash_auto_default
 

@@ -1,6 +1,10 @@
 """The port's fused MLP (semireward_tpu_torch/ops/fused_mlp.py) against the
-JAX Pallas kernel run in interpret mode (as tests/test_fused_mlp.py runs it),
-forward and all five gradients, with a ragged last row block.
+JAX Pallas kernels run in interpret mode (as tests/test_fused_mlp.py runs
+them), forward and all five gradients, with a ragged last row block: the
+full-resident pair and the hidden-blocked one (``block_h`` < H, the form
+that C = 768 takes). Both run the port's one plain version on the CPU; the
+blocked JAX kernels sum per hidden slice, so their f32 sums run in yet
+another order, within the same tolerances.
 
 On the CPU the port runs its plain PyTorch version, which does the kernel's
 arithmetic. Tolerances: in float32 both sides compute the same f32 products
@@ -36,15 +40,16 @@ def _close(got, want, rel):
     np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale)
 
 
+@pytest.mark.parametrize("block_h", [None, 64])
 @pytest.mark.parametrize("dtype,rel", [("float32", 1e-5), ("bfloat16", 2e-2)])
-def test_forward_and_grads_match_jax(dtype, rel):
+def test_forward_and_grads_match_jax(dtype, rel, block_h):
     x, w1, b1, w2, b2, coef = _inputs()
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
 
     def jloss(x32, w1, b1, w2, b2):
         out = jax_fused_mlp(x32.astype(jdt), w1, b1, w2, b2, block_m=16,
-                            interpret=True)
+                            block_h=block_h, interpret=True)
         return (out.astype(jnp.float32) * coef).sum(), out
 
     (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3, 4),
@@ -54,7 +59,7 @@ def test_forward_and_grads_match_jax(dtype, rel):
     # the port takes torch.nn.Linear layouts: w1 [H, C], w2 [C, H]
     tx, tw1, tb1, tw2, tb2 = (torch.tensor(a, requires_grad=True) for a in
                               (x, w1.T.copy(), b1, w2.T.copy(), b2))
-    tout = F.fused_mlp(tx.to(tdt), tw1, tb1, tw2, tb2)
+    tout = F.fused_mlp(tx.to(tdt), tw1, tb1, tw2, tb2, block_h=block_h)
     (tout.float() * torch.from_numpy(coef)).sum().backward()
 
     _close(tout.float().detach().numpy(),
@@ -83,3 +88,17 @@ def test_rejects_devices_without_a_path():
     with pytest.raises(ValueError, match="no path"):
         F.fused_mlp(x, torch.empty(H, C), torch.empty(H), torch.empty(C, H),
                     torch.empty(C))
+
+
+def test_block_h_must_divide_the_hidden_dim_as_in_jax():
+    """The JAX call contract: a block_h that does not divide H raises
+    ValueError in both packages (the TPU grid would drop the last partial
+    hidden block)."""
+    x, w1, b1, w2, b2, _ = _inputs()
+    with pytest.raises(ValueError, match="must divide"):
+        jax_fused_mlp(jnp.asarray(x), w1, b1, w2, b2, block_h=96,
+                      interpret=True)
+    with pytest.raises(ValueError, match="must divide"):
+        F.fused_mlp(torch.from_numpy(x), torch.from_numpy(w1.T.copy()),
+                    torch.from_numpy(b1), torch.from_numpy(w2.T.copy()),
+                    torch.from_numpy(b2), block_h=96)

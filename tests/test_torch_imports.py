@@ -11,6 +11,10 @@ import semireward_tpu_torch
 import semireward_tpu_torch.train
 import semireward_tpu_torch.convert
 import semireward_tpu_torch.core.trainer
+import semireward_tpu_torch.data.audio
+import semireward_tpu_torch.profile_step
+import semireward_tpu_torch.ab_flash
+import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                     'semireward_tpu'))

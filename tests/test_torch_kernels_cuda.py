@@ -43,20 +43,102 @@ def test_kernel_matches_plain_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    """The dispatch on the card: K1 widths go to K1, C = 768 / H = 3072 to
+    K3, and a width neither takes raises (no plain path on the card)."""
     x = torch.zeros(8, 64, device=cuda_device, dtype=torch.bfloat16)
     w1 = torch.zeros(256, 64, device=cuda_device, dtype=torch.bfloat16)
     w2 = torch.zeros(64, 256, device=cuda_device, dtype=torch.bfloat16)
     b1 = torch.zeros(256, device=cuda_device)
     b2 = torch.zeros(64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(NotImplementedError, match="neither"):
         F.fused_mlp(x, w1, b1, w2, b2)             # C = 64 is not built
-    with pytest.raises(ValueError, match="bfloat16"):
-        F.fused_mlp(x.float(), w1, b1, w2, b2)     # no f32 kernel
-    # the model builders' gate asks the same kernel library
-    F.require_supported(384, 1536, cuda_device)    # ViT-S
-    for c, h in ((768, 3072), (64, 256)):          # ViT-B / BERT-base, C=64
-        with pytest.raises(NotImplementedError, match="K3"):
-            F.require_supported(c, h, cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):       # no f32 kernel
+        F.fused_mlp(torch.zeros(8, 128, device=cuda_device),
+                    torch.zeros(256, 128, device=cuda_device), b1,
+                    torch.zeros(128, 256, device=cuda_device),
+                    torch.zeros(128, device=cuda_device))
+    # the model builders' gate asks the same kernel libraries
+    assert F.route(384, 1536, cuda_device) == "full"        # ViT-S: K1
+    assert F.route(768, 3072, cuda_device) == "blocked"     # ViT-B/BERT: K3
+    assert F.route(768, 3072, cuda_device, block_h=768) == "blocked"
+    with pytest.raises(NotImplementedError, match="forces hidden blocks"):
+        F.route(384, 1536, cuda_device, block_h=768)        # K3 is C = 768
+    F.require_supported(768, 3072, cuda_device)
+    with pytest.raises(NotImplementedError, match="neither"):
+        F.require_supported(64, 256, cuda_device)
+    with pytest.raises(ValueError, match="must divide"):
+        F.route(768, 3072, cuda_device, block_h=1000)
+
+
+def _mlp_inputs(dev, m, c, h, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(m, c, generator=g).to(dev, torch.bfloat16),
+            (torch.randn(h, c, generator=g) * 0.03).to(dev, torch.bfloat16),
+            (torch.randn(h, generator=g) * 0.1).to(dev),
+            (torch.randn(c, h, generator=g) * 0.03).to(dev, torch.bfloat16),
+            (torch.randn(c, generator=g) * 0.1).to(dev),
+            torch.randn(m, c, generator=g).to(dev, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4776, 6144, 77])
+def test_blocked_kernels_match_plain_on_the_card(cuda_device, m):
+    """K3 (forward; dx + dW) against the plain version at the HuBERT-base
+    train shape (M 24*199), the BERT-base one (M 12*512) and a small ragged
+    M, C 768, H 3072 (bf16: 1e-2 of the largest magnitude; f32 bias grads:
+    1e-3); dW bit-equal across two launches."""
+    x, w1, b1, w2, b2, gy = _mlp_inputs(cuda_device, m, 768, 3072)
+    pairs = [(F.kernel_blocked_fwd(x, w1, b1, w2, b2),
+              F.plain_fwd(x, w1, b1, w2, b2), 1e-2)]
+    grads = F.kernel_blocked_bwd(x, w1, b1, w2, gy)
+    for k, p, name in zip(grads, F.plain_bwd(x, w1, b1, w2, gy),
+                          ("dx", "dw1", "dw2", "db1", "db2")):
+        pairs.append((k, p, 1e-3 if name.startswith("db") else 1e-2))
+    again = F.kernel_blocked_bwd(x, w1, b1, w2, gy)
+    torch.cuda.synchronize()
+    for k, p, rel in pairs:
+        _close(k.float().cpu().numpy(), p.float().cpu().numpy(), rel)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_fused_mlp_autograd_launches_the_blocked_kernels(cuda_device):
+    """fused_mlp at C 768 / H 3072 on CUDA tensors launches K3's forward
+    once and its backward once, and gives the plain version's gradients."""
+    x, w1, b1, w2, b2, gy = _mlp_inputs(cuda_device, 300, 768, 3072, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    F.reset_launches()
+    F.fused_mlp(*leaves).backward(gy)
+    torch.cuda.synchronize()
+    assert F.launches == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
+                          "fused_mlp_blocked_fwd": 1,
+                          "fused_mlp_blocked_bwd": 1}
+    dx, dw1, dw2, db1, db2 = F.plain_bwd(x, w1, b1, w2, gy)
+    for got, want, rel in ((leaves[0].grad, dx, 1e-2), (leaves[1].grad, dw1, 1e-2),
+                           (leaves[2].grad, db1, 1e-3), (leaves[3].grad, dw2, 1e-2),
+                           (leaves[4].grad, db2, 1e-3)):
+        _close(got.float().cpu().numpy(), want.float().cpu().numpy(), rel)
+
+
+@pytest.mark.cuda
+def test_vit_base_steps_on_the_card_through_k3(cuda_device):
+    """vit_base_patch16_224 (C 768, H 3072) builds on the card with the
+    fused MLP and takes one train step through K3."""
+    from semireward_tpu_torch.models import get_net_builder
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = get_net_builder("vit_base_patch16_224")(
+        num_classes=10, device=cuda_device, generator=gen, use_fused_mlp=True)
+    x = torch.randn(2, 224, 224, 3, device=cuda_device)
+    F.reset_launches()
+    out = model(x, train=True, generator=gen)
+    loss = out["logits"].float().logsumexp(-1).mean()
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    assert F.launches["fused_mlp_blocked_fwd"] == 12
+    assert F.launches["fused_mlp_blocked_bwd"] == 12
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def _attn_inputs(dev, B, N, H, d, pad, seed=0):

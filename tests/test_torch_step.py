@@ -167,7 +167,9 @@ def test_trainer_two_steps_on_cpu():
     assert all(math.isfinite(v) for v in results.values())
     assert 0.0 <= results["eval/top-1-acc"] <= 1.0
     # the CPU path runs the plain version, never a kernel
-    assert F.launches == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    assert F.launches == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
+                          "fused_mlp_blocked_fwd": 0,
+                          "fused_mlp_blocked_bwd": 0}
     logits = tr.predict(tr.bundle.eval.data[:5])
     assert logits.shape == (5, NC) and np.isfinite(logits).all()
 
