@@ -11,10 +11,11 @@
    only) beside the bound:
    - K1, the full-resident fused MLP, at the headline shape and a small
      ragged one;
-   - K3, the hidden-blocked fused MLP (forward; dx + dW), at the HuBERT-base
-     train shape (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M
-     12*512 = 6144) and a small ragged M, dW deterministic across two
-     launches;
+   - K3, the hidden-blocked fused MLP (forward: two wgmma GEMMs; backward:
+     three and a fixed-order reduction), at the HuBERT-base train shape
+     (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M 12*512 = 6144)
+     and a small ragged M, the backward bit-equal across two launches, with
+     each timed row's TFLOP/s and share of its bound and the tile plan;
    - K2, flash attention (forward; dq + dk/dv), at the BERT-base train shape
      (12 x 12 heads, N 512, key-padding bias, dropout 0.1), at HuBERT-base's
      (24 x 12 heads, N 199, dropout 0.1, no bias), at ViT-S's (24 x 6 heads,
@@ -52,6 +53,7 @@ import json
 import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +91,22 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+def kernel_name(mangled: str) -> str:
+    """``ns::kernel<N>`` of a mangled kernel name: the last of its
+    length-prefixed nested names and an integer template argument."""
+    i, names = mangled.find("N") + 1, []
+    while 0 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        names.append(mangled[j:j + n])
+        i = j + n
+    arg = re.match(r"ILi(\d+)E", mangled[i:]) if names else None
+    return (names[-1] if names else mangled) + (f"<{arg.group(1)}>" if arg
+                                                else "")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -179,8 +197,8 @@ def fused_mlp_phase(F):
         lib_out = lib_fwd()
         fwd_flops = 4.0 * m * c * h
         bwd_flops = 10.0 * m * c * h
-        # the forward needs 2 products, the backward 5 (u again, dh, dx, dW1,
-        # dW2); K3's dx / dW split computes 3 + 4
+        # the forward needs 2 products, the backward 5 (u again, dp = g W2,
+        # dx, dW1, dW2); K3's GEMMs compute exactly these
         bf, byf = bound_ms(nbytes(x, w1, b1, w2, b2, out), fwd_flops)
         bb, byb = bound_ms(nbytes(x, w1, b1, w2, gy, *grads), bwd_flops)
         timed = {
@@ -198,13 +216,22 @@ def fused_mlp_phase(F):
                 library_ms=time_ms(lambda: torch.autograd.grad(
                     lib_out, (xl, w1l, b1l, w2l, b2l), gy,
                     retain_graph=True)))}
+        flops = {f"{name}_fwd": fwd_flops, f"{name}_bwd": bwd_flops}
         for k, r in timed.items():
             print(json.dumps({"kernel": k, "M": m, "C": c, "H": h,
                               "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                               "library_ms": r["library_ms"],
                               "bound_ms": r["bound_ms"],
                               "bound_by": r["bound_by"],
+                              "tflops": flops[k] / r["ms"] / 1e9,
+                              "share_of_bound": r["bound_ms"] / r["ms"],
                               "max_abs_err": r["max_abs_err"]}))
+        if blocked:
+            print(f"  K3 plan at M={m}: " + json.dumps(
+                {k: v for k, v in F.blocked_plan(
+                    m, c, h, torch.cuda.get_device_properties(
+                        dev).multi_processor_count).items()
+                 if k not in ("sms", "workspace")}))
         if m != 6144:  # the kernels line carries K3 at the HuBERT shape
             results.update(timed)
     return results
@@ -490,11 +517,18 @@ def main() -> int:
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.time() - t0:.1f} s")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry = kernel_name(line.split("'")[1])
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name} {entry}: {line.strip()}")
 
     kernels = fused_mlp_phase(F)
+    from semireward_tpu_torch import k3_profile
+    for m in (4776, 6144):  # K3's time by kernel, one JSON line each
+        print(json.dumps({"k3_breakdown": k3_profile.breakdown(m),
+                          "card": card}))
     kernels.update(flash_phase(A))
     k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
     k2 = ("flash_attention_fwd", "flash_attention_bwd")

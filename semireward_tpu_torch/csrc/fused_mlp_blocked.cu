@@ -1,7 +1,7 @@
 // Hidden-blocked fused transformer MLP for Hopper (sm_90a):
 //   out = gelu(x @ W1^T + b1) @ W2^T + b2
 // forward and backward at C = 768 (ViT-B, BERT-base, HuBERT-base, wav2vec2-base;
-// H = 3072), with the [M, H] hidden activation never written to device memory.
+// H = 3072), as GEMMs on wgmma with TMA loads and fused epilogues.
 //
 // Replaces the hidden-blocked Pallas TPU kernels of the JAX package:
 //   semireward_tpu/ops/fused_mlp.py:_fwd_blocked_kernel (launched by _fwd_blocked)
@@ -9,603 +9,678 @@
 //   semireward_tpu/ops/fused_mlp.py:_bwd_dw_kernel     (second launch of _bwd_blocked)
 //
 // Layouts follow torch.nn.Linear: x [M, C], W1 [H, C], b1 [H], W2 [C, H],
-// b2 [C]; x/W/out/g/dx/dW bf16, biases and bias grads f32. Products run on
-// the tensor cores (WMMA bf16 16x16x16, f32 accumulation); bias adds and GELU
-// (exact erf form, erff) in f32. The hidden is rounded to bf16 before the
-// second product and dh before dx/dW1; db1 sums the unrounded f32 dh.
+// b2 [C]; x/W/out/g/dx/dW bf16, biases and bias grads f32. Products take bf16
+// operands and accumulate in f32; bias adds and GELU (exact erf form, erff)
+// run in f32 on the accumulators. The hidden is rounded to bf16 before the
+// second product and before dW2, dh before dx and dW1; db1 sums the unrounded
+// f32 dh: the function of ops/fused_mlp.py:plain_fwd / plain_bwd.
 //
 // Bound at the HuBERT-base train shape (M = 24*199 = 4776, C = 768, H = 3072),
 // H100 SXM: one product is 2*M*C*H = 22.5 GFLOP. The forward needs 2 (45.1
-// GFLOP -> 45.6 us at 989 TFLOP/s bf16 dense, against ~24 MB -> 7 us at
-// 3.35 TB/s); the backward needs 5 (u again, dh, dx, dW1, dW2: 112.7 GFLOP ->
-// 114 us). All bound by operations. These kernels compute 2 (forward) and
-// 3 + 4 (dx, dW) products: the split backward recomputes u and dh twice.
+// GFLOP -> 45.6 us at 989 TFLOP/s bf16 dense, against ~24 MB -> 7 us at 3.35
+// TB/s), the backward 5 (u again, dp = g W2, dx, dW1, dW2: 112.7 GFLOP -> 114
+// us). Both are bound by operations, and these kernels compute exactly 2 and 5.
 //
-// Design. K1's plan (csrc/fused_mlp.cu: 64 rows of x resident, double-
-// buffered [32, C] weight chunks, the [64, C] f32 output accumulator in
-// registers) does not fit at C = 768: ~330 KB of shared memory per block
-// (Hopper allows 227 KB) and 192 accumulator registers per thread.
-// * fwd_kernel: one CTA of 8 warps owns BM = 32 rows (x resident in shared
-//   memory) and walks hidden chunks of HC = 32. The [32, 768] f32 output
-//   accumulator stays in registers (12 WMMA fragments per warp, 96 registers,
-//   as K1 at C = 384). u = x @ W1[chunk]^T splits its K = 768 between two
-//   warps per 16x16 tile (8 warps, 4 tiles), the halves meet in shared
-//   memory, and GELU runs on the sum. Single buffers, staggered: the next
-//   W1 chunk streams in (cp.async) while the current W2 chunk is multiplied,
-//   the next W2 chunk while the next u is computed. Fewer rows per CTA
-//   was chosen over a per-slice partial (an [S, M, C] f32 workspace and a
-//   second pass) and over split output columns (x @ W1 recomputed) because
-//   it needs neither; the two alternatives were not built and measured.
-// * dx_kernel: the same row tiles; per hidden chunk warps 0-3 recompute u
-//   and warps 4-7 g @ W2[:, chunk] (full K each), dh = dp * gelu'(u + b1)
-//   goes to shared memory as bf16, then dx_tile += dh @ W1[chunk].
-// * dw_kernel: grid (H / 16 hidden chunks) x (S row splits). Each CTA keeps
-//   its W1/W2 chunk in shared memory and walks 16-row tiles of x and g
-//   (double-buffered cp.async); u and g @ W2 split K four ways across the
-//   warps; dW1[chunk] = dh^T x and dW2[:, chunk] = g^T h accumulate in
-//   registers (12 fragments per warp), db1 and (chunk 0) db2 in f32. Each
-//   split writes an f32 partial to a workspace of S * (2*C*H + H + C) f32
-//   (18.9 MB per split at the HuBERT shape) and reduce_blocked_kernel sums
-//   them in a fixed order and casts dW to bf16: deterministic, no atomics.
-//   The wrapper takes S = 2: one split gives H / 16 = 192 CTAs, 1.45 waves
-//   of one CTA per SM on 132 SMs, two give 384.
-// * dx and dW walk hidden chunks and rows in opposite orders, so they are two
-//   kernels, as the TPU's are two launches.
-// * Ragged M (4776 = 149*32 + 8): rows past M load as zeros (cp.async zero-
-//   fill), so x and g are zero there and add nothing to dW/db (the TPU
-//   kernel's row mask, fused_mlp.py:290-295); stores skip those rows.
+// Why the hidden goes through device memory. The TPU kernel keeps the [M, H]
+// hidden in VMEM (~16 MB a core). On Hopper the products accumulate in
+// registers: a [64, 768] f32 output accumulator is 192 KB, three quarters of
+// an SM's 256 KB register file, so one CTA per SM could own only 64 rows (75
+// row tiles at M 4776, 0.57 of a wave). Filling the card would mean splitting
+// H across CTAs and reducing [M, 768] f32 partials (14.7 MB per split): bytes
+// of the order of writing the bf16 hidden once (29.3 MB at HuBERT, inside the
+// 50 MB L2), in a much larger kernel. So the hidden round trip costs at most
+// ~59 MB forward (h written, read) and ~147 MB backward (h and dh written, dh
+// read twice, h once) at HuBERT: <= 17.5 / 44 us at 3.35 TB/s, less where L2
+// holds it.
+//
+// Design: one GEMM main loop, five products.
+//   F1 (k3_fwd_up_kernel)    h   = bf16(gelu(x W1^T + b1))           [M, H], K = C
+//   F2 (k3_fwd_down_kernel)  out = bf16(h W2^T + b2)                 [M, C], K = H
+//   B1 (k3_bwd_dh_kernel)    u = x W1^T and dp = g W2 on one tile     [M, H], K = C:
+//                            h = bf16(gelu(u + b1)), dh = dp * gelu'(u + b1),
+//                            bf16(dh), per-row-tile column sums of the f32 dh
+//   B2 (k3_bwd_dx_kernel)    dx  = bf16(dh) W1                       [M, C], K = H
+//   B3 (k3_bwd_dw_kernel)    dW1 = bf16(dh)^T x [H, C] and dW2 = g^T h [C, H], K = M,
+//                            both outputs' tiles in one launch, K split over M
+//                            where the waves need it (f32 partials)
+//   k3_bwd_colsum_kernel     column sums of g over 32-row chunks (db2)
+//   k3_bwd_reduce_kernel     dW splits, db1 and db2 partials summed in a fixed
+//                            order: no float atomics, the same bits every launch
+// * Main loop: a persistent grid of one CTA per SM walks the output tiles
+//   (BM = 128 rows x BN = 128 or 256 columns, rows fastest) in a fixed order.
+//   One thread of the producer warpgroup issues TMA loads (128-byte swizzle;
+//   K-major tiles as one box of 64 K x up to 256 rows, MN-major ones as [64 x
+//   64] boxes) into a ring of 3-6 shared-memory stages of K = 64, guarded by
+//   full / empty mbarriers; two consumer warpgroups of 64 rows each
+//   run wgmma.mma_async m64nBNk16 on the stages and release them one stage
+//   behind (wgmma.wait_group 1). setmaxnreg gives the consumers 232 registers
+//   a thread (BN / 2 accumulators, 2 x 64 in B1) and the producer 40.
+// * Operands stored MN-major (W2 as g W2's B, W1 as dh W1's B, all four of B3)
+//   reach wgmma through its transpose bits, from TMA boxes taken along the MN
+//   dimension: no copy.
+// * The tile width and the K split of each product come from the host's plan
+//   (ops/fused_mlp.py:blocked_plan) so that the last wave is nearly full.
+// * The epilogues run on the consumer warpgroups while the tensor cores wait:
+//   F1 and B1, whose epilogues evaluate GELU per element, reach about half
+//   the rate of the other three GEMMs (PERF.md); overlapping them is open.
+// * Ragged M: TMA zero-fills rows past M, so padded rows add nothing to any
+//   product (in B3 they are K); stores skip rows past M (h at such a row would
+//   be gelu(b1), never stored or read). The same holds for H past a multiple
+//   of the tile (H need only be a multiple of 32).
 // * Every function launches on the caller's stream, allocates nothing, and
-//   returns cudaGetLastError().
+//   returns 0, a CUDA error code (cudaGetLastError after each launch), or a
+//   negative code for a refusal on the host (kBadArgs, kBadMap).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NT = 256;       // threads per CTA (8 warps)
-constexpr int BM = 32;        // rows per CTA (forward, dx)
-constexpr int HC = 32;        // hidden chunk (forward, dx)
-constexpr int BMW = 16;       // rows per tile (dW)
-constexpr int HCW = 16;       // hidden chunk (dW)
-constexpr int LDH = HC + 8;   // bf16 leading dim of [*, HC] tiles
-constexpr int LDF = HC + 4;   // f32 leading dim of the bias tile
-constexpr int LDHW = HCW + 8; // bf16 leading dim of [*, HCW] tiles
+constexpr int BM = 128;                  // output rows per tile: two consumer warpgroups of 64
+constexpr int BK = 64;                   // K per stage: one 128-byte swizzle row of bf16
+constexpr int NT = 384;                  // producer warpgroup + two consumer warpgroups
+constexpr int BOX_BYTES = 64 * 64 * 2;   // one [64 x 64] bf16 TMA box
+constexpr int A_BYTES = BM * BK * 2;     // an A operand tile, 16 KB
+constexpr int RING_BYTES = 192 * 1024;
+constexpr int COLSUM_ROWS = 32;          // rows per db2 partial
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+enum Kind { UP, DOWN, DH, DX, DW };
+
+// Operand majors of each product (MN-major operands go through wgmma's
+// transpose bits) and whether a tile carries a second product (B1: g W2).
+template <int KIND>
+struct KindTraits {
+  static constexpr bool A_MN = KIND == DW;
+  static constexpr bool B_MN = KIND == DX || KIND == DW;
+  static constexpr bool DUAL = KIND == DH;
+};
+
+template <int BN, int KIND>
+struct Plan {
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE = (A_BYTES + B_BYTES) * (KindTraits<KIND>::DUAL ? 2 : 1);
+  static constexpr int STAGES = RING_BYTES / STAGE > 6 ? 6 : RING_BYTES / STAGE;
+  static constexpr int RED = KIND == DH ? 8 * BN * 4 : 0;  // per-warp column sums
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8 + RED;
+};
+
+static_assert(Plan<256, UP>::SMEM <= 232448, "plan exceeds 227 KB");
+static_assert(Plan<128, DH>::SMEM <= 232448, "plan exceeds 227 KB");
+static_assert(Plan<256, DW>::SMEM <= 232448, "plan exceeds 227 KB");
+
+// Kernel arguments. Product 0 writes out0 [rows0, cols0]; in B3 product 1
+// writes out1 [rows1, cols1]; in B1 the second product (a1, b1) shares
+// product 0's tile and out1 takes dh.
+struct GemmArgs {
+  CUtensorMap a0, b0, a1, b1;
+  const float* bias;  // b1 (F1, B1) or b2 (F2), [cols0]
+  void* out0;         // bf16: h (F1, B1), out (F2), dx (B2), dW1 (B3)
+  void* out1;         // bf16: dh (B1), dW2 (B3)
+  float* ws;          // B1: db1 partials [row tiles, cols0]; B3 with splits > 1:
+                      // [splits][rows0*cols0 + rows1*cols1] f32 partials
+  int rows0, cols0, rows1, cols1;
+  int k;              // contraction length
+  int splits;         // splits of K (B3), else 1
+};
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+struct Tile {
+  int prod, split, row0, col0, kb, ke;  // k-steps [kb, ke) of BK
+};
+
+__host__ __device__ __forceinline__ int tiles_per_split(const GemmArgs& a, int bn) {
+  return cdiv(a.rows0, BM) * cdiv(a.cols0, bn) + cdiv(a.rows1, BM) * cdiv(a.cols1, bn);
+}
+
+// Tile t of the persistent walk: split-major, then product 0's tiles before
+// product 1's, row tiles fastest (ops/fused_mlp.py:blocked_tiles mirrors it).
+__device__ __forceinline__ Tile decode(const GemmArgs& a, int bn, int t) {
+  const int per = tiles_per_split(a, bn);
+  const int tiles0 = cdiv(a.rows0, BM) * cdiv(a.cols0, bn);
+  Tile c;
+  c.split = t / per;
+  int q = t - c.split * per;
+  c.prod = q >= tiles0;
+  if (c.prod) q -= tiles0;
+  const int mt = cdiv(c.prod ? a.rows1 : a.rows0, BM);
+  c.row0 = (q % mt) * BM;
+  c.col0 = (q / mt) * bn;
+  const int ks = cdiv(a.k, BK);
+  c.kb = (int)((int64_t)c.split * ks / a.splits);
+  c.ke = (int)((int64_t)(c.split + 1) * ks / a.splits);
+  return c;
+}
 
 __device__ __forceinline__ float gelu_f(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ float dgelu_f(float u) {
-  const float cdf = 0.5f * (1.0f + erff(u * 0.70710678118654752f));
-  const float pdf = 0.3989422804014327f * expf(-0.5f * u * u);
-  return cdf + u * pdf;
+// ---------------------------------------------------------------------------
+// PTX: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(n));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
-// Wait until at most N of this thread's committed groups are still in flight.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box at element coordinates (c0 inner, c1 outer) into shared memory,
+// completing on mbarrier `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Start copying a [rows, cols] bf16 tile (cols % 8 == 0) from global to
-// shared memory in 16-byte pieces; rows at or past valid_rows become zeros.
-__device__ __forceinline__ void load_tile_async(bf16* dst, int ld_dst, const bf16* src,
-                                                int64_t ld_src, int rows, int cols,
-                                                int valid_rows) {
-  const int vpr = cols / 8;
-  for (int i = threadIdx.x; i < rows * vpr; i += NT) {
-    const int r = i / vpr, v = i - r * vpr;
-    const bool ok = r < valid_rows;
-    cp_async16(dst + r * ld_dst + v * 8, src + (ok ? r * ld_src + v * 8 : 0), ok);
+// Keep the compiler from moving accumulator reads across wgmma.wait_group.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major: 8-row groups
+// of 128-byte rows SBO = 1024 bytes apart (LBO unused, 1). MN-major: 8-row K
+// groups SBO = 1024 apart, 64-element MN blocks LBO = one box (8 KB) apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, bool mn_major) {
+  const uint64_t lbo = mn_major ? (BOX_BYTES >> 4) : 1;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lbo << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// Descriptor of k16 step kk (0..3) of a stage's operand tile: K-major tiles
+// advance 32 bytes along the swizzled row, MN-major ones two 8-row groups.
+__device__ __forceinline__ uint64_t step_desc(uint32_t tile, int kk, bool mn_major) {
+  return smem_desc(tile + (mn_major ? kk * 2048 : kk * 32), mn_major);
+}
+
+// d[64] (+)= A[64 x 16] * B[16 x 128] (m64n128k16, bf16 in, f32 accumulate);
+// TA / TB: the operand is MN-major (1) or K-major (0) in shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d[128] (+)= A[64 x 16] * B[16 x 256] (m64n256k16, bf16 in, f32 accumulate);
+// TA / TB: the operand is MN-major (1) or K-major (0) in shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (BN == 128)
+    wgmma_n128<TA, TB>(d, da, db, acc);
+  else
+    wgmma_n256<TA, TB>(d, da, db, acc);
+}
+
+// ---------------------------------------------------------------------------
+// the GEMM: producer, consumers, epilogues
+// ---------------------------------------------------------------------------
+
+// A tile [128 rows x 64 K]: one box along K (K-major) or two [64 K x 64 MN]
+// boxes (MN-major), at (row0, k0).
+template <bool MN>
+__device__ __forceinline__ void load_a(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row0,
+                                       int k0) {
+  if constexpr (MN) {
+    tma_load(dst, m, bar, row0, k0);
+    tma_load(dst + BOX_BYTES, m, bar, row0 + 64, k0);
+  } else {
+    tma_load(dst, m, bar, k0, row0);
   }
 }
 
-// acc (+)= A[rf*16 : +16, k0 : k0+kn] @ B[cf*16 : +16, k0 : k0+kn]^T, with A
-// and B row-major [*][lda] / [*][ldb] bf16 in shared memory (B read as a
-// col-major right operand); two accumulators halve the dependent chain.
-__device__ __forceinline__ void mm_abt(FragC& acc, const bf16* a, int lda, const bf16* b,
-                                       int ldb, int rf, int cf, int k0, int kn) {
-  FragC acc2;
-  wmma::fill_fragment(acc2, 0.0f);
-  FragA fa;
-  FragBT fb;
-#pragma unroll 4
-  for (int k = k0; k < k0 + kn; k += 32) {
-    wmma::load_matrix_sync(fa, a + rf * 16 * lda + k, lda);
-    wmma::load_matrix_sync(fb, b + cf * 16 * ldb + k, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-    wmma::load_matrix_sync(fa, a + rf * 16 * lda + k + 16, lda);
-    wmma::load_matrix_sync(fb, b + cf * 16 * ldb + k + 16, ldb);
-    wmma::mma_sync(acc2, fa, fb, acc2);
+// B tile [BN x 64 K]: one box along K (K-major) or BN / 64 [64 K x 64 MN]
+// boxes (MN-major), at (col0, k0).
+template <bool MN, int BN>
+__device__ __forceinline__ void load_b(uint32_t dst, const CUtensorMap* m, uint32_t bar, int col0,
+                                       int k0) {
+  if constexpr (MN) {
+#pragma unroll
+    for (int i = 0; i < BN / 64; ++i) tma_load(dst + i * BOX_BYTES, m, bar, col0 + 64 * i, k0);
+  } else {
+    tma_load(dst, m, bar, k0, col0);
   }
-#pragma unroll
-  for (int i = 0; i < acc.num_elements; ++i) acc.x[i] += acc2.x[i];
 }
 
-// acc (+)= A[rf*16 : +16, k0 : k0+kn] @ B[k0 : k0+kn, cf*16 : +16] with A
-// row-major [*][lda] and B row-major [*][ldb] in shared memory.
-__device__ __forceinline__ void mm_ab(FragC& acc, const bf16* a, int lda, const bf16* b,
-                                      int ldb, int rf, int cf, int k0, int kn) {
-  FragC acc2;
-  wmma::fill_fragment(acc2, 0.0f);
-  FragA fa;
-  FragB fb;
-#pragma unroll 4
-  for (int k = k0; k < k0 + kn; k += 32) {
-    wmma::load_matrix_sync(fa, a + rf * 16 * lda + k, lda);
-    wmma::load_matrix_sync(fb, b + k * ldb + cf * 16, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-    wmma::load_matrix_sync(fa, a + rf * 16 * lda + k + 16, lda);
-    wmma::load_matrix_sync(fb, b + (k + 16) * ldb + cf * 16, ldb);
-    wmma::mma_sync(acc2, fa, fb, acc2);
-  }
-#pragma unroll
-  for (int i = 0; i < acc.num_elements; ++i) acc.x[i] += acc2.x[i];
-}
-
-// Store a 16x16 f32 fragment through this warp's staging tile into a bf16
-// tile at dst (leading dim ld, shared or global memory).
-__device__ __forceinline__ void frag_to_bf16(float* stage, const FragC& f, bf16* dst,
-                                             int64_t ld) {
-  wmma::store_matrix_sync(stage, f, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int e = lane; e < 256; e += 32) dst[(e >> 4) * ld + (e & 15)] = __float2bfloat16(stage[e]);
-  __syncwarp();
-}
-
-// Stage the [BM, C] f32 accumulators (warp w owns column fragments
-// w*NCF .. w*NCF+NCF-1 of both row fragments) and write rows < rows_valid as
-// bf16, adding bias when given.
-template <int C>
-__device__ __forceinline__ void store_rows(float* stage, FragC (&acc)[BM / 16][C / 128],
-                                           bf16* out, const float* bias, int row0,
-                                           int rows_valid) {
-  constexpr int NCF = C / 128;
-  constexpr int LDS = C + 4;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int rf = 0; rf < BM / 16; ++rf)
-#pragma unroll
-    for (int t = 0; t < NCF; ++t)
-      wmma::store_matrix_sync(stage + rf * 16 * LDS + (warp * NCF + t) * 16, acc[rf][t], LDS,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < BM * C / 2; e += NT) {
-    const int r = (2 * e) / C, c = 2 * e - r * C;
-    if (r < rows_valid) {
-      float v0 = stage[r * LDS + c], v1 = stage[r * LDS + c + 1];
-      if (bias) {
-        v0 += bias[c];
-        v1 += bias[c + 1];
+// One thread: walk this CTA's tiles and fill the ring, one stage per k-step.
+template <int BN, int KIND>
+__device__ __forceinline__ void producer(const GemmArgs& a, uint32_t ring, uint32_t full,
+                                         uint32_t empty) {
+  typedef KindTraits<KIND> T;
+  typedef Plan<BN, KIND> P;
+  const int total = tiles_per_split(a, BN) * a.splits;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const Tile c = decode(a, BN, t);
+    const CUtensorMap* ma = c.prod ? &a.a1 : &a.a0;
+    const CUtensorMap* mb = c.prod ? &a.b1 : &a.b0;
+    for (int k = c.kb; k < c.ke; ++k) {
+      const uint32_t fb = full + stage * 8;
+      mbar_wait(empty + stage * 8, phase ^ 1);  // the first pass finds every stage free
+      mbar_expect_tx(fb, P::STAGE);
+      const uint32_t s = ring + stage * P::STAGE;
+      const int k0 = k * BK;
+      load_a<T::A_MN>(s, ma, fb, c.row0, k0);
+      load_b<T::B_MN, BN>(s + A_BYTES, mb, fb, c.col0, k0);
+      if constexpr (T::DUAL) {
+        load_a<false>(s + A_BYTES + P::B_BYTES, &a.a1, fb, c.row0, k0);
+        load_b<true, BN>(s + 2 * A_BYTES + P::B_BYTES, &a.b1, fb, c.col0, k0);
       }
-      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)(row0 + r) * C + c) =
-          __floats2bfloat162_rn(v0, v1);
-    }
-  }
-}
-
-// acc[r][t] += A[r*16 : +16, 0:HC] @ B where warp w owns output column
-// fragments w*NCF + t; A is [BM][LDH] bf16, B element (k, n) at
-// b[k * kstride + n * nstride] (read through col- or row-major fragments).
-template <int C, bool B_COL_MAJOR>
-__device__ __forceinline__ void mm_chunk(FragC (&acc)[BM / 16][C / 128], const bf16* a,
-                                         const bf16* b, int ldb) {
-  constexpr int NCF = C / 128;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int k = 0; k < HC; k += 16) {
-    if constexpr (B_COL_MAJOR) {
-      FragBT fb[NCF];
-#pragma unroll
-      for (int t = 0; t < NCF; ++t)
-        wmma::load_matrix_sync(fb[t], b + (warp * NCF + t) * 16 * ldb + k, ldb);
-#pragma unroll
-      for (int r = 0; r < BM / 16; ++r) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, a + r * 16 * LDH + k, LDH);
-#pragma unroll
-        for (int t = 0; t < NCF; ++t) wmma::mma_sync(acc[r][t], fa, fb[t], acc[r][t]);
-      }
-    } else {
-      FragB fb[NCF];
-#pragma unroll
-      for (int t = 0; t < NCF; ++t)
-        wmma::load_matrix_sync(fb[t], b + k * ldb + (warp * NCF + t) * 16, ldb);
-#pragma unroll
-      for (int r = 0; r < BM / 16; ++r) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, a + r * 16 * LDH + k, LDH);
-#pragma unroll
-        for (int t = 0; t < NCF; ++t) wmma::mma_sync(acc[r][t], fa, fb[t], acc[r][t]);
+      if (++stage == P::STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
   }
 }
 
-// shared-memory plans (bytes)
-template <int C>
-struct FwdSmem {
-  static constexpr size_t xs = (size_t)BM * (C + 8) * 2;
-  static constexpr size_t w1c = (size_t)HC * (C + 8) * 2;
-  static constexpr size_t w2c = (size_t)C * LDH * 2;
-  static constexpr size_t stage = 8 * 256 * 4;  // one 16x16 f32 tile per warp
-  static constexpr size_t bias = 16 * LDF * 4;
-  static constexpr size_t hs = (size_t)BM * LDH * 2;
-  static constexpr size_t main = xs + w1c + w2c + stage + bias + hs;
-  static constexpr size_t out = (size_t)BM * (C + 4) * 4;
-  static constexpr size_t total = main > out ? main : out;
-};
-
-template <int C>
-struct DxSmem {
-  static constexpr size_t tile = FwdSmem<C>::xs;
-  static constexpr size_t main = 2 * tile + FwdSmem<C>::w1c + FwdSmem<C>::w2c +
-                                 FwdSmem<C>::stage + FwdSmem<C>::hs;
-  static constexpr size_t out = FwdSmem<C>::out;
-  static constexpr size_t total = main > out ? main : out;
-};
-
-template <int C>
-struct DwSmem {
-  static constexpr size_t tile = (size_t)BMW * (C + 8) * 2;
-  static constexpr size_t w1c = (size_t)HCW * (C + 8) * 2;
-  static constexpr size_t w2c = (size_t)C * LDHW * 2;
-  static constexpr size_t stage = 8 * 256 * 4;
-  static constexpr size_t total = 4 * tile + w1c + w2c + stage +
-                                  2 * (size_t)BMW * LDHW * 2 +  // h, dh (bf16)
-                                  (size_t)BMW * HCW * 4 +       // dh (f32)
-                                  (size_t)C * 4;                // db2
-};
-
-static_assert(FwdSmem<768>::total <= 232448, "forward plan exceeds 227 KB");
-static_assert(DxSmem<768>::total <= 232448, "dx plan exceeds 227 KB");
-static_assert(DwSmem<768>::total <= 232448, "dW plan exceeds 227 KB");
-
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-fwd_blocked_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                   const float* __restrict__ b1, const bf16* __restrict__ w2,
-                   const float* __restrict__ b2, bf16* __restrict__ out, int M, int H) {
-  constexpr int LDC = C + 8;
-  constexpr int NCF = C / 128;
-  typedef FwdSmem<C> S;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* w1c = reinterpret_cast<bf16*>(smem + S::xs);
-  bf16* w2c = reinterpret_cast<bf16*>(smem + S::xs + S::w1c);
-  float* stage = reinterpret_cast<float*>(smem + S::xs + S::w1c + S::w2c);
-  float* bias = stage + 8 * 256;
-  bf16* hs = reinterpret_cast<bf16*>(bias + 16 * LDF);
-
-  const int warp = threadIdx.x / 32;
-  // u tile (rf, cf) of the [32, 32] chunk; warps kh = 0 and 1 take the two
-  // halves of K = C
-  const int rf = (warp >> 1) & 1, cf = warp & 1, kh = warp >> 2, slot = rf * 2 + cf;
-  const int row0 = blockIdx.x * BM;
-  const int rows_valid = min(BM, M - row0);
-  load_tile_async(xs, LDC, x + (int64_t)row0 * C, C, BM, C, rows_valid);
-  load_tile_async(w1c, LDC, w1, C, HC, C, HC);
-  cp_async_commit();
-  load_tile_async(w2c, LDH, w2, H, C, HC, C);
-  cp_async_commit();
-
-  FragC acc[BM / 16][NCF];
-#pragma unroll
-  for (int r = 0; r < BM / 16; ++r)
-#pragma unroll
-    for (int t = 0; t < NCF; ++t) wmma::fill_fragment(acc[r][t], 0.0f);
-
-  const int nchunks = H / HC;
-  for (int c = 0; c < nchunks; ++c) {
-    const int j0 = c * HC;
-    cp_async_wait<1>();  // x and W1 chunk c landed (W2 chunk c may be in flight)
-    for (int e = threadIdx.x; e < 16 * HC; e += NT) bias[(e / HC) * LDF + e % HC] = b1[j0 + e % HC];
-    __syncthreads();
-    FragC u;
-    if (kh == 0)
-      wmma::load_matrix_sync(u, bias + cf * 16, LDF, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(u, 0.0f);
-    mm_abt(u, xs, LDC, w1c, LDC, rf, cf, kh * (C / 2), C / 2);
-    if (kh == 1) wmma::store_matrix_sync(stage + slot * 256, u, 16, wmma::mem_row_major);
-    __syncthreads();  // W1 chunk c is free; the K halves meet in stage
-    if (c + 1 < nchunks) load_tile_async(w1c, LDC, w1 + (int64_t)(j0 + HC) * C, C, HC, C, HC);
-    cp_async_commit();
-    if (kh == 0) {
-      FragC part;
-      wmma::load_matrix_sync(part, stage + slot * 256, 16, wmma::mem_row_major);
-#pragma unroll
-      for (int i = 0; i < u.num_elements; ++i) u.x[i] = gelu_f(u.x[i] + part.x[i]);
-      frag_to_bf16(stage + (4 + slot) * 256, u, hs + rf * 16 * LDH + cf * 16, LDH);
-    }
-    cp_async_wait<1>();  // W2 chunk c landed (W1 chunk c + 1 may be in flight)
-    __syncthreads();     // h complete
-    mm_chunk<C, true>(acc, hs, w2c, LDH);
-    __syncthreads();  // W2 chunk c and h are free
-    if (c + 1 < nchunks) load_tile_async(w2c, LDH, w2 + j0 + HC, H, C, HC, C);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  store_rows<C>(reinterpret_cast<float*>(smem), acc, out, b2, row0, rows_valid);
+// Named barrier of the two consumer warpgroups.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-dx_blocked_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                  const bf16* __restrict__ g, bf16* __restrict__ dx, int M, int H) {
-  constexpr int LDC = C + 8;
-  constexpr int NCF = C / 128;
-  typedef FwdSmem<C> F;
-  typedef DxSmem<C> S;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = reinterpret_cast<bf16*>(smem + S::tile);
-  bf16* w1c = reinterpret_cast<bf16*>(smem + 2 * S::tile);
-  bf16* w2c = reinterpret_cast<bf16*>(smem + 2 * S::tile + F::w1c);
-  float* stage = reinterpret_cast<float*>(smem + 2 * S::tile + F::w1c + F::w2c);
-  bf16* dhs = reinterpret_cast<bf16*>(stage + 8 * 256);
-
-  const int warp = threadIdx.x / 32;
-  const int q = warp & 3, rf = q >> 1, cf = q & 1;
-  const int row0 = blockIdx.x * BM;
-  const int rows_valid = min(BM, M - row0);
-  load_tile_async(xs, LDC, x + (int64_t)row0 * C, C, BM, C, rows_valid);
-  load_tile_async(gs, LDC, g + (int64_t)row0 * C, C, BM, C, rows_valid);
-  load_tile_async(w1c, LDC, w1, C, HC, C, HC);
-  load_tile_async(w2c, LDH, w2, H, C, HC, C);
-  cp_async_commit();
-
-  FragC acc[BM / 16][NCF];
+// Epilogue of one tile. Accumulator layout of m64nNk16: warp w of the
+// warpgroup holds rows 16w + lane/4 (+8), columns 8n + 2*(lane%4) (+1) in
+// d[4n + 2i + j] (i: +8 rows, j: +1 column).
+template <int BN, int KIND, int NA2>
+__device__ __forceinline__ void epilogue(const GemmArgs& a, const Tile& c, float (&acc)[BN / 2],
+                                         float (&acc2)[NA2], float* red, int wg) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r_a = c.row0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int c_a = c.col0 + 2 * (lane & 3);
+  const int rows = c.prod ? a.rows1 : a.rows0, cols = c.prod ? a.cols1 : a.cols0;
+  if constexpr (KIND == DH) {
+    bf16* hout = static_cast<bf16*>(a.out0);
+    bf16* dhout = static_cast<bf16*>(a.out1);
 #pragma unroll
-  for (int r = 0; r < BM / 16; ++r)
+    for (int n = 0; n < BN / 8; ++n) {
+      const int col = c_a + 8 * n;
+      float s0 = 0.0f, s1 = 0.0f;
+      if (col < cols) {  // uniform over the warp: cols is a multiple of 8
+        const float bx = a.bias[col], by = a.bias[col + 1];
 #pragma unroll
-    for (int t = 0; t < NCF; ++t) wmma::fill_fragment(acc[r][t], 0.0f);
-
-  const int nchunks = H / HC;
-  for (int c = 0; c < nchunks; ++c) {
-    const int j0 = c * HC;
-    cp_async_wait<0>();
-    __syncthreads();  // W1/W2 chunk c landed
-    {
-      // warps 0-3: u = x @ W1c^T; warps 4-7: dp = g @ W2c ([16 x 16] each)
-      FragC f;
-      wmma::fill_fragment(f, 0.0f);
-      if (warp < 4)
-        mm_abt(f, xs, LDC, w1c, LDC, rf, cf, 0, C);
-      else
-        mm_ab(f, gs, LDC, w2c, LDH, rf, cf, 0, C);
-      wmma::store_matrix_sync(stage + warp * 256, f, 16, wmma::mem_row_major);
-    }
-    __syncthreads();  // W2 chunk c is free
-    if (c + 1 < nchunks) load_tile_async(w2c, LDH, w2 + j0 + HC, H, C, HC, C);
-    cp_async_commit();
-    for (int e = threadIdx.x; e < BM * HC; e += NT) {
-      const int r = e / HC, j = e - r * HC;
-      const int s = (r >> 4) * 2 + (j >> 4), i = (r & 15) * 16 + (j & 15);
-      const float u = stage[s * 256 + i] + b1[j0 + j];
-      dhs[r * LDH + j] = __float2bfloat16(stage[(4 + s) * 256 + i] * dgelu_f(u));
-    }
-    __syncthreads();  // dh complete
-    mm_chunk<C, false>(acc, dhs, w1c, LDC);
-    __syncthreads();  // W1 chunk c and dh are free
-    if (c + 1 < nchunks) load_tile_async(w1c, LDC, w1 + (int64_t)(j0 + HC) * C, C, HC, C, HC);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  store_rows<C>(reinterpret_cast<float*>(smem), acc, dx, nullptr, row0, rows_valid);
-}
-
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-dw_blocked_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                  const bf16* __restrict__ g, float* __restrict__ ws, int M, int H) {
-  constexpr int LDC = C + 8;
-  constexpr int NCF = C / 128;
-  typedef DwSmem<C> S;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + S::tile)};
-  bf16* gs[2] = {reinterpret_cast<bf16*>(smem + 2 * S::tile),
-                 reinterpret_cast<bf16*>(smem + 3 * S::tile)};
-  bf16* w1c = reinterpret_cast<bf16*>(smem + 4 * S::tile);
-  bf16* w2c = reinterpret_cast<bf16*>(smem + 4 * S::tile + S::w1c);
-  float* stage = reinterpret_cast<float*>(smem + 4 * S::tile + S::w1c + S::w2c);
-  bf16* hs = reinterpret_cast<bf16*>(stage + 8 * 256);
-  bf16* dhs = hs + BMW * LDHW;
-  float* dhf = reinterpret_cast<float*>(dhs + BMW * LDHW);
-  float* db2s = dhf + BMW * HCW;
-
-  const int warp = threadIdx.x / 32;
-  const int j0 = blockIdx.x * HCW;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const bool first_chunk = blockIdx.x == 0;
-  const int ntiles = (M + BMW - 1) / BMW;
-
-  load_tile_async(w1c, LDC, w1 + (int64_t)j0 * C, C, HCW, C, HCW);
-  load_tile_async(w2c, LDHW, w2 + j0, H, C, HCW, C);
-  if (split < ntiles) {
-    const int rv = min(BMW, M - split * BMW);
-    load_tile_async(xs[0], LDC, x + (int64_t)split * BMW * C, C, BMW, C, rv);
-    load_tile_async(gs[0], LDC, g + (int64_t)split * BMW * C, C, BMW, C, rv);
-  }
-  cp_async_commit();
-  for (int c = threadIdx.x; c < C; c += NT) db2s[c] = 0.0f;
-
-  FragC acc1[NCF];  // dW1[j0 : +16, (warp*NCF + t)*16 : +16]
-  FragC acc2[NCF];  // dW2[(warp*NCF + t)*16 : +16, j0 : +16]
+        for (int i = 0; i < 2; ++i) {
+          const int row = r_a + 8 * i;
+          if (row < rows) {
+            float hv[2], dv[2];
 #pragma unroll
-  for (int t = 0; t < NCF; ++t) {
-    wmma::fill_fragment(acc1[t], 0.0f);
-    wmma::fill_fragment(acc2[t], 0.0f);
-  }
-  float db1_acc = 0.0f;
-
-  int buf = 0;
-  for (int tile = split; tile < ntiles; tile += nsplit, buf ^= 1) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile landed; every warp is done with the previous one
-    const int next = tile + nsplit;
-    if (next < ntiles) {
-      const int rv = min(BMW, M - next * BMW);
-      load_tile_async(xs[buf ^ 1], LDC, x + (int64_t)next * BMW * C, C, BMW, C, rv);
-      load_tile_async(gs[buf ^ 1], LDC, g + (int64_t)next * BMW * C, C, BMW, C, rv);
+            for (int j = 0; j < 2; ++j) {
+              const float z = acc[4 * n + 2 * i + j] + (j ? by : bx);
+              const float cdf = 0.5f * (1.0f + erff(z * 0.70710678118654752f));
+              const float pdf = 0.3989422804014327f * expf(-0.5f * z * z);
+              hv[j] = z * cdf;
+              dv[j] = acc2[4 * n + 2 * i + j] * (cdf + z * pdf);
+            }
+            const int64_t o = (int64_t)row * cols + col;
+            *reinterpret_cast<__nv_bfloat162*>(hout + o) = __floats2bfloat162_rn(hv[0], hv[1]);
+            *reinterpret_cast<__nv_bfloat162*>(dhout + o) = __floats2bfloat162_rn(dv[0], dv[1]);
+            s0 += dv[0];
+            s1 += dv[1];
+          }
+        }
+      }
+      // column sums of the unrounded dh over the warp's 16 rows
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      }
+      if (lane < 4) {
+        red[(wg * 4 + warp) * BN + 8 * n + 2 * lane] = s0;
+        red[(wg * 4 + warp) * BN + 8 * n + 2 * lane + 1] = s1;
+      }
     }
-    cp_async_commit();
-    {
-      // warps 0-3: quarter kq of u = x @ W1c^T; warps 4-7: of dp = g @ W2c
-      const int kq = warp & 3;
-      FragC f;
-      wmma::fill_fragment(f, 0.0f);
-      if (warp < 4)
-        mm_abt(f, xs[buf], LDC, w1c, LDC, 0, 0, kq * (C / 4), C / 4);
-      else
-        mm_ab(f, gs[buf], LDC, w2c, LDHW, 0, 0, kq * (C / 4), C / 4);
-      wmma::store_matrix_sync(stage + warp * 256, f, 16, wmma::mem_row_major);
-    }
-    __syncthreads();
-    {
-      // one (row, hidden) element per thread; the quarters sum in fixed order
-      const int e = threadIdx.x, j = e & 15;
-      const float u = ((stage[e] + stage[256 + e]) + (stage[512 + e] + stage[768 + e])) +
-                      b1[j0 + j];
-      const float dp = (stage[1024 + e] + stage[1280 + e]) + (stage[1536 + e] + stage[1792 + e]);
-      const float dh = dp * dgelu_f(u);
-      const int r = e >> 4;
-      hs[r * LDHW + j] = __float2bfloat16(gelu_f(u));
-      dhs[r * LDHW + j] = __float2bfloat16(dh);
-      dhf[e] = dh;
-    }
-    __syncthreads();
-    if (threadIdx.x < HCW) {
-      for (int r = 0; r < BMW; ++r) db1_acc += dhf[r * HCW + threadIdx.x];
-    }
-    if (first_chunk) {
-      for (int c = threadIdx.x; c < C; c += NT) {
+    consumers_sync();
+    float* part = a.ws + (int64_t)(c.row0 / BM) * a.cols0;
+    for (int j = threadIdx.x - 128; j < BN; j += 256) {
+      if (c.col0 + j < cols) {
         float s = 0.0f;
-        for (int r = 0; r < BMW; ++r) s += __bfloat162float(gs[buf][r * LDC + c]);
-        db2s[c] += s;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) s += red[w * BN + j];  // fixed order
+        part[c.col0 + j] = s;
       }
     }
-    // dW1[j, c] += sum_m dh[m, j] x[m, c];  dW2[c, j] += sum_m g[m, c] h[m, j]
-    FragAT fdh;
-    FragB fh;
-    wmma::load_matrix_sync(fdh, dhs, LDHW);
-    wmma::load_matrix_sync(fh, hs, LDHW);
+    consumers_sync();  // red is free for the next tile
+  } else {
+    float* wsp = nullptr;
+    if (KIND == DW && a.splits > 1)
+      wsp = a.ws + (int64_t)c.split * ((int64_t)a.rows0 * a.cols0 + (int64_t)a.rows1 * a.cols1) +
+            (c.prod ? (int64_t)a.rows0 * a.cols0 : 0);
+    bf16* out = static_cast<bf16*>(c.prod ? a.out1 : a.out0);
 #pragma unroll
-    for (int t = 0; t < NCF; ++t) {
-      FragB fx;
-      wmma::load_matrix_sync(fx, xs[buf] + (warp * NCF + t) * 16, LDC);
-      wmma::mma_sync(acc1[t], fdh, fx, acc1[t]);
-      FragAT fg;
-      wmma::load_matrix_sync(fg, gs[buf] + (warp * NCF + t) * 16, LDC);
-      wmma::mma_sync(acc2[t], fg, fh, acc2[t]);
+    for (int n = 0; n < BN / 8; ++n) {
+      const int col = c_a + 8 * n;
+      if (col >= cols) continue;
+      float bx = 0.0f, by = 0.0f;
+      if constexpr (KIND == UP || KIND == DOWN) {
+        bx = a.bias[col];
+        by = a.bias[col + 1];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r_a + 8 * i;
+        if (row >= rows) continue;
+        float v0 = acc[4 * n + 2 * i] + bx, v1 = acc[4 * n + 2 * i + 1] + by;
+        if constexpr (KIND == UP) {
+          v0 = gelu_f(v0);
+          v1 = gelu_f(v1);
+        }
+        const int64_t o = (int64_t)row * cols + col;
+        if (wsp)
+          *reinterpret_cast<float2*>(wsp + o) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+      }
     }
   }
-  cp_async_wait<0>();
+}
 
-  const int64_t per_split = 2 * (int64_t)C * H + H + C;
-  float* part = ws + split * per_split;
+// One consumer warpgroup (wg 0 or 1: rows 64*wg of each tile).
+template <int BN, int KIND>
+__device__ __forceinline__ void consumer(const GemmArgs& a, uint32_t ring, uint32_t full,
+                                         uint32_t empty, float* red, int wg) {
+  typedef KindTraits<KIND> T;
+  typedef Plan<BN, KIND> P;
+  float acc[BN / 2] = {};
+  float acc2[T::DUAL ? BN / 2 : 1] = {};
+  const int total = tiles_per_split(a, BN) * a.splits;
+  const bool leader = (threadIdx.x & 127) == 0;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const Tile c = decode(a, BN, t);
+    int prev = -1;
+    for (int k = c.kb; k < c.ke; ++k) {
+      mbar_wait(full + stage * 8, phase);
+      const uint32_t s = ring + stage * P::STAGE;
+      const uint32_t sa = s + wg * (A_BYTES / 2);  // 64 rows (K-major) or one box (MN-major)
+      wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < NCF; ++t) {
-    const int c0 = (warp * NCF + t) * 16;
-    wmma::store_matrix_sync(part + (int64_t)j0 * C + c0, acc1[t], C, wmma::mem_row_major);
-    wmma::store_matrix_sync(part + (int64_t)C * H + (int64_t)c0 * H + j0, acc2[t], H,
-                            wmma::mem_row_major);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const int on = k > c.kb || kk > 0;  // the first step overwrites the accumulators
+        mma<BN, T::A_MN, T::B_MN>(acc, step_desc(sa, kk, T::A_MN),
+                                  step_desc(s + A_BYTES, kk, T::B_MN), on);
+        if constexpr (T::DUAL)
+          mma<BN, 0, 1>(acc2, step_desc(sa + A_BYTES + P::B_BYTES, kk, false),
+                        step_desc(s + 2 * A_BYTES + P::B_BYTES, kk, true), on);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (prev >= 0 && leader) mbar_arrive(empty + prev * 8);
+      prev = stage;
+      if (++stage == P::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(acc2);
+    if (prev >= 0 && leader) mbar_arrive(empty + prev * 8);
+    epilogue<BN, KIND>(a, c, acc, acc2, red, wg);
   }
-  if (threadIdx.x < HCW) part[2 * (int64_t)C * H + j0 + threadIdx.x] = db1_acc;
-  if (first_chunk)
-    for (int c = threadIdx.x; c < C; c += NT) part[2 * (int64_t)C * H + H + c] = db2s[c];
 }
 
-__global__ void reduce_blocked_kernel(const float* __restrict__ ws, int nsplit, int C, int H,
-                                      bf16* __restrict__ dw1, bf16* __restrict__ dw2,
-                                      float* __restrict__ db1, float* __restrict__ db2) {
-  const int64_t ch = (int64_t)C * H;
-  const int64_t per_split = 2 * ch + H + C;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < per_split;
-       i += (int64_t)gridDim.x * blockDim.x) {
+template <int BN, int KIND>
+__device__ __forceinline__ void gemm(const GemmArgs& a) {
+  typedef Plan<BN, KIND> P;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // 128-byte swizzle wants 1024-byte alignment
+  const uint32_t full = ring + P::STAGES * P::STAGE;
+  const uint32_t empty = full + P::STAGES * 8;
+  float* red = reinterpret_cast<float*>(smem_raw + (empty + P::STAGES * 8 - raw));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(full + s * 8, 1);   // the producer's expect_tx; TMA completes the bytes
+      mbar_init(empty + s * 8, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) producer<BN, KIND>(a, ring, full, empty);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    consumer<BN, KIND>(a, ring, full, empty, red, threadIdx.x / 128 - 1);
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(NT, 1) k3_fwd_up_kernel(const __grid_constant__ GemmArgs a) {
+  gemm<BN, UP>(a);
+}
+template <int BN>
+__global__ void __launch_bounds__(NT, 1) k3_fwd_down_kernel(const __grid_constant__ GemmArgs a) {
+  gemm<BN, DOWN>(a);
+}
+template <int BN>
+__global__ void __launch_bounds__(NT, 1) k3_bwd_dh_kernel(const __grid_constant__ GemmArgs a) {
+  gemm<BN, DH>(a);
+}
+template <int BN>
+__global__ void __launch_bounds__(NT, 1) k3_bwd_dx_kernel(const __grid_constant__ GemmArgs a) {
+  gemm<BN, DX>(a);
+}
+template <int BN>
+__global__ void __launch_bounds__(NT, 1) k3_bwd_dw_kernel(const __grid_constant__ GemmArgs a) {
+  gemm<BN, DW>(a);
+}
+
+// db2 partials: block b sums rows [32b, 32b + 32) of g [M, C], two columns a
+// thread.
+__global__ void k3_bwd_colsum_kernel(const bf16* __restrict__ g, float* __restrict__ part, int M,
+                                     int C) {
+  const int r0 = blockIdx.x * COLSUM_ROWS;
+  const int r1 = min(r0 + COLSUM_ROWS, M);
+  for (int j = threadIdx.x; j < C / 2; j += blockDim.x) {
+    float s0 = 0.0f, s1 = 0.0f;
+    for (int r = r0; r < r1; ++r) {
+      const float2 v =
+          __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(g + (int64_t)r * C)[j]);
+      s0 += v.x;
+      s1 += v.y;
+    }
+    part[(int64_t)blockIdx.x * C + 2 * j] = s0;
+    part[(int64_t)blockIdx.x * C + 2 * j + 1] = s1;
+  }
+}
+
+// Sums the dW split partials (when splits > 1, one element a thread, in the
+// first n_dw_blocks blocks) and casts them to bf16; sums the db1 (per 128-row
+// tile) and db2 (per 32-row chunk) partials, one element a warp: lane l takes
+// partials l, l + 32, ..., then a fixed shuffle tree. Every order is fixed.
+__global__ void k3_bwd_reduce_kernel(const float* __restrict__ ws_dw, int splits, int64_t ch,
+                                     int n_dw_blocks, bf16* __restrict__ dw1,
+                                     bf16* __restrict__ dw2, const float* __restrict__ ws_db1,
+                                     int n_db1, int H, float* __restrict__ db1,
+                                     const float* __restrict__ ws_db2, int n_db2, int C,
+                                     float* __restrict__ db2) {
+  if ((int)blockIdx.x < n_dw_blocks) {
+    for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < 2 * ch;
+         i += (int64_t)n_dw_blocks * blockDim.x) {
+      float s = 0.0f;
+      for (int k = 0; k < splits; ++k) s += ws_dw[k * 2 * ch + i];
+      if (i < ch)
+        dw1[i] = __float2bfloat16(s);
+      else
+        dw2[i - ch] = __float2bfloat16(s);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warps = (gridDim.x - n_dw_blocks) * (blockDim.x / 32);
+  for (int j = (blockIdx.x - n_dw_blocks) * (blockDim.x / 32) + threadIdx.x / 32; j < H + C;
+       j += warps) {
+    const bool is_db1 = j < H;
+    const float* part = is_db1 ? ws_db1 + j : ws_db2 + (j - H);
+    const int n = is_db1 ? n_db1 : n_db2, stride = is_db1 ? H : C;
     float s = 0.0f;
-    for (int k = 0; k < nsplit; ++k) s += ws[k * per_split + i];
-    if (i < ch)
-      dw1[i] = __float2bfloat16(s);
-    else if (i < 2 * ch)
-      dw2[i - ch] = __float2bfloat16(s);
-    else if (i < 2 * ch + H)
-      db1[i - 2 * ch] = s;
-    else
-      db2[i - 2 * ch - H] = s;
+    for (int t = lane; t < n; t += 32) s += part[(int64_t)t * stride];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) {
+      if (is_db1)
+        db1[j] = s;
+      else
+        db2[j - H] = s;
+    }
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, from the libcuda.so.1 that the CUDA
+// runtime has loaded (no link against libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
 }
 
-template <int C>
-int launch_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-               void* out, int M, int H, cudaStream_t stream) {
-  constexpr size_t smem = FwdSmem<C>::total;
-  cudaError_t e = set_smem(fwd_blocked_kernel<C>, smem);
-  if (e != cudaSuccess) return (int)e;
-  fwd_blocked_kernel<C><<<(M + BM - 1) / BM, NT, smem, stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
-      (bf16*)out, M, H);
-  return (int)cudaGetLastError();
+// TMA map of a row-major bf16 [rows, cols] tensor in boxes of [box_rows x
+// 64 columns], 128-byte swizzle; reads past the edges fill zeros.
+bool make_map(CUtensorMap* m, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int C>
-int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* g,
-               void* dx, void* dw1, void* dw2, void* db1, void* db2, void* ws, int M, int H,
-               int nsplit, cudaStream_t stream) {
-  constexpr size_t smem_dx = DxSmem<C>::total;
-  constexpr size_t smem_dw = DwSmem<C>::total;
-  cudaError_t e = set_smem(dx_blocked_kernel<C>, smem_dx);
-  if (e != cudaSuccess) return (int)e;
-  e = set_smem(dw_blocked_kernel<C>, smem_dw);
-  if (e != cudaSuccess) return (int)e;
-  dx_blocked_kernel<C><<<(M + BM - 1) / BM, NT, smem_dx, stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const bf16*)g,
-      (bf16*)dx, M, H);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dw_blocked_kernel<C><<<dim3(H / HCW, nsplit), NT, smem_dw, stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const bf16*)g,
-      (float*)ws, M, H);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int64_t per_split = 2 * (int64_t)C * H + H + C;
-  const int blocks = (int)((per_split + 255) / 256);
-  reduce_blocked_kernel<<<blocks, 256, 0, stream>>>((const float*)ws, nsplit, C, H, (bf16*)dw1,
-                                                    (bf16*)dw2, (float*)db1, (float*)db2);
-  return (int)cudaGetLastError();
+template <int BN, int KIND, typename K>
+cudaError_t run(K kernel, const GemmArgs& a, int sms, cudaStream_t stream) {
+  constexpr int smem = Plan<BN, KIND>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = tiles_per_split(a, BN) * a.splits;
+  kernel<<<tiles < sms ? tiles : sms, NT, smem, stream>>>(a);
+  return cudaGetLastError();
 }
+
+bool bn_ok(int bn) { return bn == 128 || bn == 256; }
+
+// cuTensorMapEncodeTiled is a driver call and needs a current context on the
+// calling thread, which a thread the runtime has not used yet (autograd's
+// backward thread) may lack; cudaFree(nullptr) binds the runtime's context
+// and does nothing else.
+bool bind_context() { return cudaFree(nullptr) == cudaSuccess; }
+
+// Host-side refusals, told apart from CUDA's error codes (all positive).
+constexpr int kBadArgs = -1;    // a shape or plan the kernels do not take
+constexpr int kBadMap = -2;     // cuTensorMapEncodeTiled missing or refused
 
 }  // namespace
 
@@ -613,25 +688,115 @@ extern "C" {
 
 // Shapes the kernels take: C = 768, H a positive multiple of 32, M >= 1.
 int srt_fused_mlp_blocked_supported(int C, int H) {
-  return C == 768 && H > 0 && H % HC == 0;
+  return C == 768 && H > 0 && H % 32 == 0;
 }
 
+// h: [M, H] bf16 scratch for the hidden. bn_up / bn_down: tile widths of F1
+// and F2 (128 or 256); sms: CTAs of the persistent grids.
 int srt_fused_mlp_blocked_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                              const void* b2, void* out, int M, int C, int H, void* stream) {
-  if (M <= 0 || !srt_fused_mlp_blocked_supported(C, H)) return (int)cudaErrorInvalidValue;
-  return launch_fwd<768>(x, w1, b1, w2, b2, out, M, H, (cudaStream_t)stream);
+                              const void* b2, void* out, void* h, int M, int C, int H, int bn_up,
+                              int bn_down, int sms, void* stream) {
+  if (M <= 0 || sms <= 0 || !srt_fused_mlp_blocked_supported(C, H) || !bn_ok(bn_up) ||
+      !bn_ok(bn_down))
+    return kBadArgs;
+  if (!bind_context()) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  GemmArgs up = {};
+  if (!make_map(&up.a0, x, M, C, BM) || !make_map(&up.b0, w1, H, C, bn_up))
+    return kBadMap;
+  up.bias = (const float*)b1;
+  up.out0 = h;
+  up.rows0 = M;
+  up.cols0 = H;
+  up.k = C;
+  up.splits = 1;
+  cudaError_t e = bn_up == 256 ? run<256, UP>(k3_fwd_up_kernel<256>, up, sms, st)
+                               : run<128, UP>(k3_fwd_up_kernel<128>, up, sms, st);
+  if (e != cudaSuccess) return (int)e;
+  GemmArgs down = {};
+  if (!make_map(&down.a0, h, M, H, BM) || !make_map(&down.b0, w2, C, H, bn_down))
+    return kBadMap;
+  down.bias = (const float*)b2;
+  down.out0 = out;
+  down.rows0 = M;
+  down.cols0 = C;
+  down.k = H;
+  down.splits = 1;
+  e = bn_down == 256 ? run<256, DOWN>(k3_fwd_down_kernel<256>, down, sms, st)
+                     : run<128, DOWN>(k3_fwd_down_kernel<128>, down, sms, st);
+  return (int)e;
 }
 
-// ws: nsplit * (2*C*H + H + C) f32, allocated by the caller; nsplit row
-// splits of the dW kernel.
+// h, dh: [M, H] bf16 scratch. ws_dw: splits * 2*C*H f32 when splits > 1
+// (else unused); ws_db1: ceil(M / 128) * H f32; ws_db2: ceil(M / 32) * C f32.
+// bn_dx / bn_dw: tile widths of B2 and B3; splits: K splits of B3 (1 ..
+// ceil(M / 64)); sms: CTAs of the persistent grids.
 int srt_fused_mlp_blocked_bwd(const void* x, const void* w1, const void* b1, const void* w2,
-                              const void* g, void* dx, void* dw1, void* dw2, void* db1,
-                              void* db2, void* ws, int M, int C, int H, int nsplit,
+                              const void* g, void* dx, void* dw1, void* dw2, void* db1, void* db2,
+                              void* h, void* dh, void* ws_dw, void* ws_db1, void* ws_db2, int M,
+                              int C, int H, int bn_dx, int bn_dw, int splits, int sms,
                               void* stream) {
-  if (M <= 0 || nsplit <= 0 || !srt_fused_mlp_blocked_supported(C, H))
-    return (int)cudaErrorInvalidValue;
-  return launch_bwd<768>(x, w1, b1, w2, g, dx, dw1, dw2, db1, db2, ws, M, H, nsplit,
-                         (cudaStream_t)stream);
+  if (M <= 0 || sms <= 0 || !srt_fused_mlp_blocked_supported(C, H) || !bn_ok(bn_dx) ||
+      !bn_ok(bn_dw) || splits < 1 || splits > cdiv(M, BK) || (splits > 1 && !ws_dw))
+    return kBadArgs;
+  if (!bind_context()) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  // B1: u = x W1^T, dp = g W2 -> h, dh, db1 partials
+  GemmArgs b1a = {};
+  if (!make_map(&b1a.a0, x, M, C, BM) || !make_map(&b1a.b0, w1, H, C, 128) ||
+      !make_map(&b1a.a1, g, M, C, BM) || !make_map(&b1a.b1, w2, C, H, 64))
+    return kBadMap;
+  b1a.bias = (const float*)b1;
+  b1a.out0 = h;
+  b1a.out1 = dh;
+  b1a.ws = (float*)ws_db1;
+  b1a.rows0 = M;
+  b1a.cols0 = H;
+  b1a.k = C;
+  b1a.splits = 1;
+  cudaError_t e = run<128, DH>(k3_bwd_dh_kernel<128>, b1a, sms, st);
+  if (e != cudaSuccess) return (int)e;
+  // B2: dx = dh W1
+  GemmArgs b2a = {};
+  if (!make_map(&b2a.a0, dh, M, H, BM) || !make_map(&b2a.b0, w1, H, C, 64))
+    return kBadMap;
+  b2a.out0 = dx;
+  b2a.rows0 = M;
+  b2a.cols0 = C;
+  b2a.k = H;
+  b2a.splits = 1;
+  e = bn_dx == 256 ? run<256, DX>(k3_bwd_dx_kernel<256>, b2a, sms, st)
+                   : run<128, DX>(k3_bwd_dx_kernel<128>, b2a, sms, st);
+  if (e != cudaSuccess) return (int)e;
+  // B3: dW1 = dh^T x, dW2 = g^T h
+  GemmArgs b3a = {};
+  if (!make_map(&b3a.a0, dh, M, H, 64) || !make_map(&b3a.b0, x, M, C, 64) ||
+      !make_map(&b3a.a1, g, M, C, 64) || !make_map(&b3a.b1, h, M, H, 64))
+    return kBadMap;
+  b3a.out0 = dw1;
+  b3a.out1 = dw2;
+  b3a.ws = (float*)ws_dw;
+  b3a.rows0 = H;
+  b3a.cols0 = C;
+  b3a.rows1 = C;
+  b3a.cols1 = H;
+  b3a.k = M;
+  b3a.splits = splits;
+  e = bn_dw == 256 ? run<256, DW>(k3_bwd_dw_kernel<256>, b3a, sms, st)
+                   : run<128, DW>(k3_bwd_dw_kernel<128>, b3a, sms, st);
+  if (e != cudaSuccess) return (int)e;
+  const int n_db2 = cdiv(M, COLSUM_ROWS);
+  k3_bwd_colsum_kernel<<<n_db2, C / 2, 0, st>>>((const bf16*)g, (float*)ws_db2, M, C);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int64_t ch = (int64_t)C * H;
+  const int64_t dw_blocks = splits > 1 ? (2 * ch + 255) / 256 : 0;
+  const int n_dw_blocks = (int)(dw_blocks < 4 * sms ? dw_blocks : 4 * sms);
+  const int db_blocks = (H + C + 7) / 8;  // one warp per db1 / db2 element
+  k3_bwd_reduce_kernel<<<n_dw_blocks + db_blocks, 256, 0, st>>>(
+      (const float*)ws_dw, splits, ch, n_dw_blocks, (bf16*)dw1, (bf16*)dw2, (const float*)ws_db1,
+      cdiv(M, BM), H, (float*)db1, (const float*)ws_db2, n_db2, C, (float*)db2);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,16 +1,18 @@
 """Fused transformer MLP: ``gelu(x @ W1^T + b1) @ W2^T + b2``.
 
 Port of ``semireward_tpu/ops/fused_mlp.py``. On a CUDA tensor the forward and
-backward run hand-written Hopper kernels that keep the ``[rows, hidden]``
-activation out of device memory:
+backward run hand-written Hopper kernels:
 
 - K1 (``csrc/fused_mlp.cu``), the full-resident pair
   ``_fwd_kernel``/``_bwd_kernel``, for the widths it takes (C in 128/256/384,
-  ViT-S);
+  ViT-S), which keeps the ``[rows, hidden]`` activation out of device memory;
 - K3 (``csrc/fused_mlp_blocked.cu``), the hidden-blocked
   ``_fwd_blocked_kernel``/``_bwd_dx_kernel``/``_bwd_dw_kernel``, for C = 768
   (ViT-B, BERT-base, HuBERT-base, wav2vec2-base; H = 3072), or wherever
-  ``block_h`` < H forces the blocked form.
+  ``block_h`` < H forces the blocked form. K3 computes the same function as
+  wgmma + TMA GEMMs with fused bias/GELU epilogues (two forward, three
+  backward) and passes the ``[rows, hidden]`` activation through device
+  memory; :func:`blocked_plan` picks their tiles.
 
 A width neither kernel takes raises on a CUDA tensor: there is no plain path
 on the card. On a CPU tensor both run the plain PyTorch version below, which
@@ -19,7 +21,7 @@ accumulation, bias adds and GELU in f32, the hidden rounded to the activation
 dtype before the second product, ``dh`` rounded before ``dx``/``dW1``, f32
 bias grads from the unrounded ``dh``, weight grads in the weights' dtype. The
 blocked kernels compute the same function with the f32 sums taken in another
-order (per hidden slice), so the same plain version is theirs too. GELU is
+order (per 64-wide K step), so the same plain version is theirs too. GELU is
 the exact erf form everywhere; the TPU kernel used an erf approximation only
 because Mosaic had no ``erf`` (max error 1.5e-7).
 
@@ -28,6 +30,7 @@ Weights use ``torch.nn.Linear``'s layout: ``w1 [H, C]``, ``w2 [C, H]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -107,9 +110,9 @@ def _blocked_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.srt_fused_mlp_blocked_supported.argtypes = [i, i]
         lib.srt_fused_mlp_blocked_supported.restype = i
-        lib.srt_fused_mlp_blocked_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.srt_fused_mlp_blocked_fwd.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.srt_fused_mlp_blocked_fwd.restype = i
-        lib.srt_fused_mlp_blocked_bwd.argtypes = [p] * 11 + [i, i, i, i, p]
+        lib.srt_fused_mlp_blocked_bwd.argtypes = [p] * 15 + [i] * 7 + [p]
         lib.srt_fused_mlp_blocked_bwd.restype = i
         lib._srt_typed = True
     return lib
@@ -187,10 +190,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# K3's host-side refusals (csrc/fused_mlp_blocked.cu); CUDA's codes are > 0
+_HOST_ERRORS = {-1: "arguments or a plan the kernels do not take",
+                -2: "cuTensorMapEncodeTiled is missing or refused a TMA map"}
+
+
 def _raise_if(err, what):
     if err != 0:
-        raise RuntimeError(f"fused_mlp: {what} launch failed with CUDA "
-                           f"error {err}")
+        why = _HOST_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"fused_mlp: {what} launch failed: {why}")
 
 
 def kernel_fwd(x, w1, b1, w2, b2):
@@ -234,44 +242,170 @@ def kernel_bwd(x, w1, b1, w2, g):
     return dx, dw1, dw2, db1, db2
 
 
-def kernel_blocked_fwd(x, w1, b1, w2, b2):
-    """K3 forward."""
+# K3's GEMM tiles (csrc/fused_mlp_blocked.cu): BM output rows by BN columns,
+# K in steps of BK; B3 (dW) may split its K = M into up to K3_MAX_SPLITS.
+K3_BM, K3_BK, K3_BNS, K3_MAX_SPLITS = 128, 64, (128, 256), 4
+# The planning model: the published H100 SXM peaks (989 TFLOP/s bf16 dense,
+# 3.35 TB/s) and the share of the tensor-core peak each tile width is assumed
+# to reach (a 128-wide tile reads more shared memory per product). These
+# shares rank the candidates; they are not measured rates.
+_PEAK_MACS, _PEAK_BYTES = 989e12 / 2, 3.35e12
+_TILE_EFF = {128: 0.80, 256: 0.90}
+# device-memory bytes a K split of B3 costs per dW element: the f32 partial
+# written and read back counts 8; the measured reduction pass (H100, 2 and 3
+# splits at M 6144 and 8192) cost as much as ~14
+_SPLIT_BYTES = 14
+
+
+def _blocked_products(m: int, c: int, h: int):
+    """K3's GEMM launches: name -> (outputs [(rows, cols)], K, tile widths,
+    K splits tried, products per tile)."""
+    return {
+        "up": ([(m, h)], c, K3_BNS, (1,), 1),    # F1: gelu(x W1^T + b1)
+        "down": ([(m, c)], h, K3_BNS, (1,), 1),  # F2: h W2^T + b2
+        "dh": ([(m, h)], c, (128,), (1,), 2),    # B1: x W1^T and g W2
+        "dx": ([(m, c)], h, K3_BNS, (1,), 1),    # B2: dh W1
+        "dw": ([(h, c), (c, h)], m, K3_BNS,      # B3: dh^T x and g^T h
+               tuple(range(1, K3_MAX_SPLITS + 1)), 1),
+    }
+
+
+def blocked_tiles(outputs, k: int, bn: int, splits: int):
+    """The tiles of one K3 launch in the order its persistent grid walks them
+    (CTA b takes tiles b, b + grid, ...), as ``csrc/fused_mlp_blocked.cu:
+    decode`` enumerates them: split-major, then each output's tiles, row
+    tiles fastest. Each is (split, output, row0, col0, kb, ke) with K steps
+    [kb, ke) of ``K3_BK``."""
+    ks = math.ceil(k / K3_BK)
+    tiles = []
+    for s in range(splits):
+        kb, ke = s * ks // splits, (s + 1) * ks // splits
+        for p, (rows, cols) in enumerate(outputs):
+            mt = math.ceil(rows / K3_BM)
+            for q in range(mt * math.ceil(cols / bn)):
+                tiles.append((s, p, (q % mt) * K3_BM, (q // mt) * bn, kb, ke))
+    return tiles
+
+
+def _blocked_tile_count(outputs, bn: int, splits: int) -> int:
+    return splits * sum(math.ceil(r / K3_BM) * math.ceil(c / bn)
+                        for r, c in outputs)
+
+
+def _blocked_cost(outputs, k, bn, splits, sms, per_tile):
+    """Modelled seconds of one launch: full waves of the persistent grid
+    times one tile's products at the width's assumed rate, plus the K
+    splits' f32 partials (``_SPLIT_BYTES``)."""
+    steps = math.ceil(math.ceil(k / K3_BK) / splits)
+    tile_s = (per_tile * K3_BM * bn * K3_BK * steps
+              / (_PEAK_MACS / sms * _TILE_EFF[bn]))
+    ws = 0 if splits == 1 else _SPLIT_BYTES * splits * sum(r * c for r, c
+                                                          in outputs)
+    return (math.ceil(_blocked_tile_count(outputs, bn, splits) / sms) * tile_s
+            + ws / _PEAK_BYTES)
+
+
+@functools.lru_cache(maxsize=256)
+def _blocked_choices(m, c, h, sms, bn, dw_splits):
+    """((name, bn, splits, tiles), ...): the search behind blocked_plan,
+    cached because every K3 call asks for its plan."""
+    chosen = []
+    for name, (outputs, k, bns, splits_tried, per_tile) in \
+            _blocked_products(m, c, h).items():
+        if bn in bns:
+            bns = (bn,)
+        if name == "dw" and dw_splits is not None:
+            splits_tried = (dw_splits,)
+        best = None
+        for width in bns:
+            for s in splits_tried:
+                if s > math.ceil(k / K3_BK):
+                    continue
+                cost = _blocked_cost(outputs, k, width, s, sms, per_tile)
+                if best is None or cost < best[0]:
+                    best = (cost, width, s)
+        if best is None:
+            raise ValueError(f"blocked_plan: {dw_splits} K splits of M={m}")
+        _, width, s = best
+        chosen.append((name, width, s,
+                       _blocked_tile_count(outputs, width, s)))
+    return tuple(chosen)
+
+
+def blocked_plan(m: int, c: int, h: int, sms: int, bn=None,
+                 dw_splits=None) -> dict:
+    """K3's launch plan for ``m`` rows on a card of ``sms`` SMs: for each
+    GEMM (``up``, ``down`` forward; ``dh``, ``dx``, ``dw`` backward) the tile
+    width ``bn``, the K ``splits``, its ``tiles`` and ``grid`` (one CTA per
+    SM, at most one per tile), chosen by :func:`_blocked_cost` so the last
+    wave is nearly full; and the ``workspace`` element counts the wrapper
+    allocates (bf16 ``h``/``dh``, f32 ``dw`` split partials, ``db1`` per
+    128-row tile, ``db2`` per 32-row chunk). ``bn`` and ``dw_splits``
+    force a tile width on every GEMM that takes it and B3's K splits (the
+    card tests reach every variant so). Pure: no device is asked."""
+    if m <= 0 or sms <= 0:
+        raise ValueError(f"blocked_plan: m={m}, sms={sms} must be positive")
+    plan = {"sms": sms}
+    for name, width, s, tiles in _blocked_choices(m, c, h, sms, bn,
+                                                  dw_splits):
+        plan[name] = {"bn": width, "splits": s, "tiles": tiles,
+                      "grid": min(tiles, sms)}
+    splits = plan["dw"]["splits"]
+    plan["workspace"] = {"h": m * h, "dh": m * h,
+                         "dw": 2 * c * h * splits if splits > 1 else 0,
+                         "db1": math.ceil(m / K3_BM) * h,
+                         "db2": math.ceil(m / 32) * c}
+    return plan
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_blocked_fwd(x, w1, b1, w2, b2, plan=None):
+    """K3 forward (F1, F2). ``plan`` defaults to :func:`blocked_plan`'s;
+    the card tests pass others to reach every tile width."""
     lib = _blocked_lib()
     m, c, h = _check_args(x, w1, b1, w2, lib.srt_fused_mlp_blocked_supported)
     _check("b2", b2, (c,), torch.float32)
+    plan = plan or blocked_plan(m, c, h, _sms(x.device))
     out = torch.empty_like(x)
+    hid = torch.empty(m, h, device=x.device, dtype=x.dtype)
     err = lib.srt_fused_mlp_blocked_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), m, c, h, _stream(x))
+        b2.data_ptr(), out.data_ptr(), hid.data_ptr(), m, c, h,
+        plan["up"]["bn"], plan["down"]["bn"], plan["sms"], _stream(x))
     _raise_if(err, "blocked forward")
     launches["fused_mlp_blocked_fwd"] += 1
     return out
 
 
-# Row splits of K3's dW kernel: one gives H / 16 = 192 CTAs at H = 3072,
-# 1.45 waves of one CTA per SM on 132 SMs; two give 384, at the price of a
-# 2 x 18.9 MB f32 workspace and a reduction pass.
-BLOCKED_BWD_SPLITS = 2
-
-
-def kernel_blocked_bwd(x, w1, b1, w2, g):
-    """K3 backward (dx kernel, dW kernel, reduction) -> (dx, dw1, dw2, db1,
-    db2)."""
+def kernel_blocked_bwd(x, w1, b1, w2, g, plan=None):
+    """K3 backward (B1, B2, B3, the g column sums and the fixed-order
+    reduction) -> (dx, dw1, dw2, db1, db2). ``plan`` as in
+    :func:`kernel_blocked_fwd` (the card tests reach B3's K splits so)."""
     lib = _blocked_lib()
     m, c, h = _check_args(x, w1, b1, w2, lib.srt_fused_mlp_blocked_supported)
     _check("g", g, (m, c), torch.bfloat16)
-    splits = BLOCKED_BWD_SPLITS
+    plan = plan or blocked_plan(m, c, h, _sms(x.device))
+    ws = plan["workspace"]
     dx = torch.empty_like(x)
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     db1 = torch.empty(h, device=x.device, dtype=torch.float32)
     db2 = torch.empty(c, device=x.device, dtype=torch.float32)
-    ws = torch.empty(splits * (2 * c * h + h + c), device=x.device,
-                     dtype=torch.float32)
+    hid = torch.empty(m, h, device=x.device, dtype=x.dtype)
+    dh = torch.empty(m, h, device=x.device, dtype=x.dtype)
+    ws_dw = (torch.empty(ws["dw"], device=x.device, dtype=torch.float32)
+             if ws["dw"] else None)
+    ws_db1 = torch.empty(ws["db1"], device=x.device, dtype=torch.float32)
+    ws_db2 = torch.empty(ws["db2"], device=x.device, dtype=torch.float32)
     err = lib.srt_fused_mlp_blocked_bwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-        db1.data_ptr(), db2.data_ptr(), ws.data_ptr(), m, c, h, splits,
-        _stream(x))
+        db1.data_ptr(), db2.data_ptr(), hid.data_ptr(), dh.data_ptr(),
+        None if ws_dw is None else ws_dw.data_ptr(), ws_db1.data_ptr(),
+        ws_db2.data_ptr(), m, c, h, plan["dx"]["bn"], plan["dw"]["bn"],
+        plan["dw"]["splits"], plan["sms"], _stream(x))
     _raise_if(err, "blocked backward")
     launches["fused_mlp_blocked_bwd"] += 1
     return dx, dw1, dw2, db1, db2

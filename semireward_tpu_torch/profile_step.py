@@ -75,10 +75,10 @@ def _group(name: str) -> str:
         return "flash_attention_fwd"
     if ours and ("flash_dq_kernel" in n or "flash_dkv_kernel" in n):
         return "flash_attention_bwd"
-    if ours and "fwd_blocked_kernel" in n:
+    # K3's GEMMs are wgmma kernels by the k3_ prefix, before any gemm match
+    if ours and "::k3_fwd_" in n:
         return "fused_mlp_blocked_fwd"
-    if ours and ("dx_blocked_kernel" in n or "dw_blocked_kernel" in n
-                 or "reduce_blocked_kernel" in n):
+    if ours and "::k3_bwd_" in n:
         return "fused_mlp_blocked_bwd"
     if ours and "fwd_kernel" in n:
         return "fused_mlp_fwd"

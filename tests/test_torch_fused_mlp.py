@@ -102,3 +102,71 @@ def test_block_h_must_divide_the_hidden_dim_as_in_jax():
         F.fused_mlp(torch.from_numpy(x), torch.from_numpy(w1.T.copy()),
                     torch.from_numpy(b1), torch.from_numpy(w2.T.copy()),
                     torch.from_numpy(b2), block_h=96)
+
+
+@pytest.mark.parametrize("m", [4776, 6144, 8192, 1, 129])
+def test_blocked_plan_covers_every_tile_once(m):
+    """K3's launch plan at the HuBERT (M 24*199), BERT (12*512) and BERT
+    eval (16*512) shapes and small ragged M: in each GEMM every output tile
+    comes once per K split, the splits cut K into non-empty consecutive
+    ranges, and the persistent walk (CTA b takes b, b + grid, ...) visits
+    every tile once."""
+    c, h, sms = 768, 3072, 132
+    plan = F.blocked_plan(m, c, h, sms)
+    for name, (outputs, k, *_) in F._blocked_products(m, c, h).items():
+        bn, splits = plan[name]["bn"], plan[name]["splits"]
+        tiles = F.blocked_tiles(outputs, k, bn, splits)
+        assert plan[name]["tiles"] == len(tiles)
+        assert plan[name]["grid"] == min(len(tiles), sms)
+        want = sorted((s, o, r, col) for s in range(splits)
+                      for o, (rows, cols) in enumerate(outputs)
+                      for r in range(0, rows, F.K3_BM)
+                      for col in range(0, cols, bn))
+        assert sorted(t[:4] for t in tiles) == want, name
+        ranges = sorted({(s, kb, ke) for s, _, _, _, kb, ke in tiles})
+        assert [r[0] for r in ranges] == list(range(splits))
+        assert ranges[0][1] == 0 and ranges[-1][2] == -(-k // F.K3_BK)
+        assert all(kb < ke for _, kb, ke in ranges), name
+        assert all(a[2] == b[1] for a, b in zip(ranges, ranges[1:]))
+        grid = plan[name]["grid"]
+        walk = sorted(t for b in range(grid)
+                      for t in range(b, len(tiles), grid))
+        assert walk == list(range(len(tiles)))
+    ws = plan["workspace"]
+    assert ws["h"] == ws["dh"] == m * h
+    assert ws["db1"] == -(-m // F.K3_BM) * h and ws["db2"] == -(-m // 32) * c
+    assert ws["dw"] == (0 if plan["dw"]["splits"] == 1
+                        else 2 * c * h * plan["dw"]["splits"])
+
+
+def test_blocked_plan_forces_widths_and_splits():
+    """The card tests reach every tile width and B3's K splits through
+    blocked_plan's forcing arguments; a split count past K raises."""
+    plan = F.blocked_plan(300, 768, 3072, 132, bn=256, dw_splits=3)
+    assert [plan[n]["bn"] for n in ("up", "down", "dh", "dx", "dw")] == \
+        [256, 256, 128, 256, 256]
+    assert plan["dw"]["splits"] == 3
+    assert plan["workspace"]["dw"] == 3 * 2 * 768 * 3072
+    with pytest.raises(ValueError, match="K splits"):
+        F.blocked_plan(64, 768, 3072, 132, dw_splits=2)
+    with pytest.raises(ValueError, match="positive"):
+        F.blocked_plan(0, 768, 3072, 132)
+
+
+def test_profile_groups_the_k3_kernels_by_name():
+    """profile_step files K3's wgmma GEMMs under the fused-MLP rows, not
+    under cuBLAS's GEMMs."""
+    from semireward_tpu_torch.profile_step import _group
+
+    ns = "void (anonymous namespace)::"
+    for kernel, group in (("k3_fwd_up_kernel<256>", "fused_mlp_blocked_fwd"),
+                          ("k3_fwd_down_kernel<128>", "fused_mlp_blocked_fwd"),
+                          ("k3_bwd_dh_kernel<128>", "fused_mlp_blocked_bwd"),
+                          ("k3_bwd_dw_kernel<256>", "fused_mlp_blocked_bwd"),
+                          ("k3_bwd_dx_kernel<128>", "fused_mlp_blocked_bwd"),
+                          ("k3_bwd_reduce_kernel", "fused_mlp_blocked_bwd"),
+                          ("fwd_kernel<384>", "fused_mlp_fwd")):
+        assert _group(ns + kernel + "(...)") == group, kernel
+    assert _group("(anonymous namespace)::k3_bwd_colsum_kernel(...)") == \
+        "fused_mlp_blocked_bwd"
+    assert _group("sm90_xmma_gemm_bf16bf16_bf16f32").startswith("gemm")

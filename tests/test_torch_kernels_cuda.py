@@ -80,25 +80,48 @@ def _mlp_inputs(dev, m, c, h, seed=0):
             torch.randn(m, c, generator=g).to(dev, torch.bfloat16))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [4776, 6144, 77])
-def test_blocked_kernels_match_plain_on_the_card(cuda_device, m):
-    """K3 (forward; dx + dW) against the plain version at the HuBERT-base
-    train shape (M 24*199), the BERT-base one (M 12*512) and a small ragged
-    M, C 768, H 3072 (bf16: 1e-2 of the largest magnitude; f32 bias grads:
-    1e-3); dW bit-equal across two launches."""
-    x, w1, b1, w2, b2, gy = _mlp_inputs(cuda_device, m, 768, 3072)
-    pairs = [(F.kernel_blocked_fwd(x, w1, b1, w2, b2),
+def _check_blocked(dev, m, h, plan=None):
+    """K3 forward and backward against the plain version (bf16: 1e-2 of the
+    largest magnitude; f32 bias grads: 1e-3); the backward bit-equal across
+    two launches."""
+    x, w1, b1, w2, b2, gy = _mlp_inputs(dev, m, 768, h)
+    pairs = [(F.kernel_blocked_fwd(x, w1, b1, w2, b2, plan=plan),
               F.plain_fwd(x, w1, b1, w2, b2), 1e-2)]
-    grads = F.kernel_blocked_bwd(x, w1, b1, w2, gy)
+    grads = F.kernel_blocked_bwd(x, w1, b1, w2, gy, plan=plan)
     for k, p, name in zip(grads, F.plain_bwd(x, w1, b1, w2, gy),
                           ("dx", "dw1", "dw2", "db1", "db2")):
         pairs.append((k, p, 1e-3 if name.startswith("db") else 1e-2))
-    again = F.kernel_blocked_bwd(x, w1, b1, w2, gy)
+    again = F.kernel_blocked_bwd(x, w1, b1, w2, gy, plan=plan)
     torch.cuda.synchronize()
     for k, p, rel in pairs:
         _close(k.float().cpu().numpy(), p.float().cpu().numpy(), rel)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4776, 6144, 77, 1, 129])
+def test_blocked_kernels_match_plain_on_the_card(cuda_device, m):
+    """K3 (F1 + F2; B1 + B2 + B3 + reduction) against the plain version at
+    the HuBERT-base train shape (M 24*199), the BERT-base one (M 12*512)
+    and small ragged M (129: one row past a 128-row tile), C 768, H 3072,
+    on the plan the wrapper picks."""
+    _check_blocked(cuda_device, m, 3072)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,h,bn,splits", [(300, 3072, 128, 1),
+                                           (300, 3072, 256, 3),
+                                           (129, 3104, 256, 2)])
+def test_blocked_kernels_every_width_and_split_on_the_card(cuda_device, m, h,
+                                                           bn, splits):
+    """K3 on plans the wrapper does not pick at the model shapes: every GEMM
+    at tile width 128, then 256, B3 with its K split into f32 partials, and
+    an H that is a multiple of 32 but not of a tile (partial column tiles,
+    a partial K step)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = F.blocked_plan(m, 768, h, sms, bn=bn, dw_splits=splits)
+    assert plan["dw"]["splits"] == splits
+    _check_blocked(cuda_device, m, h, plan)
 
 
 @pytest.mark.cuda
