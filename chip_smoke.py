@@ -9,8 +9,13 @@
 3. kernel phases: hold each kernel against its plain PyTorch version and
    time kernel, plain version and the one-call PyTorch equivalent (yardstick
    only) beside the bound:
-   - K1, the full-resident fused MLP, at the headline shape and a small
-     ragged one;
+   - K1, the fused MLP at C 128-384 (forward: two wgmma GEMMs, the GELU
+     one ping-pong; backward: three and a fixed-order reduction), at the
+     headline shape (M 24*257 = 6168, C 384, H 1536), the headline eval
+     shape (M 16*257 = 4112), ViT-Ti's width (M 6168, C 192, H 768) and a
+     small ragged one, the backward bit-equal across two launches, with its
+     breakdown by GEMM at the headline shape (``k3_profile.py``) and
+     ptxas's registers and spills for every K1 kernel (none may spill);
    - K3, the hidden-blocked fused MLP (forward: two wgmma GEMMs; backward:
      three and a fixed-order reduction), at the HuBERT-base train shape
      (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M 12*512 = 6144)
@@ -148,13 +153,15 @@ def fused_mlp_phase(F):
     """K1 and K3 forward/backward vs the plain version. Tolerances: bf16
     outputs (out, dx, dW) carry 8 significant bits, so one rounding at the
     largest magnitude is 0.4% of it and sums run in another order: 1% of
-    max|plain|. Bias grads are f32 sums of the same terms: 0.1%. Timed at
-    the headline shape (K1) and the HuBERT-base train shape (K3); K3's
-    numbers at the BERT-base shape are printed beside them."""
+    max|plain|. Bias grads are f32 sums of the same terms: 0.1%. The
+    kernels line takes K1 at the headline shape and K3 at the HuBERT-base
+    train shape; K1 at the eval and ViT-Ti shapes and K3 at the BERT-base
+    one are printed beside them."""
     dev = torch.device("cuda")
     results = {}
-    for m, c, h in ((100, 128, 256), (6168, 384, 1536), (100, 768, 3072),
-                    (4776, 768, 3072), (6144, 768, 3072)):
+    for m, c, h in ((100, 128, 256), (6168, 384, 1536), (4112, 384, 1536),
+                    (6168, 192, 768), (100, 768, 3072), (4776, 768, 3072),
+                    (6144, 768, 3072)):
         blocked = c == 768
         fwd = F.kernel_blocked_fwd if blocked else F.kernel_fwd
         bwd = F.kernel_blocked_bwd if blocked else F.kernel_bwd
@@ -198,7 +205,7 @@ def fused_mlp_phase(F):
         fwd_flops = 4.0 * m * c * h
         bwd_flops = 10.0 * m * c * h
         # the forward needs 2 products, the backward 5 (u again, dp = g W2,
-        # dx, dW1, dW2); K3's GEMMs compute exactly these
+        # dx, dW1, dW2); K1's and K3's GEMMs compute exactly these
         bf, byf = bound_ms(nbytes(x, w1, b1, w2, b2, out), fwd_flops)
         bb, byb = bound_ms(nbytes(x, w1, b1, w2, gy, *grads), bwd_flops)
         timed = {
@@ -226,13 +233,14 @@ def fused_mlp_phase(F):
                               "tflops": flops[k] / r["ms"] / 1e9,
                               "share_of_bound": r["bound_ms"] / r["ms"],
                               "max_abs_err": r["max_abs_err"]}))
-        if blocked:
-            print(f"  K3 plan at M={m}: " + json.dumps(
-                {k: v for k, v in F.blocked_plan(
-                    m, c, h, torch.cuda.get_device_properties(
-                        dev).multi_processor_count).items()
-                 if k not in ("sms", "workspace")}))
-        if m != 6144:  # the kernels line carries K3 at the HuBERT shape
+        print(f"  {'K3' if blocked else 'K1'} plan at M={m}: " + json.dumps(
+            {k: v for k, v in F.blocked_plan(
+                m, c, h, torch.cuda.get_device_properties(
+                    dev).multi_processor_count,
+                kernel="blocked" if blocked else "full").items()
+             if k not in ("sms", "workspace")}))
+        # the kernels line carries K1 at the headline shape, K3 at HuBERT's
+        if (m, c) in ((6168, 384), (4776, 768)):
             results.update(timed)
     return results
 
@@ -513,20 +521,28 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    logs = _build.build_all()
-    print(f"built {sorted(logs) or 'nothing (cached)'} in "
+    built = _build.build_all()
+    print(f"built {sorted(built) or 'nothing (cached)'} in "
           f"{time.time() - t0:.1f} s")
-    for name, text in logs.items():
+    for name in _build.sources():
+        text = _build.compiler_log(name)
         entry = ""
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 entry = kernel_name(line.split("'")[1])
             if "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if name == "fused_mlp" and spill and spill.groups() != ("0", "0"):
+                raise AssertionError(f"K1 kernel {entry} spills: {line}")
 
     kernels = fused_mlp_phase(F)
     from semireward_tpu_torch import k3_profile
-    for m in (4776, 6144):  # K3's time by kernel, one JSON line each
+    # K1's and K3's time by GEMM, one JSON line each
+    print(json.dumps({"k1_breakdown": k3_profile.breakdown(6168, 384, 1536),
+                      "card": card}))
+    for m in (4776, 6144):
         print(json.dumps({"k3_breakdown": k3_profile.breakdown(m),
                           "card": card}))
     kernels.update(flash_phase(A))

@@ -1,15 +1,17 @@
-"""Where K3's time goes: device time of each of its kernels, per call.
+"""Where a fused-MLP kernel's time goes: device time of each of its GEMMs.
 
     python -m semireward_tpu_torch.k3_profile [--m 4776 6144] [--iters 20]
+    python -m semireward_tpu_torch.k3_profile --c 384 --h 1536 --m 6168
 
-For each row count M (C 768, H 3072, bf16, seeded inputs) runs K3's forward
+For each row count M (C 768 / H 3072 by default: K3; a width K1 takes, such
+as ViT-S's 384 / 1536: K1; bf16, seeded inputs) runs the kernel's forward
 and backward ``iters`` times under ``torch.profiler`` and prints one JSON
 line: the plan (``ops/fused_mlp.py:blocked_plan``), the device microseconds
-per call of every K3 kernel (F1 ``k3_fwd_up``, F2 ``k3_fwd_down``; B1
-``k3_bwd_dh``, B2 ``k3_bwd_dx``, B3 ``k3_bwd_dw``, ``k3_bwd_colsum``,
-``k3_bwd_reduce``) with its TFLOP/s, and the forward and backward times by
-CUDA events, whose excess over the kernels' sum is the host's share. Needs a
-CUDA card.
+per call of every kernel (F1 ``k*_fwd_up``, F2 ``k*_fwd_down``; B1
+``k*_bwd_dh``, B2 ``k*_bwd_dx``, B3 ``k*_bwd_dw``, ``k*_bwd_colsum``,
+``k*_bwd_reduce``, with ``k1_`` or ``k3_`` before each) with its TFLOP/s,
+and the forward and backward times by CUDA events, whose excess over the
+kernels' sum is the host's share. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -24,8 +26,8 @@ import torch
 from semireward_tpu_torch.ops import fused_mlp as F
 
 # the products each GEMM computes, in units of 2*M*C*H flops
-_PRODUCTS = {"k3_fwd_up": 1, "k3_fwd_down": 1, "k3_bwd_dh": 2,
-             "k3_bwd_dx": 1, "k3_bwd_dw": 2}
+_PRODUCTS = {"fwd_up": 1, "fwd_down": 1, "bwd_dh": 2, "bwd_dx": 1,
+             "bwd_dw": 2}
 
 
 def _inputs(m, c, h, dev):
@@ -50,20 +52,24 @@ def _events_ms(fn, iters):
 
 def breakdown(m: int, c: int = 768, h: int = 3072, iters: int = 20,
               bn=None) -> dict:
-    """``bn`` forces that tile width on every GEMM that takes it
-    (``blocked_plan``'s own choice otherwise)."""
+    """The kernel that ``route`` gives C, H (K1 or K3); ``bn`` forces that
+    tile width on every GEMM that takes it (``blocked_plan``'s own choice
+    otherwise)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     x, w1, b1, w2, b2, gy = _inputs(m, c, h, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = F.blocked_plan(m, c, h, sms, bn=bn)
+    kernel = F.route(c, h, dev)
+    plan = F.blocked_plan(m, c, h, sms, bn=bn, kernel=kernel)
+    fwd_k, bwd_k = ((F.kernel_fwd, F.kernel_bwd) if kernel == "full"
+                    else (F.kernel_blocked_fwd, F.kernel_blocked_bwd))
 
     def fwd():
-        return F.kernel_blocked_fwd(x, w1, b1, w2, b2, plan=plan)
+        return fwd_k(x, w1, b1, w2, b2, plan=plan)
 
     def bwd():
-        return F.kernel_blocked_bwd(x, w1, b1, w2, gy, plan=plan)
+        return bwd_k(x, w1, b1, w2, gy, plan=plan)
 
     for _ in range(3):
         fwd(), bwd()
@@ -76,23 +82,23 @@ def breakdown(m: int, c: int = 768, h: int = 3072, iters: int = 20,
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        found = re.search(r"(k3_\w+?)_kernel", e.name)
+        found = re.search(r"(k[13]_\w+?)_kernel", e.name)
         if found:
             us[found.group(1)] += (e.time_range.end - e.time_range.start)
     flop = 2.0 * m * c * h
     kernels = {k: {"us": v / iters,
-                   "tflops": (_PRODUCTS[k] * flop / (v / iters) / 1e6
-                              if k in _PRODUCTS else None)}
+                   "tflops": (_PRODUCTS[k[3:]] * flop / (v / iters) / 1e6
+                              if k[3:] in _PRODUCTS else None)}
                for k, v in sorted(us.items())}
-    return {"M": m, "C": c, "H": h,
+    return {"kernel": kernel, "M": m, "C": c, "H": h,
             "plan": {k: (v["bn"], v["splits"], v["tiles"])
                      for k, v in plan.items()
                      if k not in ("sms", "workspace")},
             "kernels": kernels,
             "fwd_device_us": sum(v["us"] for k, v in kernels.items()
-                                 if k.startswith("k3_fwd")),
+                                 if k[3:].startswith("fwd")),
             "bwd_device_us": sum(v["us"] for k, v in kernels.items()
-                                 if k.startswith("k3_bwd")),
+                                 if k[3:].startswith("bwd")),
             "fwd_event_ms": _events_ms(fwd, iters),
             "bwd_event_ms": _events_ms(bwd, iters)}
 
@@ -100,6 +106,8 @@ def breakdown(m: int, c: int = 768, h: int = 3072, iters: int = 20,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, nargs="+", default=[4776, 6144])
+    ap.add_argument("--c", type=int, default=768)
+    ap.add_argument("--h", type=int, default=3072)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--bn", type=int, nargs="+", default=[0],
                     help="tile widths to force in turn (0: the plan's own)")
@@ -112,7 +120,8 @@ def main(argv=None):
     for m in args.m:
         for bn in args.bn:
             print(json.dumps({"card": card, "forced_bn": bn or None,
-                              **breakdown(m, iters=args.iters,
+                              **breakdown(m, args.c, args.h,
+                                          iters=args.iters,
                                           bn=bn or None)}))
 
 

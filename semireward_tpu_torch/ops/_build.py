@@ -4,9 +4,12 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` at the repository root (``build/`` is
 git-ignored) and is loaded with ``ctypes``; its functions take plain
 pointers, ints and the CUDA stream. The file name carries a hash of the
-source, so an edited source never loads a stale library. Nothing builds at
+source and of every ``csrc/*.cuh`` header, so an edited source or header
+never loads a stale library. Nothing builds at
 import time: the first launch builds, or ``build_all`` builds every source
-at once, one ``nvcc`` process per source, all started together.
+at once, one ``nvcc`` process per source, all started together. Each
+library's compiler output (ptxas's registers and spills) is kept beside it
+(``compiler_log``).
 """
 from __future__ import annotations
 
@@ -40,9 +43,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = None) -> Dict[str, str]:
@@ -69,10 +74,18 @@ def build_all(names: Iterable[str] = None) -> Dict[str, str]:
             os.unlink(tmp)
             failed.append(f"{name}:\n{out}")
         else:
+            target.with_suffix(".log").write_text(out)
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def compiler_log(name: str) -> str:
+    """nvcc's output (with ptxas's ``-v`` report) from building the
+    current ``csrc/<name>.cu``; builds it first if it is not built."""
+    build_all([name])
+    return _target(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,29 +1,30 @@
 """Fused transformer MLP: ``gelu(x @ W1^T + b1) @ W2^T + b2``.
 
 Port of ``semireward_tpu/ops/fused_mlp.py``. On a CUDA tensor the forward and
-backward run hand-written Hopper kernels:
+backward run hand-written Hopper kernels, both built on the wgmma + TMA GEMM
+of ``csrc/hopper_gemm.cuh`` (two GEMMs forward, five backward, with the bias,
+GELU and rounding in their epilogues) and both passing the ``[rows,
+hidden]`` activation through device memory:
 
-- K1 (``csrc/fused_mlp.cu``), the full-resident pair
-  ``_fwd_kernel``/``_bwd_kernel``, for the widths it takes (C in 128/256/384,
-  ViT-S), which keeps the ``[rows, hidden]`` activation out of device memory;
-- K3 (``csrc/fused_mlp_blocked.cu``), the hidden-blocked
+- K1 (``csrc/fused_mlp.cu``), the port of the full-resident pair
+  ``_fwd_kernel``/``_bwd_kernel``, for C a multiple of 64 from 128 to 384
+  (ViT-S, ViT-Ti); its GELU epilogues overlap the tensor-core work
+  (ping-pong consumer warpgroups);
+- K3 (``csrc/fused_mlp_blocked.cu``), the port of the hidden-blocked
   ``_fwd_blocked_kernel``/``_bwd_dx_kernel``/``_bwd_dw_kernel``, for C = 768
   (ViT-B, BERT-base, HuBERT-base, wav2vec2-base; H = 3072), or wherever
-  ``block_h`` < H forces the blocked form. K3 computes the same function as
-  wgmma + TMA GEMMs with fused bias/GELU epilogues (two forward, three
-  backward) and passes the ``[rows, hidden]`` activation through device
-  memory; :func:`blocked_plan` picks their tiles.
+  ``block_h`` < H forces the blocked form.
 
+:func:`blocked_plan` picks both kernels' tile widths and K splits.
 A width neither kernel takes raises on a CUDA tensor: there is no plain path
-on the card. On a CPU tensor both run the plain PyTorch version below, which
-does K1's arithmetic: bf16 (or the activation dtype) products with f32
-accumulation, bias adds and GELU in f32, the hidden rounded to the activation
-dtype before the second product, ``dh`` rounded before ``dx``/``dW1``, f32
-bias grads from the unrounded ``dh``, weight grads in the weights' dtype. The
-blocked kernels compute the same function with the f32 sums taken in another
-order (per 64-wide K step), so the same plain version is theirs too. GELU is
-the exact erf form everywhere; the TPU kernel used an erf approximation only
-because Mosaic had no ``erf`` (max error 1.5e-7).
+on the card. On a CPU tensor both run the plain PyTorch version below:
+bf16 (or the activation dtype) products with f32 accumulation, bias adds and
+GELU in f32, the hidden rounded to the activation dtype before the second
+product, ``dh`` rounded before ``dx``/``dW1``, f32 bias grads from the
+unrounded ``dh``, weight grads in the weights' dtype. The kernels compute
+the same function with the f32 sums taken in another order (per 64-wide K
+step). GELU is the exact erf form everywhere; the TPU kernel used an erf
+approximation only because Mosaic had no ``erf`` (max error 1.5e-7).
 
 Weights use ``torch.nn.Linear``'s layout: ``w1 [H, C]``, ``w2 [C, H]``.
 """
@@ -88,34 +89,28 @@ def plain_bwd(x, w1, b1, w2, g):
 # the Hopper kernels
 # ---------------------------------------------------------------------------
 
-def _lib():
-    """K1, the full-resident kernels."""
-    lib = _build.load("fused_mlp")
+def _typed(name: str, prefix: str):
+    lib = _build.load(name)
     if not getattr(lib, "_srt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.srt_fused_mlp_supported.argtypes = [i, i]
-        lib.srt_fused_mlp_supported.restype = i
-        lib.srt_fused_mlp_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
-        lib.srt_fused_mlp_fwd.restype = i
-        lib.srt_fused_mlp_bwd.argtypes = [p] * 11 + [i, i, i, i, p]
-        lib.srt_fused_mlp_bwd.restype = i
+        getattr(lib, prefix + "_supported").argtypes = [i, i]
+        getattr(lib, prefix + "_supported").restype = i
+        getattr(lib, prefix + "_fwd").argtypes = [p] * 7 + [i] * 6 + [p]
+        getattr(lib, prefix + "_fwd").restype = i
+        getattr(lib, prefix + "_bwd").argtypes = [p] * 15 + [i] * 7 + [p]
+        getattr(lib, prefix + "_bwd").restype = i
         lib._srt_typed = True
     return lib
+
+
+def _lib():
+    """K1, the full-resident kernels' port."""
+    return _typed("fused_mlp", "srt_fused_mlp")
 
 
 def _blocked_lib():
-    """K3, the hidden-blocked kernels."""
-    lib = _build.load("fused_mlp_blocked")
-    if not getattr(lib, "_srt_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.srt_fused_mlp_blocked_supported.argtypes = [i, i]
-        lib.srt_fused_mlp_blocked_supported.restype = i
-        lib.srt_fused_mlp_blocked_fwd.argtypes = [p] * 7 + [i] * 6 + [p]
-        lib.srt_fused_mlp_blocked_fwd.restype = i
-        lib.srt_fused_mlp_blocked_bwd.argtypes = [p] * 15 + [i] * 7 + [p]
-        lib.srt_fused_mlp_blocked_bwd.restype = i
-        lib._srt_typed = True
-    return lib
+    """K3, the hidden-blocked kernels' port."""
+    return _typed("fused_mlp_blocked", "srt_fused_mlp_blocked")
 
 
 def check_block_h(h: int, block_h) -> None:
@@ -142,7 +137,7 @@ def route(c: int, h: int, device, block_h=None) -> str:
         return "blocked"
     raise NotImplementedError(
         f"fused MLP at C={c}, H={h}: neither the full-resident kernel (K1: "
-        f"C in 128/256/384, H a multiple of 32"
+        f"C a multiple of 64 from 128 to 384, H a multiple of 32"
         f"{'' if not forced else f'; block_h={block_h} forces hidden blocks'}"
         f") nor the hidden-blocked one (K3: C = 768, H a multiple of 32) "
         f"takes this width. Set use_fused_mlp False to run the MLP as two "
@@ -190,7 +185,7 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# K3's host-side refusals (csrc/fused_mlp_blocked.cu); CUDA's codes are > 0
+# the kernels' host-side refusals (csrc/hopper_gemm.cuh); CUDA's codes are > 0
 _HOST_ERRORS = {-1: "arguments or a plan the kernels do not take",
                 -2: "cuTensorMapEncodeTiled is missing or refused a TMA map"}
 
@@ -201,94 +196,65 @@ def _raise_if(err, what):
         raise RuntimeError(f"fused_mlp: {what} launch failed: {why}")
 
 
-def kernel_fwd(x, w1, b1, w2, b2):
-    """K1 forward."""
-    m, c, h = _check_args(x, w1, b1, w2, _lib().srt_fused_mlp_supported)
-    _check("b2", b2, (c,), torch.float32)
-    out = torch.empty_like(x)
-    err = _lib().srt_fused_mlp_fwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                   w2.data_ptr(), b2.data_ptr(),
-                                   out.data_ptr(), m, c, h, _stream(x))
-    _raise_if(err, "forward")
-    launches["fused_mlp_fwd"] += 1
-    return out
-
-
-def bwd_splits(m: int, h: int, device) -> int:
-    """Row splits of K1's dW kernel: as many (hidden chunk, split) CTAs as
-    fit one wave on the card's SMs, at least one."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(m / 64), sms // (h // 32)))
-
-
-def kernel_bwd(x, w1, b1, w2, g):
-    """K1 backward -> (dx, dw1, dw2, db1, db2)."""
-    m, c, h = _check_args(x, w1, b1, w2, _lib().srt_fused_mlp_supported)
-    _check("g", g, (m, c), torch.bfloat16)
-    splits = bwd_splits(m, h, x.device)
-    dx = torch.empty_like(x)
-    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
-    db1 = torch.empty(h, device=x.device, dtype=torch.float32)
-    db2 = torch.empty(c, device=x.device, dtype=torch.float32)
-    ws = torch.empty(splits * (2 * c * h + h + c), device=x.device,
-                     dtype=torch.float32)
-    err = _lib().srt_fused_mlp_bwd(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-        db1.data_ptr(), db2.data_ptr(), ws.data_ptr(), m, c, h, splits,
-        _stream(x))
-    _raise_if(err, "backward")
-    launches["fused_mlp_bwd"] += 1
-    return dx, dw1, dw2, db1, db2
-
-
-# K3's GEMM tiles (csrc/fused_mlp_blocked.cu): BM output rows by BN columns,
-# K in steps of BK; B3 (dW) may split its K = M into up to K3_MAX_SPLITS.
-K3_BM, K3_BK, K3_BNS, K3_MAX_SPLITS = 128, 64, (128, 256), 4
+# The GEMM tiles of K1 and K3 (csrc/hopper_gemm.cuh): GEMM_BM output rows by
+# a tile width, K in steps of GEMM_BK; B3 (dW) may split its K = M into up to
+# GEMM_MAX_SPLITS.
+GEMM_BM, GEMM_BK, GEMM_MAX_SPLITS = 128, 64, 4
+# Each kernel's tile widths per GEMM. K1's F1 and B1 run ping-pong (one
+# consumer warpgroup owns a whole 128-row tile), which caps their
+# accumulators: B1 (two products) at 64 wide. F1 takes 128 only: at 192 its
+# epilogue, which bounds it, grew by more than its 1.5x elements (H100,
+# PERF.md), so the fuller last wave did not pay.
+_WIDTHS = {"blocked": {"up": (128, 256), "down": (128, 256), "dh": (128,),
+                       "dx": (128, 256), "dw": (128, 256)},
+           "full": {"up": (128,), "down": (128, 192, 256), "dh": (64,),
+                    "dx": (128, 192, 256), "dw": (128, 192, 256)}}
 # The planning model: the published H100 SXM peaks (989 TFLOP/s bf16 dense,
 # 3.35 TB/s) and the share of the tensor-core peak each tile width is assumed
-# to reach (a 128-wide tile reads more shared memory per product). These
+# to reach (a narrower tile reads more shared memory per product). These
 # shares rank the candidates; they are not measured rates.
 _PEAK_MACS, _PEAK_BYTES = 989e12 / 2, 3.35e12
-_TILE_EFF = {128: 0.80, 256: 0.90}
+_TILE_EFF = {64: 0.70, 128: 0.80, 192: 0.85, 256: 0.90}
 # device-memory bytes a K split of B3 costs per dW element: the f32 partial
 # written and read back counts 8; the measured reduction pass (H100, 2 and 3
 # splits at M 6144 and 8192) cost as much as ~14
 _SPLIT_BYTES = 14
 
 
-def _blocked_products(m: int, c: int, h: int):
-    """K3's GEMM launches: name -> (outputs [(rows, cols)], K, tile widths,
-    K splits tried, products per tile)."""
+def _blocked_products(m: int, c: int, h: int, kernel: str = "blocked"):
+    """The GEMM launches of K3 (``kernel`` "blocked") or K1 ("full"): name ->
+    (outputs [(rows, cols)], K, tile widths, K splits tried, products per
+    tile)."""
+    w = _WIDTHS[kernel]
     return {
-        "up": ([(m, h)], c, K3_BNS, (1,), 1),    # F1: gelu(x W1^T + b1)
-        "down": ([(m, c)], h, K3_BNS, (1,), 1),  # F2: h W2^T + b2
-        "dh": ([(m, h)], c, (128,), (1,), 2),    # B1: x W1^T and g W2
-        "dx": ([(m, c)], h, K3_BNS, (1,), 1),    # B2: dh W1
-        "dw": ([(h, c), (c, h)], m, K3_BNS,      # B3: dh^T x and g^T h
-               tuple(range(1, K3_MAX_SPLITS + 1)), 1),
+        "up": ([(m, h)], c, w["up"], (1,), 1),        # F1: gelu(x W1^T + b1)
+        "down": ([(m, c)], h, w["down"], (1,), 1),    # F2: h W2^T + b2
+        "dh": ([(m, h)], c, w["dh"], (1,), 2),        # B1: x W1^T and g W2
+        "dx": ([(m, c)], h, w["dx"], (1,), 1),        # B2: dh W1
+        "dw": ([(h, c), (c, h)], m, w["dw"],          # B3: dh^T x and g^T h
+               tuple(range(1, GEMM_MAX_SPLITS + 1)), 1),
     }
 
 
 def blocked_tiles(outputs, k: int, bn: int, splits: int):
-    """The tiles of one K3 launch in the order its persistent grid walks them
-    (CTA b takes tiles b, b + grid, ...), as ``csrc/fused_mlp_blocked.cu:
+    """The tiles of one GEMM launch in the order its persistent grid walks
+    them (CTA b takes tiles b, b + grid, ...), as ``csrc/hopper_gemm.cuh:
     decode`` enumerates them: split-major, then each output's tiles, row
     tiles fastest. Each is (split, output, row0, col0, kb, ke) with K steps
-    [kb, ke) of ``K3_BK``."""
-    ks = math.ceil(k / K3_BK)
+    [kb, ke) of ``GEMM_BK``."""
+    ks = math.ceil(k / GEMM_BK)
     tiles = []
     for s in range(splits):
         kb, ke = s * ks // splits, (s + 1) * ks // splits
         for p, (rows, cols) in enumerate(outputs):
-            mt = math.ceil(rows / K3_BM)
+            mt = math.ceil(rows / GEMM_BM)
             for q in range(mt * math.ceil(cols / bn)):
-                tiles.append((s, p, (q % mt) * K3_BM, (q // mt) * bn, kb, ke))
+                tiles.append((s, p, (q % mt) * GEMM_BM, (q // mt) * bn, kb, ke))
     return tiles
 
 
 def _blocked_tile_count(outputs, bn: int, splits: int) -> int:
-    return splits * sum(math.ceil(r / K3_BM) * math.ceil(c / bn)
+    return splits * sum(math.ceil(r / GEMM_BM) * math.ceil(c / bn)
                         for r, c in outputs)
 
 
@@ -296,8 +262,8 @@ def _blocked_cost(outputs, k, bn, splits, sms, per_tile):
     """Modelled seconds of one launch: full waves of the persistent grid
     times one tile's products at the width's assumed rate, plus the K
     splits' f32 partials (``_SPLIT_BYTES``)."""
-    steps = math.ceil(math.ceil(k / K3_BK) / splits)
-    tile_s = (per_tile * K3_BM * bn * K3_BK * steps
+    steps = math.ceil(math.ceil(k / GEMM_BK) / splits)
+    tile_s = (per_tile * GEMM_BM * bn * GEMM_BK * steps
               / (_PEAK_MACS / sms * _TILE_EFF[bn]))
     ws = 0 if splits == 1 else _SPLIT_BYTES * splits * sum(r * c for r, c
                                                           in outputs)
@@ -305,13 +271,11 @@ def _blocked_cost(outputs, k, bn, splits, sms, per_tile):
             + ws / _PEAK_BYTES)
 
 
-@functools.lru_cache(maxsize=256)
-def _blocked_choices(m, c, h, sms, bn, dw_splits):
-    """((name, bn, splits, tiles), ...): the search behind blocked_plan,
-    cached because every K3 call asks for its plan."""
+def _blocked_choices(m, c, h, sms, bn, dw_splits, kernel):
+    """((name, bn, splits, tiles), ...): the search behind blocked_plan."""
     chosen = []
     for name, (outputs, k, bns, splits_tried, per_tile) in \
-            _blocked_products(m, c, h).items():
+            _blocked_products(m, c, h, kernel).items():
         if bn in bns:
             bns = (bn,)
         if name == "dw" and dw_splits is not None:
@@ -319,7 +283,7 @@ def _blocked_choices(m, c, h, sms, bn, dw_splits):
         best = None
         for width in bns:
             for s in splits_tried:
-                if s > math.ceil(k / K3_BK):
+                if s > math.ceil(k / GEMM_BK):
                     continue
                 cost = _blocked_cost(outputs, k, width, s, sms, per_tile)
                 if best is None or cost < best[0]:
@@ -332,83 +296,127 @@ def _blocked_choices(m, c, h, sms, bn, dw_splits):
     return tuple(chosen)
 
 
+@functools.lru_cache(maxsize=256)
 def blocked_plan(m: int, c: int, h: int, sms: int, bn=None,
-                 dw_splits=None) -> dict:
-    """K3's launch plan for ``m`` rows on a card of ``sms`` SMs: for each
-    GEMM (``up``, ``down`` forward; ``dh``, ``dx``, ``dw`` backward) the tile
-    width ``bn``, the K ``splits``, its ``tiles`` and ``grid`` (one CTA per
-    SM, at most one per tile), chosen by :func:`_blocked_cost` so the last
-    wave is nearly full; and the ``workspace`` element counts the wrapper
-    allocates (bf16 ``h``/``dh``, f32 ``dw`` split partials, ``db1`` per
-    128-row tile, ``db2`` per 32-row chunk). ``bn`` and ``dw_splits``
-    force a tile width on every GEMM that takes it and B3's K splits (the
-    card tests reach every variant so). Pure: no device is asked."""
+                 dw_splits=None, kernel: str = "blocked") -> dict:
+    """The launch plan of K3 (``kernel`` "blocked") or K1 ("full") for ``m``
+    rows on a card of ``sms`` SMs: for each GEMM (``up``, ``down`` forward;
+    ``dh``, ``dx``, ``dw`` backward) the tile width ``bn``, the K
+    ``splits``, its ``tiles`` and ``grid`` (one CTA per SM, at most one per
+    tile), chosen from the kernel's widths by :func:`_blocked_cost` so the
+    last wave is nearly full; and the ``workspace`` element counts the
+    wrapper allocates (bf16 ``h``/``dh``, f32 ``dw`` split partials,
+    ``db1`` per 128-row tile, ``db2`` per 32-row chunk). ``bn`` and
+    ``dw_splits`` force a tile width on every GEMM that takes it and B3's K
+    splits (the card tests reach every variant so). Pure: no device is
+    asked. Cached, because every kernel call asks for its plan: the dict is
+    shared, and callers only read it."""
     if m <= 0 or sms <= 0:
         raise ValueError(f"blocked_plan: m={m}, sms={sms} must be positive")
     plan = {"sms": sms}
     for name, width, s, tiles in _blocked_choices(m, c, h, sms, bn,
-                                                  dw_splits):
+                                                  dw_splits, kernel):
         plan[name] = {"bn": width, "splits": s, "tiles": tiles,
                       "grid": min(tiles, sms)}
     splits = plan["dw"]["splits"]
     plan["workspace"] = {"h": m * h, "dh": m * h,
                          "dw": 2 * c * h * splits if splits > 1 else 0,
-                         "db1": math.ceil(m / K3_BM) * h,
+                         "db1": math.ceil(m / GEMM_BM) * h,
                          "db2": math.ceil(m / 32) * c}
     return plan
 
 
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    device = torch.device(device)
+    return _sms_of(torch.cuda.current_device() if device.index is None
+                   else device.index)
 
 
-def kernel_blocked_fwd(x, w1, b1, w2, b2, plan=None):
-    """K3 forward (F1, F2). ``plan`` defaults to :func:`blocked_plan`'s;
-    the card tests pass others to reach every tile width."""
-    lib = _blocked_lib()
-    m, c, h = _check_args(x, w1, b1, w2, lib.srt_fused_mlp_blocked_supported)
+# kernel -> (its library, its C prefix, its launch-count prefix)
+_ENTRY = {"full": (_lib, "srt_fused_mlp", "fused_mlp"),
+          "blocked": (_blocked_lib, "srt_fused_mlp_blocked",
+                      "fused_mlp_blocked")}
+
+
+def _run_fwd(kernel, x, w1, b1, w2, b2, plan):
+    get_lib, prefix, key = _ENTRY[kernel]
+    lib = get_lib()
+    m, c, h = _check_args(x, w1, b1, w2, getattr(lib, prefix + "_supported"))
     _check("b2", b2, (c,), torch.float32)
-    plan = plan or blocked_plan(m, c, h, _sms(x.device))
+    plan = plan or blocked_plan(m, c, h, _sms(x.device), kernel=kernel)
     out = torch.empty_like(x)
     hid = torch.empty(m, h, device=x.device, dtype=x.dtype)
-    err = lib.srt_fused_mlp_blocked_fwd(
+    err = getattr(lib, prefix + "_fwd")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), hid.data_ptr(), m, c, h,
         plan["up"]["bn"], plan["down"]["bn"], plan["sms"], _stream(x))
-    _raise_if(err, "blocked forward")
-    launches["fused_mlp_blocked_fwd"] += 1
+    _raise_if(err, f"{key} forward")
+    launches[key + "_fwd"] += 1
     return out
 
 
-def kernel_blocked_bwd(x, w1, b1, w2, g, plan=None):
-    """K3 backward (B1, B2, B3, the g column sums and the fixed-order
-    reduction) -> (dx, dw1, dw2, db1, db2). ``plan`` as in
-    :func:`kernel_blocked_fwd` (the card tests reach B3's K splits so)."""
-    lib = _blocked_lib()
-    m, c, h = _check_args(x, w1, b1, w2, lib.srt_fused_mlp_blocked_supported)
+def _run_bwd(kernel, x, w1, b1, w2, g, plan):
+    get_lib, prefix, key = _ENTRY[kernel]
+    lib = get_lib()
+    m, c, h = _check_args(x, w1, b1, w2, getattr(lib, prefix + "_supported"))
     _check("g", g, (m, c), torch.bfloat16)
-    plan = plan or blocked_plan(m, c, h, _sms(x.device))
-    ws = plan["workspace"]
+    plan = plan or blocked_plan(m, c, h, _sms(x.device), kernel=kernel)
     dx = torch.empty_like(x)
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     db1 = torch.empty(h, device=x.device, dtype=torch.float32)
     db2 = torch.empty(c, device=x.device, dtype=torch.float32)
-    hid = torch.empty(m, h, device=x.device, dtype=x.dtype)
-    dh = torch.empty(m, h, device=x.device, dtype=x.dtype)
-    ws_dw = (torch.empty(ws["dw"], device=x.device, dtype=torch.float32)
-             if ws["dw"] else None)
-    ws_db1 = torch.empty(ws["db1"], device=x.device, dtype=torch.float32)
-    ws_db2 = torch.empty(ws["db2"], device=x.device, dtype=torch.float32)
-    err = lib.srt_fused_mlp_blocked_bwd(
+    # the scratch (bf16 h and dh, f32 partials) in one allocation: a host
+    # call less per buffer in steps that the host bounds
+    ws = plan["workspace"]
+    sizes = (2 * ws["h"], 2 * ws["dh"], 4 * ws["dw"], 4 * ws["db1"],
+             4 * ws["db2"])
+    offsets = [0]
+    for n in sizes[:-1]:
+        offsets.append(offsets[-1] + -(-n // 256) * 256)
+    scratch = torch.empty(offsets[-1] + sizes[-1], device=x.device,
+                          dtype=torch.uint8)
+    hid, dh, ws_dw, ws_db1, ws_db2 = (
+        scratch.data_ptr() + o if n else None
+        for o, n in zip(offsets, sizes))
+    err = getattr(lib, prefix + "_bwd")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-        db1.data_ptr(), db2.data_ptr(), hid.data_ptr(), dh.data_ptr(),
-        None if ws_dw is None else ws_dw.data_ptr(), ws_db1.data_ptr(),
-        ws_db2.data_ptr(), m, c, h, plan["dx"]["bn"], plan["dw"]["bn"],
-        plan["dw"]["splits"], plan["sms"], _stream(x))
-    _raise_if(err, "blocked backward")
-    launches["fused_mlp_blocked_bwd"] += 1
+        db1.data_ptr(), db2.data_ptr(), hid, dh, ws_dw, ws_db1, ws_db2,
+        m, c, h, plan["dx"]["bn"], plan["dw"]["bn"], plan["dw"]["splits"],
+        plan["sms"], _stream(x))
+    _raise_if(err, f"{key} backward")
+    launches[key + "_bwd"] += 1
     return dx, dw1, dw2, db1, db2
+
+
+def kernel_fwd(x, w1, b1, w2, b2, plan=None):
+    """K1 forward (F1, F2). ``plan`` defaults to ``blocked_plan(...,
+    kernel="full")``'s; the card tests pass others to reach every tile
+    width."""
+    return _run_fwd("full", x, w1, b1, w2, b2, plan)
+
+
+def kernel_bwd(x, w1, b1, w2, g, plan=None):
+    """K1 backward (B1, B2, B3, the g column sums and the fixed-order
+    reduction) -> (dx, dw1, dw2, db1, db2). ``plan`` as in
+    :func:`kernel_fwd` (the card tests reach B3's K splits so)."""
+    return _run_bwd("full", x, w1, b1, w2, g, plan)
+
+
+def kernel_blocked_fwd(x, w1, b1, w2, b2, plan=None):
+    """K3 forward (F1, F2); ``plan`` as in :func:`kernel_fwd`."""
+    return _run_fwd("blocked", x, w1, b1, w2, b2, plan)
+
+
+def kernel_blocked_bwd(x, w1, b1, w2, g, plan=None):
+    """K3 backward -> (dx, dw1, dw2, db1, db2); ``plan`` as in
+    :func:`kernel_fwd`."""
+    return _run_bwd("blocked", x, w1, b1, w2, g, plan)
 
 
 _FWD = {"plain": plain_fwd, "full": kernel_fwd, "blocked": kernel_blocked_fwd}

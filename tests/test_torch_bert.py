@@ -135,12 +135,13 @@ def test_registered_builders():
 
 def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
     """The fused-MLP dispatch the model builders (and so the trainer) ask on
-    a CUDA device before they allocate anything: K1 widths go to K1,
-    C = 768 / H = 3072 (ViT-B, BERT-base) to K3, and a width neither kernel
-    takes raises ``NotImplementedError``. Without a card stand-in libraries
-    answer as ``srt_fused_mlp_supported`` (C in 128/256/384, H a multiple
-    of 32) and ``srt_fused_mlp_blocked_supported`` (C = 768, H a multiple of
-    32) do; the card test asks the real ones."""
+    a CUDA device before they allocate anything: K1 widths (ViT-S's 384 and
+    ViT-Ti's 192 among them) go to K1, C = 768 / H = 3072 (ViT-B,
+    BERT-base) to K3, and a width neither kernel takes raises
+    ``NotImplementedError``. Without a card stand-in libraries answer as
+    ``srt_fused_mlp_supported`` (C a multiple of 64 from 128 to 384, H a
+    multiple of 32) and ``srt_fused_mlp_blocked_supported`` (C = 768, H a
+    multiple of 32) do; the card test asks the real ones."""
     from semireward_tpu_torch.models import get_net_builder
     from semireward_tpu_torch.ops import fused_mlp as tfm
 
@@ -150,7 +151,7 @@ def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
         @staticmethod
         def srt_fused_mlp_supported(c, h):
             asked.append(("K1", c, h))
-            return int(c in (128, 256, 384) and h % 32 == 0)
+            return int(128 <= c <= 384 and c % 64 == 0 and h % 32 == 0)
 
         @staticmethod
         def srt_fused_mlp_blocked_supported(c, h):
@@ -160,15 +161,18 @@ def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
     monkeypatch.setattr(tfm, "_lib", lambda: StandIn)
     monkeypatch.setattr(tfm, "_blocked_lib", lambda: StandIn)
     assert tfm.route(384, 1536, "cuda") == "full"           # ViT-S: K1
+    assert tfm.route(192, 768, "cuda") == "full"            # ViT-Ti: K1
     assert tfm.route(768, 3072, "cuda") == "blocked"        # ViT-B/BERT: K3
     assert tfm.route(768, 3072, "cuda", block_h=768) == "blocked"
     assert tfm.route(768, 3072, "cpu") == "plain"           # never asks
-    assert asked == [("K1", 384, 1536), ("K1", 768, 3072), ("K3", 768, 3072),
-                     ("K3", 768, 3072)]
+    assert asked == [("K1", 384, 1536), ("K1", 192, 768), ("K1", 768, 3072),
+                     ("K3", 768, 3072), ("K3", 768, 3072)]
     with pytest.raises(NotImplementedError, match="forces hidden blocks"):
         tfm.route(384, 1536, "cuda", block_h=512)           # K3 is C = 768
     with pytest.raises(NotImplementedError, match="neither"):
-        tfm.require_supported(192, 768, "cuda")             # ViT-Ti
+        tfm.require_supported(448, 1792, "cuda")            # past K1's 384
+    with pytest.raises(NotImplementedError, match="neither"):
+        tfm.require_supported(64, 256, "cuda")              # below K1's 128
     with pytest.raises(ValueError, match="must divide"):
         tfm.route(768, 3072, "cuda", block_h=1000)
     # the builders ask before they allocate: a width neither takes raises
@@ -179,7 +183,8 @@ def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
             hidden=64, heads=2, intermediate=256)
     with pytest.raises(NotImplementedError, match="neither"):
         get_net_builder("vit_tiny_patch2_32")(num_classes=2, device="cuda",
-                                              use_fused_mlp=True)
+                                              use_fused_mlp=True,
+                                              embed_dim=448, num_heads=7)
 
 
 @pytest.mark.parametrize("net,max_length,device,want", [

@@ -104,28 +104,27 @@ def test_block_h_must_divide_the_hidden_dim_as_in_jax():
                     torch.from_numpy(b2), block_h=96)
 
 
-@pytest.mark.parametrize("m", [4776, 6144, 8192, 1, 129])
-def test_blocked_plan_covers_every_tile_once(m):
-    """K3's launch plan at the HuBERT (M 24*199), BERT (12*512) and BERT
-    eval (16*512) shapes and small ragged M: in each GEMM every output tile
-    comes once per K split, the splits cut K into non-empty consecutive
-    ranges, and the persistent walk (CTA b takes b, b + grid, ...) visits
-    every tile once."""
-    c, h, sms = 768, 3072, 132
-    plan = F.blocked_plan(m, c, h, sms)
-    for name, (outputs, k, *_) in F._blocked_products(m, c, h).items():
+def _check_plan_covers_every_tile_once(m, c, h, kernel):
+    """In each GEMM of the plan every output tile comes once per K split,
+    the splits cut K into non-empty consecutive ranges, and the persistent
+    walk (CTA b takes b, b + grid, ...) visits every tile once."""
+    sms = 132
+    plan = F.blocked_plan(m, c, h, sms, kernel=kernel)
+    for name, (outputs, k, widths, *_) in \
+            F._blocked_products(m, c, h, kernel).items():
         bn, splits = plan[name]["bn"], plan[name]["splits"]
+        assert bn in widths, (name, bn)
         tiles = F.blocked_tiles(outputs, k, bn, splits)
         assert plan[name]["tiles"] == len(tiles)
         assert plan[name]["grid"] == min(len(tiles), sms)
         want = sorted((s, o, r, col) for s in range(splits)
                       for o, (rows, cols) in enumerate(outputs)
-                      for r in range(0, rows, F.K3_BM)
+                      for r in range(0, rows, F.GEMM_BM)
                       for col in range(0, cols, bn))
         assert sorted(t[:4] for t in tiles) == want, name
         ranges = sorted({(s, kb, ke) for s, _, _, _, kb, ke in tiles})
         assert [r[0] for r in ranges] == list(range(splits))
-        assert ranges[0][1] == 0 and ranges[-1][2] == -(-k // F.K3_BK)
+        assert ranges[0][1] == 0 and ranges[-1][2] == -(-k // F.GEMM_BK)
         assert all(kb < ke for _, kb, ke in ranges), name
         assert all(a[2] == b[1] for a, b in zip(ranges, ranges[1:]))
         grid = plan[name]["grid"]
@@ -134,9 +133,33 @@ def test_blocked_plan_covers_every_tile_once(m):
         assert walk == list(range(len(tiles)))
     ws = plan["workspace"]
     assert ws["h"] == ws["dh"] == m * h
-    assert ws["db1"] == -(-m // F.K3_BM) * h and ws["db2"] == -(-m // 32) * c
+    assert ws["db1"] == -(-m // F.GEMM_BM) * h and ws["db2"] == -(-m // 32) * c
     assert ws["dw"] == (0 if plan["dw"]["splits"] == 1
                         else 2 * c * h * plan["dw"]["splits"])
+    return plan
+
+
+@pytest.mark.parametrize("m", [4776, 6144, 8192, 1, 129])
+def test_blocked_plan_covers_every_tile_once(m):
+    """K3's launch plan at the HuBERT (M 24*199), BERT (12*512) and BERT
+    eval (16*512) shapes and small ragged M."""
+    _check_plan_covers_every_tile_once(m, 768, 3072, "blocked")
+
+
+@pytest.mark.parametrize("m,c,h", [(6168, 384, 1536), (4112, 384, 1536),
+                                   (1, 384, 1536), (129, 384, 1536),
+                                   (6168, 192, 768)])
+def test_full_plan_covers_every_tile_once(m, c, h):
+    """K1's launch plan at the ViT-S train (M 24*257) and eval (16*257)
+    shapes, small ragged M and ViT-Ti's width, from K1's own tile widths
+    (F1 128, B1 64). At the ViT-S train shape the 192-wide tile gives F2 and
+    B2 one wave of 98 tiles (74% of 132 SMs) where 128 needs 1.11 waves (147
+    tiles) and 256 leaves a half-empty column tile."""
+    plan = _check_plan_covers_every_tile_once(m, c, h, "full")
+    assert plan["up"]["bn"] == 128 and plan["dh"]["bn"] == 64
+    if (m, c) == (6168, 384):
+        assert [plan[n]["bn"] for n in ("down", "dx")] == [192] * 2
+        assert plan["up"]["tiles"] == 588 and plan["down"]["tiles"] == 98
 
 
 def test_blocked_plan_forces_widths_and_splits():
@@ -153,9 +176,49 @@ def test_blocked_plan_forces_widths_and_splits():
         F.blocked_plan(0, 768, 3072, 132)
 
 
+@pytest.mark.parametrize("bn,splits,want", [
+    (128, 1, [128, 128, 64, 128, 128]),
+    (192, 2, [128, 192, 64, 192, 192]),
+    (256, 4, [128, 256, 64, 256, 256])])
+def test_full_plan_forces_widths_and_splits(bn, splits, want):
+    """K1's plan honours a forced tile width on every GEMM whose widths hold
+    it and a forced B3 split; F1 is 128 and B1 64 wide whatever is
+    forced."""
+    plan = F.blocked_plan(300, 384, 1536, 132, bn=bn, dw_splits=splits,
+                          kernel="full")
+    got = [plan[n]["bn"] for n in ("up", "down", "dh", "dx", "dw")]
+    assert got == want
+    assert plan["dw"]["splits"] == splits
+    assert plan["workspace"]["dw"] == (0 if splits == 1
+                                       else splits * 2 * 384 * 1536)
+    with pytest.raises(ValueError, match="K splits"):
+        F.blocked_plan(129, 384, 1536, 132, dw_splits=4, kernel="full")
+
+
+def test_build_target_hashes_the_headers(tmp_path, monkeypatch):
+    """A library's file name carries the hash of its source and of every
+    csrc/*.cuh, so an edit to the shared GEMM header never loads a stale
+    build of either fused-MLP kernel."""
+    import shutil
+
+    from semireward_tpu_torch.ops import _build
+
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._target(n) for n in ("fused_mlp", "fused_mlp_blocked")}
+    assert before == {n: _build._target(n) for n in before}  # stable
+    header = tmp_path / "hopper_gemm.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    assert all(after[n].name.startswith(n + "-") for n in before)
+
+
 def test_profile_groups_the_k3_kernels_by_name():
-    """profile_step files K3's wgmma GEMMs under the fused-MLP rows, not
-    under cuBLAS's GEMMs."""
+    """profile_step files K1's and K3's wgmma GEMMs under their fused-MLP
+    rows, not under cuBLAS's GEMMs."""
     from semireward_tpu_torch.profile_step import _group
 
     ns = "void (anonymous namespace)::"
@@ -165,8 +228,15 @@ def test_profile_groups_the_k3_kernels_by_name():
                           ("k3_bwd_dw_kernel<256>", "fused_mlp_blocked_bwd"),
                           ("k3_bwd_dx_kernel<128>", "fused_mlp_blocked_bwd"),
                           ("k3_bwd_reduce_kernel", "fused_mlp_blocked_bwd"),
-                          ("fwd_kernel<384>", "fused_mlp_fwd")):
+                          ("k1_fwd_up_kernel<128>", "fused_mlp_fwd"),
+                          ("k1_fwd_down_kernel<256>", "fused_mlp_fwd"),
+                          ("k1_bwd_dh_kernel<64>", "fused_mlp_bwd"),
+                          ("k1_bwd_dx_kernel<192>", "fused_mlp_bwd"),
+                          ("k1_bwd_dw_kernel<128>", "fused_mlp_bwd"),
+                          ("k1_bwd_reduce_kernel", "fused_mlp_bwd")):
         assert _group(ns + kernel + "(...)") == group, kernel
     assert _group("(anonymous namespace)::k3_bwd_colsum_kernel(...)") == \
         "fused_mlp_blocked_bwd"
+    assert _group("(anonymous namespace)::k1_bwd_colsum_kernel(...)") == \
+        "fused_mlp_bwd"
     assert _group("sm90_xmma_gemm_bf16bf16_bf16f32").startswith("gemm")

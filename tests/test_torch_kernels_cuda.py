@@ -19,29 +19,6 @@ def _close(got, want, rel):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card(cuda_device):
-    """The Hopper kernels against the plain version at a ragged shape
-    (bf16: 1e-2 of the largest magnitude; f32 bias grads: 1e-3)."""
-    g = torch.Generator().manual_seed(0)
-    m, c, h = 100, 128, 256
-    x = torch.randn(m, c, generator=g).to(cuda_device, torch.bfloat16)
-    w1 = (torch.randn(h, c, generator=g) * 0.05).to(cuda_device, torch.bfloat16)
-    b1 = torch.randn(h, generator=g).to(cuda_device)
-    w2 = (torch.randn(c, h, generator=g) * 0.05).to(cuda_device, torch.bfloat16)
-    b2 = torch.randn(c, generator=g).to(cuda_device)
-    gy = torch.randn(m, c, generator=g).to(cuda_device, torch.bfloat16)
-    pairs = [(F.kernel_fwd(x, w1, b1, w2, b2), F.plain_fwd(x, w1, b1, w2, b2),
-              1e-2)]
-    for k, p, name in zip(F.kernel_bwd(x, w1, b1, w2, gy),
-                          F.plain_bwd(x, w1, b1, w2, gy),
-                          ("dx", "dw1", "dw2", "db1", "db2")):
-        pairs.append((k, p, 1e-3 if name.startswith("db") else 1e-2))
-    torch.cuda.synchronize()
-    for k, p, rel in pairs:
-        _close(k.float().cpu().numpy(), p.float().cpu().numpy(), rel)
-
-
-@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     """The dispatch on the card: K1 widths go to K1, C = 768 / H = 3072 to
     K3, and a width neither takes raises (no plain path on the card)."""
@@ -59,6 +36,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                     torch.zeros(128, device=cuda_device))
     # the model builders' gate asks the same kernel libraries
     assert F.route(384, 1536, cuda_device) == "full"        # ViT-S: K1
+    assert F.route(192, 768, cuda_device) == "full"         # ViT-Ti: K1
+    with pytest.raises(NotImplementedError, match="neither"):
+        F.require_supported(448, 1792, cuda_device)         # past K1's 384
     assert F.route(768, 3072, cuda_device) == "blocked"     # ViT-B/BERT: K3
     assert F.route(768, 3072, cuda_device, block_h=768) == "blocked"
     with pytest.raises(NotImplementedError, match="forces hidden blocks"):
@@ -80,22 +60,53 @@ def _mlp_inputs(dev, m, c, h, seed=0):
             torch.randn(m, c, generator=g).to(dev, torch.bfloat16))
 
 
-def _check_blocked(dev, m, h, plan=None):
-    """K3 forward and backward against the plain version (bf16: 1e-2 of the
-    largest magnitude; f32 bias grads: 1e-3); the backward bit-equal across
-    two launches."""
-    x, w1, b1, w2, b2, gy = _mlp_inputs(dev, m, 768, h)
-    pairs = [(F.kernel_blocked_fwd(x, w1, b1, w2, b2, plan=plan),
+def _check_kernels(dev, m, c, h, kernel, plan=None):
+    """K1 (``kernel`` "full") or K3 ("blocked") forward and backward against
+    the plain version (bf16: 1e-2 of the largest magnitude; f32 bias grads:
+    1e-3); the backward bit-equal across two launches."""
+    fwd, bwd = ((F.kernel_fwd, F.kernel_bwd) if kernel == "full"
+                else (F.kernel_blocked_fwd, F.kernel_blocked_bwd))
+    x, w1, b1, w2, b2, gy = _mlp_inputs(dev, m, c, h)
+    pairs = [(fwd(x, w1, b1, w2, b2, plan=plan),
               F.plain_fwd(x, w1, b1, w2, b2), 1e-2)]
-    grads = F.kernel_blocked_bwd(x, w1, b1, w2, gy, plan=plan)
+    grads = bwd(x, w1, b1, w2, gy, plan=plan)
     for k, p, name in zip(grads, F.plain_bwd(x, w1, b1, w2, gy),
                           ("dx", "dw1", "dw2", "db1", "db2")):
         pairs.append((k, p, 1e-3 if name.startswith("db") else 1e-2))
-    again = F.kernel_blocked_bwd(x, w1, b1, w2, gy, plan=plan)
+    again = bwd(x, w1, b1, w2, gy, plan=plan)
     torch.cuda.synchronize()
     for k, p, rel in pairs:
         _close(k.float().cpu().numpy(), p.float().cpu().numpy(), rel)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,h", [(100, 128, 256), (129, 192, 768),
+                                   (6168, 384, 1536)])
+def test_kernel_matches_plain_on_the_card(cuda_device, m, c, h):
+    """K1 (F1 + F2; B1 + B2 + B3 + reduction) against the plain version on
+    the plan the wrapper picks: a small ragged shape, ViT-Ti's width with
+    one row past a 128-row tile, and the ViT-S train shape (M 24*257)."""
+    _check_kernels(cuda_device, m, c, h, "full")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,h,bn,splits", [(300, 384, 1536, 128, 1),
+                                             (300, 384, 1536, 192, 2),
+                                             (300, 256, 1536, 256, 3),
+                                             (200, 320, 1568, 192, 4)])
+def test_full_kernels_every_width_and_split_on_the_card(cuda_device, m, c, h,
+                                                        bn, splits):
+    """K1 on plans the wrapper does not pick: F2, B2 and B3 at tile width
+    128, 192 and 256 (F1 and B1 run ping-pong at 128 and 64), B3 with its K
+    split into 1-4 f32 partials, widths C 256 and 320, and an H that is a
+    multiple of 32 but not of a tile (partial column tiles, a partial K
+    step)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = F.blocked_plan(m, c, h, sms, bn=bn, dw_splits=splits,
+                          kernel="full")
+    assert plan["dw"]["splits"] == splits
+    _check_kernels(cuda_device, m, c, h, "full", plan)
 
 
 @pytest.mark.cuda
@@ -105,7 +116,7 @@ def test_blocked_kernels_match_plain_on_the_card(cuda_device, m):
     the HuBERT-base train shape (M 24*199), the BERT-base one (M 12*512)
     and small ragged M (129: one row past a 128-row tile), C 768, H 3072,
     on the plan the wrapper picks."""
-    _check_blocked(cuda_device, m, 3072)
+    _check_kernels(cuda_device, m, 768, 3072, "blocked")
 
 
 @pytest.mark.cuda
@@ -121,7 +132,7 @@ def test_blocked_kernels_every_width_and_split_on_the_card(cuda_device, m, h,
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     plan = F.blocked_plan(m, 768, h, sms, bn=bn, dw_splits=splits)
     assert plan["dw"]["splits"] == splits
-    _check_blocked(cuda_device, m, h, plan)
+    _check_kernels(cuda_device, m, 768, h, "blocked", plan)
 
 
 @pytest.mark.cuda
@@ -161,6 +172,27 @@ def test_vit_base_steps_on_the_card_through_k3(cuda_device):
     torch.cuda.synchronize()
     assert F.launches["fused_mlp_blocked_fwd"] == 12
     assert F.launches["fused_mlp_blocked_bwd"] == 12
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+def test_vit_tiny_steps_on_the_card_through_k1(cuda_device):
+    """vit_tiny_patch2_32 (C 192, H 768) builds on the card with the fused
+    MLP and takes one train step through K1."""
+    from semireward_tpu_torch.models import get_net_builder
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = get_net_builder("vit_tiny_patch2_32")(
+        num_classes=10, device=cuda_device, generator=gen, use_fused_mlp=True)
+    x = torch.randn(4, 32, 32, 3, device=cuda_device)
+    F.reset_launches()
+    out = model(x, train=True, generator=gen)
+    loss = out["logits"].float().logsumexp(-1).mean()
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    assert F.launches["fused_mlp_fwd"] == 12
+    assert F.launches["fused_mlp_bwd"] == 12
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
