@@ -21,12 +21,21 @@
      (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M 12*512 = 6144)
      and a small ragged M, the backward bit-equal across two launches, with
      each timed row's TFLOP/s and share of its bound and the tile plan;
-   - K2, flash attention (forward; dq + dk/dv), at the BERT-base train shape
-     (12 x 12 heads, N 512, key-padding bias, dropout 0.1), at HuBERT-base's
-     (24 x 12 heads, N 199, dropout 0.1, no bias), at ViT-S's (24 x 6 heads,
-     N 257, no bias) and at small ragged shapes; the dropout stream read out
-     of the forward kernel bit for bit at the BERT shape; and flash against
-     the unfused attention at the three model shapes;
+   - K2, flash attention (forward; dq + dk/dv, all three wgmma + TMA
+     kernels with two free-running consumer warpgroups and helper warps
+     that stage each step's bias and keep bits), at the BERT-base train
+     shape (12 x 12 heads, N 512, key-padding bias, dropout 0.1), the same
+     without dropout (the difference is the hash's cost), HuBERT-base's (24
+     x 12 heads, N 199, dropout 0.1, no bias), ViT-S's (24 x 6 heads, N 257,
+     no bias) and small ragged shapes (N 1, 77, 130, 1000): the forward's keep
+     bits equal to pack_keep_bits(attention_keep_mask), the backward
+     bit-equal across two launches; the dropout stream read out of the
+     forward kernel and the dq and dk/dv kernels' masks read out of the
+     backward, bit for bit, at the BERT shape; a timed row per model shape
+     beside SDPA; flash against the unfused attention at the three model
+     shapes; K2's device time by kernel, launches and host time a call at
+     the three shapes (``k3_profile.flash_breakdown``); and ptxas's
+     registers and spills for every K2 kernel (none may spill);
 4. train phases, each with every kernel count set to 0 just before it and
    read just after, exact launch counts, losses, SemiReward and FlexMatch
    state checked, an eval at the end, all on the port's defaults on a card:
@@ -136,10 +145,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def check_close(name, got, want, rel_tol):
-    """max|got - want| <= rel_tol * max|want|; returns the max abs error."""
+def check_close(name, got, want, rel_tol, floor=0.0):
+    """max|got - want| <= rel_tol * max(max|want|, floor); returns the max
+    abs error."""
     err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
+    scale = max(want.float().abs().max().item(), floor)
     ok = math.isfinite(err) and err <= rel_tol * max(scale, 1e-30)
     print(f"  {name}: max_abs_err={err:.6g} max|plain|={scale:.6g} "
           f"rel={err / max(scale, 1e-30):.3g} tol={rel_tol} "
@@ -282,39 +292,75 @@ def _fwd_bwd_ms(fn, q, k, v, do):
                                                do), iters=10)
 
 
-def flash_phase(A):
-    """K2 forward (out, lse) and backward (dq, dk, dv) vs the plain version
-    on the same bf16 inputs. The kernels round P, dS and P^T to bf16 before
-    their tensor-core products (the JAX kernels keep them in f32): bf16
-    outputs within 1% of max|plain| (one bf16 rounding is 0.4%); lse, an f32
-    row statistic, within 1e-5 of max|plain|."""
+# K2's small ragged shapes (N 1000: the kernels' shared-memory rings wrap);
+# the main path's train shapes come from k3_profile.FLASH_SHAPES, and BERT
+# also runs without dropout: the difference is the hash's cost
+RAGGED_FLASH_SHAPES = (("ragged", (2, 77, 3, True, 0.1)),
+                       ("ragged_130", (3, 130, 2, True, 0.1)),
+                       ("ragged_1", (2, 1, 3, True, 0.1)),
+                       ("ragged_1000", (2, 1000, 3, True, 0.1)))
+HASH_OPS = 19  # integer instructions a score: two lowbias32, counter, compare
+
+
+def flash_phase(A, model_shapes):
+    """K2 forward (out, lse, keep bits) and backward (dq, dk, dv from the
+    forward's bits) vs the plain version on the same bf16 inputs. The
+    kernels round P, dS and P^T to bf16 before their tensor-core products
+    (the JAX kernels keep them in f32): bf16 outputs within 1% of max|plain|
+    (one bf16 rounding is 0.4%); lse, an f32 row statistic, within 1e-5 of
+    max|plain|; the keep bits exactly pack_keep_bits(attention_keep_mask);
+    the backward bit-equal across two launches. Each model shape gets a
+    timed row beside F.scaled_dot_product_attention (yardstick only; at the
+    ViT shape it computes exactly K2's function, no mask, no dropout)."""
     dev = torch.device("cuda")
     results, versus = {}, {}
     seed = torch.tensor([20240601], dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for name, (B, N, H, d, padded, rate) in (
-            ("ragged", (2, 77, 3, 64, True, 0.1)),
-            ("ragged_130", (3, 130, 2, 64, True, 0.1)),
-            ("vit", (24, 257, 6, 64, False, 0.0)),
-            ("hubert", (24, 199, 12, 64, False, 0.1)),
-            ("bert", (12, 512, 12, 64, True, 0.1))):
+    d = 64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    bert = model_shapes["bert"]
+    shapes = (RAGGED_FLASH_SHAPES + tuple(model_shapes.items())
+              + (("bert_no_dropout", bert[:4] + (0.0,)),))
+    for name, (B, N, H, padded, rate) in shapes:
         q, k, v, do, bias4 = _attn_inputs(B, N, H, d, padded)
         kb = A._key_bias_of(bias4, B, H, N) if padded else None
         args = (q, k, v, kb, seed, rate)
         print(f"flash_attention {name} B={B} N={N} H={H} d={d} "
               f"bias={padded} dropout={rate}")
-        out, lse = A.kernel_fwd(*args)
+        out, lse, bits = A.kernel_fwd(*args, keep_bits=True)
         torch.cuda.synchronize()
         p_out, p_lse = A.plain_fwd(*args)
         err_f = check_close("fwd out", out, p_out, 1e-2)
         check_close("fwd lse", lse, p_lse, 1e-5)
-        delta = A.delta_of(do, out)
-        grads = A.kernel_bwd(*args, do, lse, delta)
+        if rate:
+            want = A.pack_keep_bits(A.attention_keep_mask(
+                seed, B * H, N, A.padded_len(N), A.keep_threshold(rate)))
+            if not torch.equal(bits, want):
+                raise AssertionError(f"{int((bits != want).sum())} keep "
+                                     f"words differ from pack_keep_bits")
+            print(f"  forward's keep bits: {want.numel()} words equal "
+                  f"pack_keep_bits(attention_keep_mask): ok")
+        grads = A.kernel_bwd(*args, do, lse, out, bits)
         torch.cuda.synchronize()
+        # dq and dk sum p * (dp - delta), a difference of two f32 dot
+        # products; at N 1 both are exactly 0 in the plain version, so
+        # their scale floors at 1e-3 of max|plain dv|
+        p_grads = A.plain_bwd(*args, do, lse, A.delta_of(do, out))
+        floor = 1e-3 * p_grads[2].float().abs().max().item()
         err_b = 0.0
-        for n, a, b in zip(("dq", "dk", "dv"), grads,
-                           A.plain_bwd(*args, do, lse, delta)):
-            err_b = max(err_b, check_close(f"bwd {n}", a, b, 1e-2))
+        for n, a, b in zip(("dq", "dk", "dv"), grads, p_grads):
+            err_b = max(err_b, check_close(f"bwd {n}", a, b, 1e-2, floor))
+        again = A.kernel_bwd(*args, do, lse, out, bits)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError("flash backward is not deterministic")
+        print("  backward bit-equal across two launches: ok")
+        if name.startswith("ragged"):
+            continue
         if name in ("vit", "hubert", "bert"):
             versus[name] = dict(
                 shape=[B, N, H, d], bias=padded, dropout=rate,
@@ -327,10 +373,9 @@ def flash_phase(A):
                                                        gen), q, k, v, do))
             print(f"  flash vs unfused attention (fwd + bwd): "
                   f"{json.dumps(versus[name])}")
-        if name not in ("hubert", "bert"):
-            continue
         if name == "bert":
             check_dropout_stream(A, B, N, H, d, seed, rate)
+            check_backward_masks(A, B, N, H, d, rate)
         # F.scaled_dot_product_attention with the float key mask (BERT) and
         # the same dropout rate (its own RNG stream), timed as a yardstick
         ql, kl, vl = (t.detach().transpose(1, 2).clone().requires_grad_()
@@ -344,34 +389,45 @@ def flash_phase(A):
         lib_out = lib_fwd()
         do_t = do.transpose(1, 2)
         flops = 2.0 * B * H * N * N * d          # one N x N x d product
+        # the function's bytes only: the keep bits the forward writes and
+        # the backward reads are this design's, reported beside the bound
         bf, byf = bound_ms(nbytes(q, k, v, kb, seed, out, lse), 2 * flops)
         # the backward needs 5 products (S again, dP, dV, dQ, dK); the
         # kernels' dq / dk-dv split recomputes S and dP once more (7)
-        bb, byb = bound_ms(nbytes(q, k, v, kb, seed, do, lse, delta, *grads),
+        bb, byb = bound_ms(nbytes(q, k, v, kb, seed, do, lse, out, *grads),
                            5 * flops)
+        # the hash's integer floor, also outside the bound: HASH_OPS int32
+        # instructions a score at 64 lanes a SM a clock, at the max SM clock
+        hash_ms = (HASH_OPS * B * H * N * N / (64 * sms * max_hz) * 1e3
+                   if rate else 0.0)
         timed = {
             "flash_attention_fwd": dict(
                 max_abs_err=err_f,
-                ms=time_ms(lambda: A.kernel_fwd(*args)),
+                ms=time_ms(lambda: A.kernel_fwd(*args, keep_bits=True)),
                 plain_ms=time_ms(lambda: A.plain_fwd(*args), iters=5),
                 bound_ms=bf, bound_by=byf,
                 library_ms=time_ms(lambda: lib_fwd().detach())),
             "flash_attention_bwd": dict(
                 max_abs_err=err_b,
-                ms=time_ms(lambda: A.kernel_bwd(*args, do, lse, delta)),
-                plain_ms=time_ms(lambda: A.plain_bwd(*args, do, lse, delta),
-                                 iters=5),
+                ms=time_ms(lambda: A.kernel_bwd(*args, do, lse, out, bits)),
+                plain_ms=time_ms(lambda: A.plain_bwd(
+                    *args, do, lse, A.delta_of(do, out)), iters=5),
                 bound_ms=bb, bound_by=byb,
                 library_ms=time_ms(lambda: torch.autograd.grad(
                     lib_out, (ql, kl, vl), do_t, retain_graph=True)))}
         for k, r in timed.items():
             print(json.dumps({"kernel": k, "shape": name, "B": B, "N": N,
-                              "H": H, "kernel_ms": r["ms"],
+                              "H": H, "bias": padded, "dropout": rate,
+                              "kernel_ms": r["ms"],
                               "plain_ms": r["plain_ms"],
                               "library_ms": r["library_ms"],
                               "bound_ms": r["bound_ms"],
                               "bound_by": r["bound_by"],
-                              "max_abs_err": r["max_abs_err"]}))
+                              "share_of_bound": r["bound_ms"] / r["ms"],
+                              "max_abs_err": r["max_abs_err"],
+                              "keep_bits_bytes": nbytes(bits),
+                              "hash_floor_ms": (hash_ms if k.endswith("fwd")
+                                                else 0.0)}))
         if name == "bert":  # the kernels line carries K2 at the BERT shape
             results.update(timed)
     print(json.dumps({"flash_vs_unfused_attention": versus,
@@ -398,8 +454,8 @@ def check_dropout_stream(A, B, N, H, d, seed, rate):
         v[:, w:w + width, :, :width] = torch.eye(width, device=dev).to(
             v.dtype)[:, None, :]
         kb = torch.where((keys >= w) & (keys < w + width), 0.0, -1e9)
-        out, _ = A.kernel_fwd(z, z, v, kb.expand(B * H, N).contiguous(),
-                              seed, rate)
+        out, _, _ = A.kernel_fwd(z, z, v, kb.expand(B * H, N).contiguous(),
+                                 seed, rate)
         got[:, :, w:w + width] = (out[..., :width] != 0).permute(
             0, 2, 1, 3).reshape(B * H, N, width)
     diff = int((got != want).sum())
@@ -409,6 +465,48 @@ def check_dropout_stream(A, B, N, H, d, seed, rate):
     if diff:
         raise AssertionError("the kernel's dropout stream differs from "
                              "attention_keep_mask")
+
+
+def check_backward_masks(A, B, N, H, d, rate):
+    """The dq and dk/dv kernels' keep masks, read out exactly from bits
+    packed by the plain pack_keep_bits: lse = 0 and q.k = 0 make every p =
+    1, out = 0 makes delta = 0. dq: K one-hot over a window of d keys, V =
+    dO = e0, so dq[q, c] is keep[q, w + c] * scale / keep_prob. dv: K = V =
+    0, dO one-hot over a window of d queries, so dv[key, c] is keep[w + c,
+    key] / keep_prob. Held bit for bit against attention_keep_mask."""
+    dev = torch.device("cuda")
+    seed = torch.tensor([424242], dtype=torch.int32, device=dev)
+    keep = A.attention_keep_mask(seed, B * H, N, A.padded_len(N),
+                                 A.keep_threshold(rate))
+    bits = A.pack_keep_bits(keep)
+    z = torch.zeros(B, N, H, d, device=dev, dtype=torch.bfloat16)
+    lse = torch.zeros(B * H, N, device=dev)
+    e0 = z.clone()
+    e0[..., 0] = 1
+    for which in ("dq", "dv"):
+        got = torch.zeros_like(keep)
+        for w in range(0, N, d):
+            width = min(d, N - w)
+            one_hot = z.clone()
+            one_hot[:, w:w + width, :, :width] = torch.eye(
+                width, device=dev).to(z)[:, None, :]
+            if which == "dq":
+                g, _, _ = A.kernel_bwd(z, one_hot, e0, None, seed, rate, e0,
+                                       lse, z, bits)
+                got[:, :, w:w + width] = (g[..., :width] != 0).permute(
+                    0, 2, 1, 3).reshape(B * H, N, width)
+            else:
+                _, _, g = A.kernel_bwd(z, z, z, None, seed, rate, one_hot,
+                                       lse, z, bits)
+                got[:, w:w + width, :] = (g[..., :width] != 0).permute(
+                    0, 2, 3, 1).reshape(B * H, width, N)
+        diff = int((got != keep).sum())
+        print(f"  {which} kernel's dropout mask at BH={B * H} N={N}: {diff} "
+              f"of {keep.numel()} keep bits differ "
+              f"{'ok' if diff == 0 else 'FAIL'}")
+        if diff:
+            raise AssertionError(f"the {which} kernel's dropout mask differs "
+                                 f"from attention_keep_mask")
 
 
 def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
@@ -534,8 +632,9 @@ def main() -> int:
                 print(f"  {name} {entry}: {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
-            if name == "fused_mlp" and spill and spill.groups() != ("0", "0"):
-                raise AssertionError(f"K1 kernel {entry} spills: {line}")
+            if (name in ("fused_mlp", "flash_attention") and spill
+                    and spill.groups() != ("0", "0")):
+                raise AssertionError(f"{name} kernel {entry} spills: {line}")
 
     kernels = fused_mlp_phase(F)
     from semireward_tpu_torch import k3_profile
@@ -545,7 +644,11 @@ def main() -> int:
     for m in (4776, 6144):
         print(json.dumps({"k3_breakdown": k3_profile.breakdown(m),
                           "card": card}))
-    kernels.update(flash_phase(A))
+    kernels.update(flash_phase(A, k3_profile.FLASH_SHAPES))
+    # K2's time by kernel, launches and host time a call at the train shapes
+    for name, shape in k3_profile.FLASH_SHAPES.items():
+        print(json.dumps({"k2_breakdown": k3_profile.flash_breakdown(*shape),
+                          "shape": name, "card": card}))
     k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
     k2 = ("flash_attention_fwd", "flash_attention_bwd")
     phases = [

@@ -1,90 +1,116 @@
-// Flash attention for Hopper (sm_90a): forward, dq and dk/dv kernels with an
-// in-kernel key-padding bias and counter-hash dropout on the probabilities.
+// Flash attention for Hopper (sm_90a), K2: forward, dq and dk/dv kernels on
+// wgmma with TMA loads, an in-kernel key-padding bias and counter-hash
+// dropout on the probabilities.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
-//   semireward_tpu/ops/attention.py:_fwd_kernel     (launched by _fwd_call)
-//   semireward_tpu/ops/attention.py:_bwd_dq_kernel  (launched by _flash_bwd)
-//   semireward_tpu/ops/attention.py:_bwd_dkv_kernel (launched by _flash_bwd)
+//   semireward_tpu/ops/attention.py:_fwd_kernel     (:110, launched by _fwd_call)
+//   semireward_tpu/ops/attention.py:_bwd_dq_kernel  (:173, launched by _flash_bwd)
+//   semireward_tpu/ops/attention.py:_bwd_dkv_kernel (:227, launched by _flash_bwd)
 //
 // Layouts: q, k, v, out, dout, dq, dk, dv are [B, N, H, D] bf16 (the layout
 // the projections produce, so nothing is transposed); the key bias is
 // [B*H, N] f32; lse and delta are [B*H, N] f32; the dropout seed is one int32
-// on the device, read through its pointer (no host round trip per layer).
+// on the device, read through its pointer (no host round trip per layer);
+// the keep bits are [B*H, N, Np/32] uint32 (ops/attention.py:pack_keep_bits):
+// bit k%32 of word k/32 of query row q, 0 for keys >= N.
 //
 // Arithmetic follows the JAX kernels: scores in f32 (s = q.k * scale + bias,
-// keys >= N at -1e30), online softmax with the row max m and sum l, lse =
-// m + log(l); the backward recomputes p = exp(s - lse), dp = dO.V^T, dropout
-// on p (for PV / dV) and on dp, ds = p * (dp - delta). Every tensor-core
-// product takes bf16 operands with f32 accumulation, so P, dS and P^T are
-// rounded to bf16 before their products; the JAX kernels keep them in f32.
-// That is the one deliberate difference, held to one bf16 rounding (1% of
-// max|plain|) against the plain version.
+// keys >= N at -1e30), online softmax with the row max m and sum l (l sums p
+// before dropout), lse = m + log(l); the backward recomputes p = exp(s -
+// lse), dp = dO.V^T, dropout on p (for PV / dV) and on dp, ds = p * (dp -
+// delta) with delta = rowsum(dO * O). Every tensor-core product takes bf16
+// operands with f32 accumulation, so P, dS and P^T are rounded to bf16 before
+// their products; the JAX kernels keep them in f32. That is the one
+// deliberate difference, held to one bf16 rounding (1% of max|plain|).
 //
 // Dropout keep bit, identical to attention_keep_mask: with Np = N rounded up
 // to 128 (the JAX kernel's padded length, kept as part of the stream although
 // nothing is padded here) and bh the batch*head index,
 //   ctr  = (bh * Np + q) * Np + k            (uint32, wrapping)
 //   keep = lowbias32(lowbias32(ctr) ^ seed) < thresh
-// so the three kernels regenerate one mask with no extra memory.
+// The forward hashes it; under autograd it also writes the bits it kept, and
+// the two backward kernels read them instead of hashing again.
 //
-// Bound at the BERT-base train shape (BH = 144, N = 512, D = 64), H100 SXM:
-// forward 4*BH*N^2*D = 9.7 GFLOP -> 9.8 us at 989 TFLOP/s bf16 dense, against
-// ~38 MB of q, k, v, out -> 11.3 us at 3.35 TB/s: bound by bytes. Backward
-// with recompute, 7 products = 33.8 GFLOP -> 34 us: bound by operations.
+// Bound at the BERT-base train shape (BH = 144, N = 512, D = 64), H100 SXM.
+// One N x N x D product is 2*BH*N^2*D = 4.83 GFLOP. The forward needs 2 (9.7
+// GFLOP -> 9.8 us at 989 TFLOP/s bf16 dense) against ~38 MB of q, k, v, out
+// -> 11.3 us at 3.35 TB/s: bound by bytes. The backward needs 5 (S again, dP,
+// dQ, dK, dV: 24.2 GFLOP -> 24.4 us): bound by operations; this design
+// computes 7 (dq and dk/dv each recompute S and dP: 33.8 GFLOP). The dropout
+// hash adds an integer floor the bound does not count: ~19 integer
+// instructions a score, 37.7 M scores -> ~0.72 G instructions, ~48 us at 64
+// int32 lanes per SM per clock on 132 SMs at ~1.75 GHz. Only the forward
+// pays it; under autograd it writes 4.7 MB of keep bits, which the backward
+// reads twice instead: bytes of this design, not of the function, so the
+// bound leaves them out as it leaves out the hash.
 //
-// Design (one round of latency work; wgmma/TMA/warp specialisation come
-// later).
-// * One CTA of 4 warps owns a 64-row tile (queries in fwd/dq, keys in dkv);
-//   each warp owns 16 of its rows and runs mma.sync m16n8k16 (bf16 in, f32
-//   accumulate) with operands in shared memory ([64][D+8] bf16 tiles, the +8
-//   spreads rows over the banks, so ldmatrix reads them without conflicts).
-//   The head dim D is 64, that of every net of the port (ViT-Ti/S/B, BERT).
-//   Fragments come from shared memory through ldmatrix (.trans for the
-//   B operand of PV, dS.K, P^T.dO and dS^T.Q); the warp's own 16-row
-//   fragments (Q in fwd, Q and dO in dq, K and V in dkv) stay in registers
-//   for the whole loop.
-// * The TPU grid runs the key (or query) blocks in order inside one kernel
-//   instance; here a loop inside the CTA walks them, two tiles deep: the next
-//   tiles stream in with cp.async (zero-filled past N) while the current
-//   ones are multiplied. The CTAs over (tile, batch*head) run in parallel. dq
-//   and dk/dv are separate kernels, as on the TPU: each output has one
-//   writer, so no atomics, deterministic.
-// * Online softmax runs in registers, in base 2 (log2(e) folded into the
-//   scale and the bias): a row's 64 scores live in the 4 lanes of a quad
-//   (mma accumulator layout), so row max and sum take two shuffles. The f32
-//   accumulator of S or dS converts to the A operand of the next product in
-//   registers (the m16n8 C layout of two n-tiles is the m16k16 A layout).
-// * A ragged tail (N not a multiple of 64) loads zero rows and masks keys
-//   >= N to -1e30 and queries >= N to p = 0, as the JAX kernels mask their
-//   128-padding; stores skip rows >= N.
-// * Every function launches on the caller's stream, allocates nothing, and
-//   returns cudaGetLastError().
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+// Design (the pieces of csrc/hopper_gemm.cuh: tensor maps from the dlopen'd
+// cuTensorMapEncodeTiled, bind_context, the mbarrier ring, wgmma with the
+// transpose bits, setmaxnreg):
+// * Warp-specialised CTAs over a grid (ceil(N / 128), B*H). Two consumer
+//   warpgroups own 64 rows each: 128 queries a CTA in the forward and dq,
+//   128 keys in dk/dv. One producer thread issues the TMA loads; the
+//   producer warpgroups' other warps are helpers that stage each step's side
+//   data in shared memory (the keys' bias and the keep words; in dk/dv lse,
+//   delta and the keep words), loading four steps' worth before storing
+//   any. The forward has two producer warpgroups (512 threads: 7 helper
+//   warps at 56 registers hash the dropout mask, the consumers get 200);
+//   the backward kernels one (384 threads: 3 helper warps copy, 224 for the
+//   consumers). A consumer whose 64 rows all lie past N exits at once (the
+//   ragged last tile of N 257 holds one row), and the ring's empty barriers
+//   count only the consumers that run.
+// * TMA through 4-D tensor maps over [B, N, H, D] in boxes of 64 rows x 64
+//   (one 128-byte swizzled row per head row), so rows >= N of one head come
+//   back as zeros, never as the next batch's rows. The owned rows (Q; Q, dO
+//   and O in dq; K and V in dk/dv) load once; the streamed tiles (K and V in
+//   the forward and dq, Q and dO in dk/dv) go through a ring of stages
+//   guarded by full / side / empty mbarriers.
+// * Products on wgmma.mma_async: S = Q K^T and dP = dO V^T (dk/dv: S^T = K
+//   Q^T, dP^T = V dO^T) from shared memory, both operands K-major; P V, dS K,
+//   P^T dO and dS^T Q with the f32 accumulator converted in registers to
+//   bf16 as the register A operand (the m64nNk16 accumulator layout of two
+//   n8 column blocks is the A fragment of one k16 step), and the streamed
+//   tile as an MN-major B operand through the transpose bit: no
+//   shared-memory round trip, no copy. A consumer issues step j's output
+//   products together with step j + 1's score products: one wait a step.
+// * The two consumers run free. Turns enforced by a named-barrier pair (as
+//   in K1's ping-pong GEMMs) measured no faster in the forward and 16-33%
+//   slower in the backward on the H100 (PERF.md), so there are none.
+// * Online softmax in base 2 in registers (log2(e) folded into the scale and
+//   the bias): a row's scores live in the 4 lanes of a quad, so its max and
+//   sum take two shuffles. The staged bias is -1e30 past N, so masking a
+//   ragged tail costs the consumers nothing.
+// * The dropout mask as keep words, 32 keys a word: the forward's helpers
+//   hash it (off the consumers' path) and, under autograd, write the words
+//   out; the backward's helpers copy them in. A consumer tests one bit a
+//   score.
+// * Backward: dq and dk/dv are separate kernels, each output with one
+//   writer: no atomics, the same bits every launch. dq computes delta =
+//   rowsum(dO * O) for its rows from the tiles it loads and writes it for
+//   dk/dv, which the stream runs after it.
+// * Every host function launches on the caller's stream, allocates nothing,
+//   and returns 0, a CUDA error code, or kBadArgs / kBadMap (negative). The
+//   tensor maps are encoded a call: measured, an encode is a small part of
+//   the entry point's host time, and keeping maps saved nothing.
+#include "hopper_gemm.cuh"
 
 namespace {
 
-constexpr int D = 64;           // head dim
-constexpr int LD = D + 8;       // shared-memory row stride of a tile
-constexpr int BM = 64;          // rows per tile (queries or keys)
-constexpr int TILE = BM * LD;   // elements of one [64][D + 8] tile
-constexpr int KS = D / 16;      // k-steps of a product over D
-constexpr int NT = 128;         // threads per CTA: 4 warps x 16 rows
+constexpr int HD = 64;                 // head dim
+constexpr int ROWS = 64;               // rows a consumer warpgroup owns
+constexpr int TILE = ROWS * HD * 2;    // one [64 x 64] bf16 box, 8 KB (BOX_BYTES)
 constexpr float NEG_INF = -1e30f;
+constexpr float POS_INF = 1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+static_assert(TILE == BOX_BYTES, "one TMA box is one tile of 64 rows");
 
-struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* bias;     // [B*H, N] key bias, or nullptr
-  const int* seed;       // one int32 on the device, or nullptr (no dropout)
-  const bf16* dout;      // backward only
-  const float* lse_in;   // backward only
-  const float* delta;    // backward only
+struct FlashArgs {
+  CUtensorMap mq, mk, mv, mo, mdo;  // [B, N, H, D] bf16 in 64-row boxes
+  const float* bias;   // [B*H, N] key bias, or nullptr
+  const int* seed;     // one int32 on the device, or nullptr (no dropout)
+  const float* lse_in; // backward
+  float* delta;        // backward: written by dq, read by dk/dv
+  uint32_t* bits;      // forward: written when not null; backward: read under dropout
   bf16* out;
   float* lse;
   bf16* dq;
@@ -104,551 +130,797 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ bool keep_bit(uint32_t bh, uint32_t qpos, uint32_t kpos,
-                                         uint32_t Np, uint32_t seed, uint32_t thresh) {
-  const uint32_t ctr = (bh * Np + qpos) * Np + kpos;
-  return lowbias32(lowbias32(ctr) ^ seed) < thresh;
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// c[4] += a[4] (16x16 bf16, row) * b[2] (16x8 bf16, col), f32 accumulate.
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+// One 64-row box of head bh (rows row0..row0+63 of its [N, D] view).
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row0, int bh, int H) {
+  const int b = bh / H, h = bh - b * H;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// A operand: the 16x16 tile at s, row-major with leading dim ld.
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int ld, int lane) {
-  ldsm_x4(a, s + (lane & 15) * ld + (lane >> 4) * 8);
-}
-
-// B operands of n-tiles n0 and n0 + 8 for B[kk][n] = s[n][kk] (s row-major
-// [n][k], at row n0 and the k-step's column): a product with X^T.
-__device__ __forceinline__ void frag_bt2(uint32_t b[4], const bf16* s, int ld, int lane) {
-  ldsm_x4(b, s + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
-}
-
-// B operands of n-tiles n0 and n0 + 8 for B[kk][n] = s[kk][n] (s row-major
-// [k][n], at the k-step's row and column n0).
-__device__ __forceinline__ void frag_b2(uint32_t b[4], const bf16* s, int ld, int lane) {
-  ldsm_x4_t(b, s + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8);
-}
-
-// The A operand of k-step kk from the f32 accumulators of n-tiles 2kk, 2kk+1.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4], const float c1[4]) {
-  a[0] = pack_f32(c0[0], c0[1]);
-  a[1] = pack_f32(c0[2], c0[3]);
-  a[2] = pack_f32(c1[0], c1[1]);
-  a[3] = pack_f32(c1[2], c1[3]);
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(row0), "r"(b)
+      : "memory");
 }
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
-
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+// d[32] += A[64 x 16] * B[16 x 64] with A in registers (the m64nNk16 A
+// fragment: a[0] rows g, cols 2t..; a[1] rows g + 8; a[2], a[3] cols + 8)
+// and B an MN-major tile in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Rows [r0, r0 + 64) of one head's [N, D] view (row stride rs elements) into a
-// [64][D + 8] shared tile with cp.async, 16 bytes per thread per step; rows
-// past N are zero-filled (a source size of 0 reads nothing).
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int r0, int N, int64_t rs) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < BM * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r0 + r < N;
-    const bf16* src = g + (int64_t)(ok ? r0 + r : 0) * rs + c;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(s + r * LD + c)),
-                 "l"(src), "r"(ok ? 16 : 0));
+// acc = X[64 x 64] * Y^T over D: both operands K-major tiles in shared
+// memory (Y has NC rows).
+template <int NC>
+__device__ __forceinline__ void product_kmajor(float (&acc)[NC / 2], uint32_t x, uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma<NC, 0, 0>(acc, step_desc(x, kk, false), step_desc(y, kk, false), kk > 0);
+}
+
+// The register A operands of P[64 x KC] from its f32 accumulator: k-step kk
+// takes n8 column blocks 2kk and 2kk + 1. Packed before the products are
+// issued, so that no register an issued wgmma reads is written between them.
+template <int KC>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KC / 16][4], const float (&p)[KC / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < KC / 16; ++kk) {
+    a[kk][0] = pack_bf16(p[8 * kk], p[8 * kk + 1]);
+    a[kk][1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
+    a[kk][2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
+    a[kk][3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
   }
 }
 
-// 64 f32 of one row of a [B*H, N] array from index i0 into shared memory,
-// times `scale`; 0 where g is null, `fill` past N (plain loads; the barrier
-// before their use publishes them).
-__device__ __forceinline__ void load_vec(float* s, const float* g, int i0, int N, float scale,
-                                         float fill) {
-  if (threadIdx.x < BM) {
-    const int i = i0 + threadIdx.x;
-    s[threadIdx.x] = i >= N ? fill : (g != nullptr ? g[i] * scale : 0.f);
+// acc += P[64 x KC] * Y[KC x 64]: P the packed register operand, Y the
+// streamed tile in shared memory taken MN-major.
+template <int KC>
+__device__ __forceinline__ void product_regs(float (&acc)[32], const uint32_t (&a)[KC / 16][4],
+                                             uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < KC / 16; ++kk) wgmma_rs_n64(acc, a[kk], step_desc(y, kk, true));
+}
+
+// Thread counts: warp 0 of the first producer warpgroup issues the TMA
+// loads, the producer warpgroups' other warps are helpers that stage each
+// step's side data, and the last two warpgroups are the consumers. The
+// forward hashes the dropout mask in its helpers, so it takes two producer
+// warpgroups (7 helper warps; at 56 registers a thread, as fast as at 72 or
+// 88 on the H100); the backward kernels only copy side data and take one
+// (3 helper warps).
+constexpr int FWD_NT = 512, FWD_HELPERS = 224, FWD_HELPER_REGS = 56, FWD_CONSUMER_REGS = 200;
+constexpr int BWD_NT = 384, BWD_HELPERS = 96, BWD_HELPER_REGS = 56, BWD_CONSUMER_REGS = 224;
+static_assert(2 * 128 * FWD_HELPER_REGS + 2 * 128 * FWD_CONSUMER_REGS <= 65536, "fwd registers");
+static_assert(128 * BWD_HELPER_REGS + 2 * 128 * BWD_CONSUMER_REGS <= 65536, "bwd registers");
+
+// Shared memory of a kernel: the owned tiles (OWN boxes per consumer), a ring
+// of STAGES stages of two streamed [KT x 64] tiles and, per stage, SIDE bytes
+// of side data (bias, keep words, lse and delta of the step), then the
+// barriers: the owned boxes', and per stage full (TMA), side (helpers) and
+// empty (consumers).
+template <int OWN, int KT, int STAGES, int SIDE>
+struct Smem {
+  static constexpr int OWNED = 2 * OWN * TILE;
+  static constexpr int STAGE = 2 * KT * HD * 2;
+  static constexpr int BARS = 8 * (1 + 3 * STAGES);
+  static constexpr int BYTES = 1024 + OWNED + STAGES * (STAGE + SIDE) + BARS;
+  static_assert(BYTES <= MAX_SMEM, "shared memory past 227 KB");
+};
+
+struct Layout {
+  uint32_t owned, ring, own_bar, full, side_full, empty;
+  uint8_t* side;  // generic pointer to stage 0's side data
+};
+
+template <int OWN, int KT, int STAGES, int SIDE>
+__device__ __forceinline__ Layout layout(uint8_t* smem_raw) {
+  typedef Smem<OWN, KT, STAGES, SIDE> S;
+  const uint32_t raw = smem_u32(smem_raw);
+  Layout l;
+  l.owned = (raw + 1023) & ~1023u;  // 128-byte swizzle: 1024-byte aligned
+  l.ring = l.owned + S::OWNED;
+  const uint32_t side = l.ring + STAGES * S::STAGE;
+  l.side = smem_raw + (side - raw);
+  l.own_bar = side + STAGES * SIDE;
+  l.full = l.own_bar + 8;
+  l.side_full = l.full + 8 * STAGES;
+  l.empty = l.side_full + 8 * STAGES;
+  return l;
+}
+
+// The producer thread: the NOWN owned boxes (maps o0, o1, o2) of each
+// running consumer on own_bar, then the streamed tiles (maps s0, s1, KT rows
+// each) of every step through the ring.
+template <int KT, int STAGES, int NOWN>
+__device__ __forceinline__ void produce(const Layout& l, const CUtensorMap* o0,
+                                        const CUtensorMap* o1, const CUtensorMap* o2, int row0,
+                                        int active, const CUtensorMap* s0, const CUtensorMap* s1,
+                                        int steps, int bh, int H) {
+  mbar_expect_tx(l.own_bar, active * NOWN * TILE);
+  for (int c = 0; c < active; ++c)
+#pragma unroll
+    for (int i = 0; i < NOWN; ++i)
+      tma_rows(l.owned + (c * NOWN + i) * TILE, i == 0 ? o0 : (i == 1 ? o1 : o2), l.own_bar,
+               row0 + ROWS * c, bh, H);
+  constexpr int HALF = KT * HD * 2;
+  for (int j = 0; j < steps; ++j) {
+    const int stage = j % STAGES;
+    mbar_wait(l.empty + 8 * stage, ((j / STAGES) & 1) ^ 1);  // the first pass finds it free
+    const uint32_t fb = l.full + 8 * stage, s = l.ring + stage * 2 * HALF;
+    mbar_expect_tx(fb, 2 * HALF);
+#pragma unroll
+    for (int i = 0; i < KT / ROWS; ++i) {
+      tma_rows(s + i * TILE, s0, fb, j * KT + ROWS * i, bh, H);
+      tma_rows(s + HALF + i * TILE, s1, fb, j * KT + ROWS * i, bh, H);
+    }
   }
 }
 
-// Per-CTA geometry: head offset into [B, N, H, D], row stride.
-struct Head {
-  int64_t off, rs;
-  __device__ Head(const Params& p, int bh) {
-    rs = (int64_t)p.H * D;
-    off = ((int64_t)(bh / p.H) * p.N * p.H + bh % p.H) * D;
+template <int STAGES, int HELPERS>
+__device__ __forceinline__ void init_barriers(const Layout& l, int active) {
+  if (threadIdx.x == 0) {
+    mbar_init(l.own_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(l.full + 8 * s, 1);               // the producer's expect_tx
+      mbar_init(l.side_full + 8 * s, HELPERS);    // every helper thread
+      mbar_init(l.empty + 8 * s, active);         // every running consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The role split: setmaxnreg must dominate each role's code for ptxas to
+// allocate it at the role's count, so each kernel calls these at the head of
+// its producer and consumer branches.
+template <int REGS>
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS) : "memory");
+}
+template <int REGS>
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS) : "memory");
+}
+
+// Per-thread geometry of a consumer: warp, quad lane, accumulator row.
+struct Lane {
+  int t, warp, lane, tq, r0;  // r0: tile row of d[4n + 0, 1]; d[4n + 2, 3] are r0 + 8
+  __device__ Lane() {
+    t = threadIdx.x & 127;
+    warp = t >> 5;
+    lane = t & 31;
+    tq = lane & 3;
+    r0 = warp * 16 + (lane >> 2);
   }
 };
 
-// Dynamic shared memory of each kernel, in bytes.
-constexpr size_t TILE_BYTES = TILE * sizeof(bf16), VEC_BYTES = BM * sizeof(float);
-constexpr size_t SMEM_FWD = 5 * TILE_BYTES + 2 * VEC_BYTES;  // Q, 2 x (K, V, bias)
-constexpr size_t SMEM_DQ = 6 * TILE_BYTES + 2 * VEC_BYTES;   // Q, dO, 2 x (K, V, bias)
-constexpr size_t SMEM_DKV = 6 * TILE_BYTES + 4 * VEC_BYTES;  // K, V, 2 x (Q, dO, lse, delta)
+// Side data of a step over KT keys (forward, dq): the keys' bias times
+// log2(e) (-1e30 past N, so masking a ragged tail costs the consumers
+// nothing), then the keep words of the CTA's 128 query rows, [128][KT / 32].
+template <int KT>
+struct KeySide {
+  static constexpr int WPR = KT / 32;  // keep words a row
+  static constexpr int BYTES = KT * 4 + 128 * WPR * 4;
+};
+
+// The side data's bias of key k: times log2(e), -1e30 past N.
+__device__ __forceinline__ float bias_of(const FlashArgs& a, int bh, int k) {
+  return k < a.N ? (a.bias != nullptr ? a.bias[(int64_t)bh * a.N + k] * LOG2E : 0.f) : NEG_INF;
+}
+
+// Helpers load the global side data of SIDE_BATCH steps before they store
+// any, so that the loads' latencies overlap.
+constexpr int SIDE_BATCH = 4;
+
+// A consumer's keep words of rows `row` and row + 8 for the step, shifted to
+// its quad lane: bit 8(n % 4) + e % 2 of word [e / 2][n / 4] keeps the score
+// in d[4n + e].
+template <int KT>
+__device__ __forceinline__ void keep_words(uint32_t (&kw)[2][KT / 32], const uint32_t* sw, int row,
+                                           int tq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < KT / 32; ++i) kw[r][i] = sw[(row + 8 * r) * (KT / 32) + i] >> (2 * tq);
+}
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(N/64), B*H); O and lse for 64 queries
+// forward: grid (ceil(N/128), B*H); O and lse for 128 queries, 128 keys a step
+// (measured faster than 64 keys at N 199 and 512, as fast at 257)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + TILE;        // two buffers
-  bf16* sV = sK + 2 * TILE;    // two buffers
-  float* sBias = reinterpret_cast<float*>(sV + 2 * TILE);  // two buffers
+constexpr int FWD_KT = 128;
+constexpr int FWD_STAGES = 512 / FWD_KT;  // every key of N <= 512 in flight
+typedef Smem<1, FWD_KT, FWD_STAGES, KeySide<FWD_KT>::BYTES> FwdSmem;  // own Q
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM, N = p.N;
-  const Head hd(p, bh);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int row0 = warp * 16 + (lane >> 2);  // tile row of acc elements 0,1 (2,3: +8)
-  const bool drop = p.seed != nullptr;
-  const uint32_t seed = drop ? (uint32_t)p.seed[0] : 0u;
-  const float* bias = p.bias != nullptr ? p.bias + (int64_t)bh * N : nullptr;
-  const float sl2 = p.scale * LOG2E;
-  const int nk = (N + BM - 1) / BM;
-
-  load_tile(sQ, p.q + hd.off, q0, N, hd.rs);
-  load_tile(sK, p.k + hd.off, 0, N, hd.rs);
-  load_tile(sV, p.v + hd.off, 0, N, hd.rs);
-  load_vec(sBias, bias, 0, N, LOG2E, NEG_INF);
-  cp_async_commit();
-
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+// The helpers of the forward: per step the bias and the keep words, hashed
+// here, 32 keys a word (0 past N); with a.bits also written out for the
+// backward. A row's Np / 32 words are exactly the steps' words.
+__device__ __forceinline__ void fwd_side(const FlashArgs& a, const Layout& l, int bh, int q0,
+                                         int steps, int active, int h) {
+  constexpr int KT = FWD_KT, STAGES = FWD_STAGES, WPR = KeySide<KT>::WPR;
+  constexpr int HELPERS = FWD_HELPERS, U = SIDE_BATCH;
+  static_assert(KT <= HELPERS, "one bias value a helper a step");
+  const int N = a.N, W = a.Np / 32, words = ROWS * active * WPR;
+  const bool drop = a.seed != nullptr;
+  const uint32_t seed = drop ? (uint32_t)a.seed[0] : 0u, Np = (uint32_t)a.Np;
+  for (int j0 = 0; j0 < steps; j0 += U) {
+    float bv[U];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t qf[KS][4];
-
-  for (int it = 0; it < nk; ++it) {
-    const int buf = it & 1, k0 = it * BM;
-    if (it + 1 < nk) {  // the next tiles stream in during this one
-      const int nb = buf ^ 1, k1 = k0 + BM;
-      load_tile(sK + nb * TILE, p.k + hd.off, k1, N, hd.rs);
-      load_tile(sV + nb * TILE, p.v + hd.off, k1, N, hd.rs);
-      load_vec(sBias + nb * BM, bias, k1, N, LOG2E, NEG_INF);
+    for (int u = 0; u < U; ++u)
+      bv[u] = h < KT && j0 + u < steps ? bias_of(a, bh, (j0 + u) * KT + h) : 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u, stage = j % STAGES, k0 = j * KT;
+      if (j >= steps) break;
+      mbar_wait(l.empty + 8 * stage, ((j / STAGES) & 1) ^ 1);
+      float* sb = reinterpret_cast<float*>(l.side + stage * KeySide<KT>::BYTES);
+      uint32_t* sw = reinterpret_cast<uint32_t*>(sb + KT);
+      if (h < KT) sb[h] = bv[u];
+      // word j * words + w goes to helper (j * words + w) % HELPERS: the
+      // words of all steps dealt out in turn, so no helper takes more than
+      // one word beyond any other
+      if (drop)
+        for (int w = (h + HELPERS - (j * words) % HELPERS) % HELPERS; w < words; w += HELPERS) {
+          const int row = w / WPR, kb = k0 + 32 * (w % WPR), q = q0 + row;
+          const uint32_t ctr = ((uint32_t)bh * Np + (uint32_t)q) * Np + (uint32_t)kb;
+          uint32_t word = 0u;
+#pragma unroll
+          for (int b = 0; b < 32; ++b)
+            word |= (uint32_t)(lowbias32(lowbias32(ctr + b) ^ seed) < a.thresh) << b;
+          if (kb + 32 > N) word &= kb >= N ? 0u : (1u << (N - kb)) - 1u;  // keys >= N
+          sw[w] = word;
+          if (a.bits != nullptr && q < N) a.bits[((int64_t)bh * N + q) * W + kb / 32] = word;
+        }
+      mbar_arrive(l.side_full + 8 * stage);
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* cK = sK + buf * TILE;
-    const bf16* cV = sV + buf * TILE;
-    const float* cB = sBias + buf * BM;
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) frag_a(qf[kk], sQ + (warp * 16) * LD + kk * 16, LD, lane);
-    }
+  }
+}
 
-    float s[BM / 8][4];
+__global__ void __launch_bounds__(FWD_NT, 1) k2_fwd_kernel(const __grid_constant__ FlashArgs a) {
+  constexpr int KT = FWD_KT, STAGES = FWD_STAGES, WPR = KeySide<KT>::WPR;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Layout l = layout<1, KT, STAGES, KeySide<KT>::BYTES>(smem_raw);
+  const int bh = blockIdx.y, q0 = blockIdx.x * 128, N = a.N;
+  const int steps = cdiv(N, KT);
+  const int active = min(2, cdiv(N - q0, ROWS));
+  init_barriers<STAGES, FWD_HELPERS>(l, active);
+  if (threadIdx.x < FWD_NT - 256) {
+    producer_regs<FWD_HELPER_REGS>();
+    if (threadIdx.x == 0)
+      produce<KT, STAGES, 1>(l, &a.mq, &a.mq, &a.mq, q0, active, &a.mk, &a.mv, steps, bh, a.H);
+    else if (threadIdx.x >= 32)
+      fwd_side(a, l, bh, q0, steps, active, threadIdx.x - 32);
+    return;
+  }
+  consumer_regs<FWD_CONSUMER_REGS>();
+  const int c = (threadIdx.x - (FWD_NT - 256)) / 128;
+  if (c >= active) return;
+
+  const Lane L;
+  const uint32_t qtile = l.owned + c * TILE;
+  const bool drop = a.seed != nullptr;
+  const int qrow = q0 + ROWS * c + L.r0;  // query of d[.. 0, 1]; + 8 for d[.. 2, 3]
+  const float sl2 = a.scale * LOG2E;
+
+  float o[32];
 #pragma unroll
-    for (int j = 0; j < BM / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t* aq = qf[kk];
-#pragma unroll
-      for (int j = 0; j < BM / 8; j += 2) {
-        uint32_t b[4];
-        frag_bt2(b, cK + (j * 8) * LD + kk * 16, LD, lane);
-        mma(s[j], aq, b);
-        mma(s[j + 1], aq, b + 2);
-      }
-    }
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l2[2] = {0.f, 0.f};
+  float s[KT / 2];
+  mbar_wait(l.own_bar, 0);
+  mbar_wait(l.full, 0);
+  wgmma_fence();
+  product_kmajor<KT>(s, qtile, l.ring);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+
+  // step j: s holds S_j; P_j V_j is issued with S_{j+1}, one wait a step
+  for (int j = 0; j < steps; ++j) {
+    const int stage = j % STAGES;
+    const uint32_t vtile = l.ring + stage * FwdSmem::STAGE + FwdSmem::STAGE / 2;
+    const float* bs = reinterpret_cast<const float*>(l.side + stage * KeySide<KT>::BYTES);
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(bs + KT);
+    mbar_wait(l.side_full + 8 * stage, (j / STAGES) & 1);
 
     // scores in base 2: x = log2(e) * (q.k * scale + bias); keys >= N at -1e30
-    float mc[2] = {NEG_INF, NEG_INF};
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
+    for (int n = 0; n < KT / 8; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(bs + 8 * n + 2 * L.tq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const float x = (k0 + col < N) ? s[j][e] * sl2 + cB[col] : NEG_INF;
-        s[j][e] = x;
-        mc[e >> 1] = fmaxf(mc[e >> 1], x);
+        const float x = fmaf(s[4 * n + e], sl2, (e & 1) ? b.y : b.x);
+        s[4 * n + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    }
     float alpha[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(mc[r]));
+      const float mn = quad_max(mx[r]);
       alpha[r] = exp2f(m[r] - mn);
       m[r] = mn;
     }
 #pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pe = exp2f(s[j][e] - m[e >> 1]);
-        rsum[e >> 1] += pe;  // l sums p before dropout, as the JAX kernel does
-        if (drop) {
-          const uint32_t qpos = (uint32_t)(q0 + row0 + 8 * (e >> 1));
-          const uint32_t kpos = (uint32_t)(k0 + j * 8 + 2 * t + (e & 1));
-          pe = keep_bit((uint32_t)bh, qpos, kpos, (uint32_t)p.Np, seed, p.thresh)
-                   ? pe * p.inv_keep : 0.f;
-        }
-        s[j][e] = pe;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rsum[r]);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
+    for (int i = 0; i < KT / 2; ++i) {
+      const float pe = exp2f(s[i] - m[(i >> 1) & 1]);
+      rsum[(i >> 1) & 1] += pe;  // l sums p before dropout, as the JAX kernel does
+      s[i] = pe;
     }
 #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+    for (int r = 0; r < 2; ++r) l2[r] = l2[r] * alpha[r] + quad_sum(rsum[r]);
+    if (drop) {
+      uint32_t kw[2][WPR];
+      keep_words<KT>(kw, sw, ROWS * c + L.r0, L.tq);
 #pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t b[4];
-        frag_b2(b, cV + (kk * 16) * LD + j * 8, LD, lane);
-        mma(acc[j], a, b);
-        mma(acc[j + 1], a, b + 2);
-      }
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * n + e] = (kw[e >> 1][n / 4] >> (8 * (n % 4) + (e & 1))) & 1u
+                             ? s[4 * n + e] * a.inv_keep : 0.f;
     }
-    __syncthreads();  // this buffer is refilled by the next iteration's loads
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[4 * n] *= alpha[0];
+      o[4 * n + 1] *= alpha[0];
+      o[4 * n + 2] *= alpha[1];
+      o[4 * n + 3] *= alpha[1];
+    }
+    uint32_t pa[KT / 16][4];
+    pack_a<KT>(pa, s);
+    const bool more = j + 1 < steps;
+    const int next = (j + 1) % STAGES;
+    if (more) mbar_wait(l.full + 8 * next, ((j + 1) / STAGES) & 1);
+    wgmma_fence();
+    product_regs<KT>(o, pa, vtile);
+    if (more) product_kmajor<KT>(s, qtile, l.ring + next * FwdSmem::STAGE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(s);
+    if (L.t == 0) mbar_arrive(l.empty + 8 * stage);
   }
 
+  const int b = bh / a.H, h = bh - b * a.H;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + 8 * r;
-    if (qi >= N) continue;
-    bf16* orow = p.out + hd.off + (int64_t)qi * hd.rs;
+    const int row = qrow + 8 * r;
+    if (row >= N) continue;
+    const float inv = 1.f / l2[r];
+    bf16* orow = a.out + (((int64_t)b * N + row) * a.H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * r] / l[r], acc[j][2 * r + 1] / l[r]);
-    if (t == 0) p.lse[(int64_t)bh * N + qi] = (m[r] + log2f(l[r])) / LOG2E;
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * L.tq) =
+          __floats2bfloat162_rn(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    if (L.tq == 0) a.lse[(int64_t)bh * N + row] = (m[r] + log2f(l2[r])) / LOG2E;
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward dq: grid (ceil(N/64), B*H); dq for 64 queries, recomputing p
+// backward dq: grid (ceil(N/128), B*H); dq and delta for 128 queries
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT) flash_dq_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + TILE;
-  bf16* sK = sDO + TILE;       // two buffers
-  bf16* sV = sK + 2 * TILE;    // two buffers
-  float* sBias = reinterpret_cast<float*>(sV + 2 * TILE);  // two buffers
+constexpr int DQ_KT = 64;                // keys a step of dq
+constexpr int DQ_STAGES = 512 / DQ_KT;   // every tile of N <= 512 in flight
+typedef Smem<3, DQ_KT, DQ_STAGES, KeySide<DQ_KT>::BYTES> DqSmem;  // own Q, dO, O
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM, N = p.N;
-  const Head hd(p, bh);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int row0 = warp * 16 + (lane >> 2);
-  const bool drop = p.seed != nullptr;
-  const uint32_t seed = drop ? (uint32_t)p.seed[0] : 0u;
-  const float* bias = p.bias != nullptr ? p.bias + (int64_t)bh * N : nullptr;
-  const float sl2 = p.scale * LOG2E;
-  const int nk = (N + BM - 1) / BM;
+// The helpers of dq: per step the bias and the forward's keep words.
+__device__ __forceinline__ void dq_side(const FlashArgs& a, const Layout& l, int bh, int q0,
+                                        int steps, int active, int h) {
+  constexpr int KT = DQ_KT, STAGES = DQ_STAGES, WPR = KeySide<KT>::WPR;
+  constexpr int HELPERS = BWD_HELPERS, U = SIDE_BATCH;
+  static_assert(KT <= 2 * HELPERS && 128 <= 2 * HELPERS, "a helper's share of a step");
+  const int N = a.N, W = a.Np / 32, rows = ROWS * active;
+  const bool drop = a.seed != nullptr;
+  for (int j0 = 0; j0 < steps; j0 += U) {
+    float bv[U][2];
+    uint32_t kw[U][2][WPR];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = h + rr * HELPERS, r = i, q = q0 + r;
+        bv[u][rr] = i < KT && j < steps ? bias_of(a, bh, j * KT + i) : 0.f;
+        const bool in = drop && j < steps && r < rows && q < N;
+        const uint32_t* src = a.bits + ((int64_t)bh * N + q) * W + j * KT / 32;
+#pragma unroll
+        for (int w = 0; w < WPR; ++w) kw[u][rr][w] = in ? src[w] : 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u, stage = j % STAGES;
+      if (j >= steps) break;
+      mbar_wait(l.empty + 8 * stage, ((j / STAGES) & 1) ^ 1);
+      float* sb = reinterpret_cast<float*>(l.side + stage * KeySide<KT>::BYTES);
+      uint32_t* sw = reinterpret_cast<uint32_t*>(sb + KT);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = h + rr * HELPERS;
+        if (i < KT) sb[i] = bv[u][rr];
+        if (drop && i < rows)
+#pragma unroll
+          for (int w = 0; w < WPR; ++w) sw[i * WPR + w] = kw[u][rr][w];
+      }
+      mbar_arrive(l.side_full + 8 * stage);
+    }
+  }
+}
 
-  load_tile(sQ, p.q + hd.off, q0, N, hd.rs);
-  load_tile(sDO, p.dout + hd.off, q0, N, hd.rs);
-  load_tile(sK, p.k + hd.off, 0, N, hd.rs);
-  load_tile(sV, p.v + hd.off, 0, N, hd.rs);
-  load_vec(sBias, bias, 0, N, LOG2E, NEG_INF);
-  cp_async_commit();
-  float lse2[2], del[2];
+__global__ void __launch_bounds__(BWD_NT, 1) k2_bwd_dq_kernel(const __grid_constant__ FlashArgs a) {
+  constexpr int KT = DQ_KT, STAGES = DQ_STAGES, WPR = KeySide<KT>::WPR;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Layout l = layout<3, KT, STAGES, KeySide<KT>::BYTES>(smem_raw);
+  const int bh = blockIdx.y, q0 = blockIdx.x * 128, N = a.N;
+  const int steps = cdiv(N, KT);
+  const int active = min(2, cdiv(N - q0, ROWS));
+  init_barriers<STAGES, BWD_HELPERS>(l, active);
+  if (threadIdx.x < 128) {
+    producer_regs<BWD_HELPER_REGS>();
+    if (threadIdx.x == 0)
+      produce<KT, STAGES, 3>(l, &a.mq, &a.mdo, &a.mo, q0, active, &a.mk, &a.mv, steps, bh, a.H);
+    else if (threadIdx.x >= 32)
+      dq_side(a, l, bh, q0, steps, active, threadIdx.x - 32);
+    return;
+  }
+  consumer_regs<BWD_CONSUMER_REGS>();
+  const int c = threadIdx.x / 128 - 1;
+  if (c >= active) return;
+
+  const Lane L;
+  const uint32_t qtile = l.owned + 3 * c * TILE, dotile = qtile + TILE, otile = qtile + 2 * TILE;
+  const bool drop = a.seed != nullptr;
+  const int qrow = q0 + ROWS * c + L.r0;
+  const float sl2 = a.scale * LOG2E;
+  float lse2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + 8 * r;
-    lse2[r] = qi < N ? p.lse_in[(int64_t)bh * N + qi] * LOG2E : 0.f;
-    del[r] = qi < N ? p.delta[(int64_t)bh * N + qi] : 0.f;
+    const int row = qrow + 8 * r;
+    lse2[r] = row < N ? a.lse_in[(int64_t)bh * N + row] * LOG2E : 0.f;
   }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t qf[KS][4], dof[KS][4];
 
-  for (int it = 0; it < nk; ++it) {
-    const int buf = it & 1, k0 = it * BM;
-    if (it + 1 < nk) {
-      const int nb = buf ^ 1, k1 = k0 + BM;
-      load_tile(sK + nb * TILE, p.k + hd.off, k1, N, hd.rs);
-      load_tile(sV + nb * TILE, p.v + hd.off, k1, N, hd.rs);
-      load_vec(sBias + nb * BM, bias, k1, N, LOG2E, NEG_INF);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* cK = sK + buf * TILE;
-    const bf16* cV = sV + buf * TILE;
-    const float* cB = sBias + buf * BM;
-    if (it == 0) {
+  mbar_wait(l.own_bar, 0);
+  // delta = rowsum(dO * O) of this thread's two rows: lane tq reads 16-byte
+  // chunks 2tq and 2tq + 1 of each (128-byte swizzle: chunk ^ row % 8)
+  float del[2];
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        frag_a(qf[kk], sQ + (warp * 16) * LD + kk * 16, LD, lane);
-        frag_a(dof[kk], sDO + (warp * 16) * LD + kk * 16, LD, lane);
+  for (int r = 0; r < 2; ++r) {
+    const int tr = L.r0 + 8 * r;
+    float acc = 0.f;
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int off = tr * 128 + (((2 * L.tq + h2) ^ (tr & 7)) << 4);
+      uint4 x, y;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+                   : "r"(dotile + off));
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(y.x), "=r"(y.y), "=r"(y.z), "=r"(y.w)
+                   : "r"(otile + off));
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+        const float2 fy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+        acc = fmaf(fx.x, fy.x, acc);
+        acc = fmaf(fx.y, fy.y, acc);
       }
     }
+    del[r] = quad_sum(acc);
+    const int row = qrow + 8 * r;
+    if (L.tq == 0 && row < N) a.delta[(int64_t)bh * N + row] = del[r];
+  }
 
-    float s[BM / 8][4], dp[BM / 8][4];
+  float dq[32], s[KT / 2], dp[KT / 2];
 #pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  mbar_wait(l.full, 0);
+  wgmma_fence();
+  product_kmajor<KT>(s, qtile, l.ring);
+  product_kmajor<KT>(dp, dotile, l.ring + DqSmem::STAGE / 2);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+
+  // step j: s, dp hold S_j, dP_j; dS_j K_j is issued with S_{j+1}, dP_{j+1}
+  for (int j = 0; j < steps; ++j) {
+    const int stage = j % STAGES;
+    const uint32_t ktile = l.ring + stage * DqSmem::STAGE;
+    const float* bs = reinterpret_cast<const float*>(l.side + stage * KeySide<KT>::BYTES);
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(bs + KT);
+    mbar_wait(l.side_full + 8 * stage, (j / STAGES) & 1);
+    uint32_t kw[2][WPR];
+    if (drop) keep_words<KT>(kw, sw, ROWS * c + L.r0, L.tq);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t* aq = qf[kk];
-      const uint32_t* ado = dof[kk];
-#pragma unroll
-      for (int j = 0; j < BM / 8; j += 2) {
-        uint32_t b[4];
-        frag_bt2(b, cK + (j * 8) * LD + kk * 16, LD, lane);
-        mma(s[j], aq, b);
-        mma(s[j + 1], aq, b + 2);
-        frag_bt2(b, cV + (j * 8) * LD + kk * 16, LD, lane);
-        mma(dp[j], ado, b);
-        mma(dp[j + 1], ado, b + 2);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
+    for (int n = 0; n < KT / 8; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(bs + 8 * n + 2 * L.tq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = j * 8 + 2 * t + (e & 1);
-        const float x = (k0 + col < N) ? s[j][e] * sl2 + cB[col] : NEG_INF;
-        const float pe = exp2f(x - lse2[r]);
-        float d = dp[j][e];
-        if (drop) {
-          const uint32_t qpos = (uint32_t)(q0 + row0 + 8 * r);
-          d = keep_bit((uint32_t)bh, qpos, (uint32_t)(k0 + col), (uint32_t)p.Np, seed, p.thresh)
-                  ? d * p.inv_keep : 0.f;
-        }
-        s[j][e] = pe * (d - del[r]);  // ds
-      }
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t b[4];
-        frag_b2(b, cK + (kk * 16) * LD + j * 8, LD, lane);
-        mma(acc[j], a, b);
-        mma(acc[j + 1], a, b + 2);
+        const int r = e >> 1, i = 4 * n + e;
+        const float pe = exp2f(fmaf(s[i], sl2, (e & 1) ? b.y : b.x) - lse2[r]);
+        float d = dp[i];
+        if (drop) d = (kw[r][n / 4] >> (8 * (n % 4) + (e & 1))) & 1u ? d * a.inv_keep : 0.f;
+        s[i] = pe * (d - del[r]);  // ds
       }
     }
-    __syncthreads();
+    uint32_t pa[KT / 16][4];
+    pack_a<KT>(pa, s);
+    const bool more = j + 1 < steps;
+    const int next = (j + 1) % STAGES;
+    if (more) mbar_wait(l.full + 8 * next, ((j + 1) / STAGES) & 1);
+    wgmma_fence();
+    product_regs<KT>(dq, pa, ktile);
+    if (more) {
+      const uint32_t nk = l.ring + next * DqSmem::STAGE;
+      product_kmajor<KT>(s, qtile, nk);
+      product_kmajor<KT>(dp, dotile, nk + DqSmem::STAGE / 2);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(s);
+    fence_regs(dp);
+    if (L.t == 0) mbar_arrive(l.empty + 8 * stage);
   }
 
+  const int b = bh / a.H, h = bh - b * a.H;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + 8 * r;
-    if (qi >= N) continue;
-    bf16* row = p.dq + hd.off + (int64_t)qi * hd.rs;
+    const int row = qrow + 8 * r;
+    if (row >= N) continue;
+    bf16* out = a.dq + (((int64_t)b * N + row) * a.H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * r] * p.scale, acc[j][2 * r + 1] * p.scale);
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n + 2 * L.tq) =
+          __floats2bfloat162_rn(dq[4 * n + 2 * r] * a.scale, dq[4 * n + 2 * r + 1] * a.scale);
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward dk/dv: grid (ceil(N/64), B*H); dk, dv for 64 keys. Each warp holds
-// S^T for its 16 keys (S^T = K Q^T), so dV = P^T dO and dK = dS^T Q take the
-// transposed probabilities straight from its accumulators.
+// backward dk/dv: grid (ceil(N/128), B*H); dk, dv for 128 keys. Each consumer
+// holds S^T for its 64 keys (S^T = K Q^T), so dV = P^T dO and dK = dS^T Q
+// take the transposed probabilities straight from its accumulators.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT) flash_dkv_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + TILE;
-  bf16* sQ = sV + TILE;        // two buffers
-  bf16* sDO = sQ + 2 * TILE;   // two buffers
-  float* sLse = reinterpret_cast<float*>(sDO + 2 * TILE);  // two buffers
-  float* sDel = sLse + 2 * BM;                              // two buffers
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * BM, N = p.N;
-  const Head hd(p, bh);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int row0 = warp * 16 + (lane >> 2);  // key row (tile-local) of elements 0,1
-  const bool drop = p.seed != nullptr;
-  const uint32_t seed = drop ? (uint32_t)p.seed[0] : 0u;
-  const float* lse_row = p.lse_in + (int64_t)bh * N;
-  const float* del_row = p.delta + (int64_t)bh * N;
-  const float sl2 = p.scale * LOG2E;
-  const int nq = (N + BM - 1) / BM;
+// Side data of a step over QT queries (dk/dv): lse times log2(e) (+1e30 past
+// N, so that p is exactly 0 there), delta, and the keep words of the CTA's
+// 128 keys, [4][QT] (word w of query i at [w][i]).
+constexpr int DKV_QT = 64;                // queries a step of dk/dv
+constexpr int DKV_STAGES = 512 / DKV_QT;  // every tile of N <= 512 in flight
+struct QuerySide {
+  static constexpr int BYTES = DKV_QT * 4 * 2 + 4 * DKV_QT * 4;
+};
+typedef Smem<2, DKV_QT, DKV_STAGES, QuerySide::BYTES> DkvSmem;  // own K, V
 
-  load_tile(sK, p.k + hd.off, k0, N, hd.rs);
-  load_tile(sV, p.v + hd.off, k0, N, hd.rs);
-  load_tile(sQ, p.q + hd.off, 0, N, hd.rs);
-  load_tile(sDO, p.dout + hd.off, 0, N, hd.rs);
-  load_vec(sLse, lse_row, 0, N, LOG2E, 0.f);
-  load_vec(sDel, del_row, 0, N, 1.f, 0.f);
-  cp_async_commit();
-  float kbias[2];
+__device__ __forceinline__ void dkv_side(const FlashArgs& a, const Layout& l, int bh, int k0,
+                                         int steps, int h) {
+  constexpr int QT = DKV_QT, STAGES = DKV_STAGES, U = SIDE_BATCH;
+  static_assert(QT <= BWD_HELPERS, "one query a helper a step");
+  const int N = a.N, W = a.Np / 32;
+  const bool drop = a.seed != nullptr;
+  for (int j0 = 0; j0 < steps; j0 += U) {
+    float lv[U], dv[U];
+    uint4 kw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = (j0 + u) * QT + h;
+      const bool in = j0 + u < steps && h < QT && q < N;
+      const int64_t at = (int64_t)bh * N + q;
+      lv[u] = in ? a.lse_in[at] * LOG2E : POS_INF;
+      dv[u] = in ? a.delta[at] : 0.f;
+      kw[u] = in && drop ? *reinterpret_cast<const uint4*>(a.bits + at * W + k0 / 32)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u, stage = j % STAGES;
+      if (j >= steps) break;
+      mbar_wait(l.empty + 8 * stage, ((j / STAGES) & 1) ^ 1);
+      float* ls = reinterpret_cast<float*>(l.side + stage * QuerySide::BYTES);
+      float* dl = ls + QT;
+      uint32_t* sw = reinterpret_cast<uint32_t*>(dl + QT);
+      if (h < QT) {
+        ls[h] = lv[u];
+        dl[h] = dv[u];
+        sw[h] = kw[u].x;
+        sw[QT + h] = kw[u].y;
+        sw[2 * QT + h] = kw[u].z;
+        sw[3 * QT + h] = kw[u].w;
+      }
+      mbar_arrive(l.side_full + 8 * stage);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BWD_NT, 1) k2_bwd_dkv_kernel(const __grid_constant__ FlashArgs a) {
+  constexpr int QT = DKV_QT, STAGES = DKV_STAGES;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Layout l = layout<2, QT, STAGES, QuerySide::BYTES>(smem_raw);
+  const int bh = blockIdx.y, k0 = blockIdx.x * 128, N = a.N;
+  const int steps = cdiv(N, QT);
+  const int active = min(2, cdiv(N - k0, ROWS));
+  init_barriers<STAGES, BWD_HELPERS>(l, active);
+  if (threadIdx.x < 128) {
+    producer_regs<BWD_HELPER_REGS>();
+    if (threadIdx.x == 0)
+      produce<QT, STAGES, 2>(l, &a.mk, &a.mv, &a.mv, k0, active, &a.mq, &a.mdo, steps, bh, a.H);
+    else if (threadIdx.x >= 32)
+      dkv_side(a, l, bh, k0, steps, threadIdx.x - 32);
+    return;
+  }
+  consumer_regs<BWD_CONSUMER_REGS>();
+  const int c = threadIdx.x / 128 - 1;
+  if (c >= active) return;
+
+  const Lane L;
+  const uint32_t ktile = l.owned + 2 * c * TILE, vtile = ktile + TILE;
+  const bool drop = a.seed != nullptr;
+  const int krow = k0 + ROWS * c + L.r0;  // key of d[.. 0, 1]; + 8 for d[.. 2, 3]
+  const float sl2 = a.scale * LOG2E;
+  float kb2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + row0 + 8 * r;
-    // keys >= N at -1e30 (base 2)
-    kbias[r] = key >= N ? NEG_INF
-                        : (p.bias != nullptr ? p.bias[(int64_t)bh * N + key] * LOG2E : 0.f);
+    const int key = krow + 8 * r;  // keys >= N at -1e30 (base 2)
+    kb2[r] = key >= N ? NEG_INF : (a.bias != nullptr ? a.bias[(int64_t)bh * N + key] * LOG2E : 0.f);
   }
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  uint32_t kf[KS][4], vf[KS][4];
+  // this thread's keys are bits sh and sh + 8 of word 2c + warp / 2
+  const int sh = 16 * (L.warp & 1) + (L.lane >> 2), word = 2 * c + (L.warp >> 1);
 
-  for (int it = 0; it < nq; ++it) {
-    const int buf = it & 1, q0 = it * BM;
-    if (it + 1 < nq) {
-      const int nb = buf ^ 1, q1 = q0 + BM;
-      load_tile(sQ + nb * TILE, p.q + hd.off, q1, N, hd.rs);
-      load_tile(sDO + nb * TILE, p.dout + hd.off, q1, N, hd.rs);
-      load_vec(sLse + nb * BM, lse_row, q1, N, LOG2E, 0.f);
-      load_vec(sDel + nb * BM, del_row, q1, N, 1.f, 0.f);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* cQ = sQ + buf * TILE;
-    const bf16* cDO = sDO + buf * TILE;
-    const float* cL = sLse + buf * BM;
-    const float* cD = sDel + buf * BM;
-    if (it == 0) {
+  float dk[32], dv[32], st[QT / 2], dpt[QT / 2];
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        frag_a(kf[kk], sK + (warp * 16) * LD + kk * 16, LD, lane);
-        frag_a(vf[kk], sV + (warp * 16) * LD + kk * 16, LD, lane);
-      }
-    }
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(l.own_bar, 0);
+  mbar_wait(l.full, 0);
+  wgmma_fence();
+  product_kmajor<QT>(st, ktile, l.ring);
+  product_kmajor<QT>(dpt, vtile, l.ring + DkvSmem::STAGE / 2);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
 
-    float st[BM / 8][4], dpt[BM / 8][4];
+  // step j: st, dpt hold S^T_j, dP^T_j; dV_j and dK_j are issued with
+  // S^T_{j+1}, dP^T_{j+1}
+  for (int j = 0; j < steps; ++j) {
+    const int stage = j % STAGES;
+    const uint32_t qtile = l.ring + stage * DkvSmem::STAGE, dotile = qtile + DkvSmem::STAGE / 2;
+    const float* ls = reinterpret_cast<const float*>(l.side + stage * QuerySide::BYTES);
+    const float* dl = ls + QT;
+    const uint32_t* wrow = reinterpret_cast<const uint32_t*>(dl + QT) + word * QT;
+    mbar_wait(l.side_full + 8 * stage, (j / STAGES) & 1);
 #pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t* ak = kf[kk];
-      const uint32_t* av = vf[kk];
-#pragma unroll
-      for (int j = 0; j < BM / 8; j += 2) {
-        uint32_t b[4];
-        frag_bt2(b, cQ + (j * 8) * LD + kk * 16, LD, lane);
-        mma(st[j], ak, b);
-        mma(st[j + 1], ak, b + 2);
-        frag_bt2(b, cDO + (j * 8) * LD + kk * 16, LD, lane);
-        mma(dpt[j], av, b);
-        mma(dpt[j + 1], av, b + 2);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j)
+    for (int n = 0; n < QT / 8; ++n) {
+      const int col = 8 * n + 2 * L.tq;
+      const float2 lq = *reinterpret_cast<const float2*>(ls + col);
+      const float2 dq = *reinterpret_cast<const float2*>(dl + col);
+      const uint2 wq = *reinterpret_cast<const uint2*>(wrow + col);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = j * 8 + 2 * t + (e & 1), qi = q0 + col;
-        const float pe = qi < N ? exp2f(st[j][e] * sl2 + kbias[r] - cL[col]) : 0.f;
-        float pv = pe, d = dpt[j][e];
+        const int r = e >> 1, i = 4 * n + e;
+        const float pe = exp2f(fmaf(st[i], sl2, kb2[r]) - ((e & 1) ? lq.y : lq.x));
+        float pv = pe, d = dpt[i];
         if (drop) {
-          const uint32_t kpos = (uint32_t)(k0 + row0 + 8 * r);
-          const bool keep = keep_bit((uint32_t)bh, (uint32_t)qi, kpos, (uint32_t)p.Np, seed,
-                                     p.thresh);
-          pv = keep ? pe * p.inv_keep : 0.f;
-          d = keep ? d * p.inv_keep : 0.f;
+          const bool keep = (((e & 1) ? wq.y : wq.x) >> (sh + 8 * r)) & 1u;
+          pv = keep ? pe * a.inv_keep : 0.f;
+          d = keep ? d * a.inv_keep : 0.f;
         }
-        st[j][e] = pv;                    // P^T (dropped)
-        dpt[j][e] = pe * (d - cD[col]);   // dS^T
-      }
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t ap[4], ads[4];
-      acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
-      acc_to_a(ads, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t b[4];
-        frag_b2(b, cDO + (kk * 16) * LD + j * 8, LD, lane);
-        mma(dv[j], ap, b);
-        mma(dv[j + 1], ap, b + 2);
-        frag_b2(b, cQ + (kk * 16) * LD + j * 8, LD, lane);
-        mma(dk[j], ads, b);
-        mma(dk[j + 1], ads, b + 2);
+        st[i] = pv;                                   // P^T (dropped)
+        dpt[i] = pe * (d - ((e & 1) ? dq.y : dq.x));  // dS^T
       }
     }
-    __syncthreads();
+    uint32_t pa[QT / 16][4], da[QT / 16][4];
+    pack_a<QT>(pa, st);
+    pack_a<QT>(da, dpt);
+    const bool more = j + 1 < steps;
+    const int next = (j + 1) % STAGES;
+    if (more) mbar_wait(l.full + 8 * next, ((j + 1) / STAGES) & 1);
+    wgmma_fence();
+    product_regs<QT>(dv, pa, dotile);
+    product_regs<QT>(dk, da, qtile);
+    if (more) {
+      const uint32_t nq = l.ring + next * DkvSmem::STAGE;
+      product_kmajor<QT>(st, ktile, nq);
+      product_kmajor<QT>(dpt, vtile, nq + DkvSmem::STAGE / 2);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(st);
+    fence_regs(dpt);
+    if (L.t == 0) mbar_arrive(l.empty + 8 * stage);
   }
 
+  const int b = bh / a.H, h = bh - b * a.H;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + row0 + 8 * r;
+    const int key = krow + 8 * r;
     if (key >= N) continue;
-    bf16* krow = p.dk + hd.off + (int64_t)key * hd.rs;
-    bf16* vrow = p.dv + hd.off + (int64_t)key * hd.rs;
+    const int64_t off = (((int64_t)b * N + key) * a.H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(krow + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(vrow + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(a.dk + off + 8 * n + 2 * L.tq) =
+          __floats2bfloat162_rn(dk[4 * n + 2 * r] * a.scale, dk[4 * n + 2 * r + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(a.dv + off + 8 * n + 2 * L.tq) =
+          __floats2bfloat162_rn(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
     }
   }
 }
 
-template <typename K>
-cudaError_t launch(K kernel, size_t smem, const Params& p, int B, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// TMA map of a [B, N, H, 64] bf16 tensor in boxes of 64 rows of one head,
+// 128-byte swizzle; rows past N read as zeros.
+bool make_head_map(CUtensorMap* m, const void* ptr, int B, int N, int H) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2,
+                                 (cuuint64_t)N * H * HD * 2};
+  const cuuint32_t box[4] = {HD, 1, ROWS, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The shared-memory limit is set once per kernel (slot) and device: a host
+// call per launch costs the host-bound steps that run these kernels.
+template <int SLOT>
+cudaError_t launch(void (*kernel)(FlashArgs), int threads, int smem, int B, const FlashArgs& a,
+                   cudaStream_t stream) {
+  static uint64_t ready = 0;  // bit d: set on device d
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((p.N + BM - 1) / BM, B * p.H), NT, smem, stream>>>(p);
+  if (dev >= 64 || !(ready >> dev & 1)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) ready |= uint64_t(1) << dev;
+  }
+  kernel<<<dim3(cdiv(a.N, 128), B * a.H), threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-Params make_params(const void* q, const void* k, const void* v, const void* bias,
-                   const void* seed, int N, int H, int Np, float scale, uint32_t thresh,
-                   float inv_keep) {
-  Params p = {};
-  p.q = (const bf16*)q;
-  p.k = (const bf16*)k;
-  p.v = (const bf16*)v;
-  p.bias = (const float*)bias;
-  p.seed = (const int*)seed;
-  p.N = N;
-  p.H = H;
-  p.Np = Np;
-  p.scale = scale;
-  p.thresh = thresh;
-  p.inv_keep = inv_keep;
-  return p;
+bool fill_args(FlashArgs* a, const void* q, const void* k, const void* v, const void* bias,
+               const void* seed, int B, int N, int H, int Np, float scale, uint32_t thresh,
+               float inv_keep) {
+  a->bias = (const float*)bias;
+  a->seed = (const int*)seed;
+  a->N = N;
+  a->H = H;
+  a->Np = Np;
+  a->scale = scale;
+  a->thresh = thresh;
+  a->inv_keep = inv_keep;
+  return make_head_map(&a->mq, q, B, N, H) && make_head_map(&a->mk, k, B, N, H) &&
+         make_head_map(&a->mv, v, B, N, H);
+}
+
+bool bad_shape(int B, int N, int H, int d, int Np) {
+  return B <= 0 || N <= 0 || H <= 0 || d != HD || Np < N || Np % 128 != 0;
 }
 
 }  // namespace
@@ -656,36 +928,46 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
 extern "C" {
 
 // The head dim the kernels are built for.
-int srt_flash_head_dim() { return D; }
+int srt_flash_head_dim() { return HD; }
 
-// out [B,N,H,D] bf16, lse [B*H,N] f32. bias / seed may be null.
+// out [B,N,H,D] bf16, lse [B*H,N] f32. bias / seed may be null; with a seed,
+// bits [B*H, N, Np/32] receives the keep bits when not null.
 int srt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, const void* seed,
-                  void* out, void* lse, int B, int N, int H, int d, int Np, float scale,
-                  unsigned int thresh, float inv_keep, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || d != D) return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, bias, seed, N, H, Np, scale, thresh, inv_keep);
-  p.out = (bf16*)out;
-  p.lse = (float*)lse;
-  return (int)launch(flash_fwd_kernel, SMEM_FWD, p, B, (cudaStream_t)stream);
+                  void* out, void* lse, void* bits, int B, int N, int H, int d, int Np,
+                  float scale, unsigned int thresh, float inv_keep, void* stream) {
+  if (bad_shape(B, N, H, d, Np)) return kBadArgs;
+  if (!bind_context()) return (int)cudaGetLastError();
+  FlashArgs a = {};
+  if (!fill_args(&a, q, k, v, bias, seed, B, N, H, Np, scale, thresh, inv_keep)) return kBadMap;
+  a.out = (bf16*)out;
+  a.lse = (float*)lse;
+  a.bits = seed != nullptr ? (uint32_t*)bits : nullptr;
+  return (int)launch<0>(k2_fwd_kernel, FWD_NT, FwdSmem::BYTES, B, a, (cudaStream_t)stream);
 }
 
-// dq, dk, dv [B,N,H,D] bf16 from dout [B,N,H,D], lse and delta [B*H,N] f32.
+// dq, dk, dv [B,N,H,D] bf16 from dout, out [B,N,H,D] and lse [B*H,N] f32;
+// delta [B*H,N] f32 is scratch (dq writes it, dk/dv reads it). With a seed,
+// bits [B*H, N, Np/32] (the forward's) are required.
 int srt_flash_bwd(const void* q, const void* k, const void* v, const void* bias, const void* seed,
-                  const void* dout, const void* lse, const void* delta, void* dq, void* dk,
-                  void* dv, int B, int N, int H, int d, int Np, float scale, unsigned int thresh,
-                  float inv_keep, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || d != D) return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, bias, seed, N, H, Np, scale, thresh, inv_keep);
-  p.dout = (const bf16*)dout;
-  p.lse_in = (const float*)lse;
-  p.delta = (const float*)delta;
-  p.dq = (bf16*)dq;
-  p.dk = (bf16*)dk;
-  p.dv = (bf16*)dv;
+                  const void* dout, const void* lse, const void* out, const void* bits,
+                  void* delta, void* dq, void* dk, void* dv, int B, int N, int H, int d, int Np,
+                  float scale, unsigned int thresh, float inv_keep, void* stream) {
+  if (bad_shape(B, N, H, d, Np) || (seed != nullptr && bits == nullptr)) return kBadArgs;
+  if (!bind_context()) return (int)cudaGetLastError();
+  FlashArgs a = {};
+  if (!fill_args(&a, q, k, v, bias, seed, B, N, H, Np, scale, thresh, inv_keep) ||
+      !make_head_map(&a.mo, out, B, N, H) || !make_head_map(&a.mdo, dout, B, N, H))
+    return kBadMap;
+  a.lse_in = (const float*)lse;
+  a.bits = (uint32_t*)bits;
+  a.delta = (float*)delta;
+  a.dq = (bf16*)dq;
+  a.dk = (bf16*)dk;
+  a.dv = (bf16*)dv;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = launch(flash_dq_kernel, SMEM_DQ, p, B, s);
+  cudaError_t e = launch<1>(k2_bwd_dq_kernel, BWD_NT, DqSmem::BYTES, B, a, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch(flash_dkv_kernel, SMEM_DKV, p, B, s);
+  return (int)launch<2>(k2_bwd_dkv_kernel, BWD_NT, DkvSmem::BYTES, B, a, s);
 }
 
 }  // extern "C"

@@ -7,9 +7,13 @@ mask) and dropout on the attention probabilities, and returns
 ``[B, N, H, d]``. The bias and the seed get no gradient.
 
 On a CUDA tensor the forward and the backward run the hand-written Hopper
-kernels of ``csrc/flash_attention.cu`` (forward; dq; dk/dv; bf16, head dim
-64, that of every net of the port), which keep the ``[B, H, N, N]`` scores
-out of device memory and regenerate the dropout mask from a counter hash. On a CPU tensor they run the plain PyTorch version
+kernels of ``csrc/flash_attention.cu`` (forward; dq; dk/dv; wgmma with TMA
+loads, bf16, head dim 64, that of every net of the port), which keep the
+``[B, H, N, N]`` scores out of device memory. The forward hashes the dropout
+mask; under autograd it also writes the keep bits it drew
+(:func:`pack_keep_bits`'s layout), which the backward kernels read instead of
+hashing again, and the dq kernel computes ``delta = rowsum(dO * O)`` itself.
+On a CPU tensor they run the plain PyTorch version
 below, which does the JAX kernels' arithmetic: f32 products, ``q * scale``
 before ``q k^T`` in the forward and ``* scale`` after it in the backward, the
 row max / sum / ``lse = m + log(l)`` of the online softmax, ``delta =
@@ -35,6 +39,7 @@ mesh (ROADMAP: K4); :func:`attention_keep_mask` already takes them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -110,6 +115,22 @@ def attention_keep_mask(seed, BH: int, N: int, np_pad: int, thresh: int,
     return _keep_bits(counter, seed_u) < thresh
 
 
+def pack_keep_bits(keep):
+    """The keep mask ``[BH, N, N]`` (bool) in the layout the kernels write
+    and read: int32 words ``[BH, N, Np // 32]`` (``Np = padded_len(N)``), bit
+    ``k % 32`` of word ``k // 32`` of row ``q`` is ``keep[bh, q, k]``, and the
+    bits of keys ``>= N`` are 0. A row spans ``Np`` keys so that every key
+    tile of a kernel (64 or 128 keys) lies inside it."""
+    BH, N, _ = keep.shape
+    np_pad = padded_len(N)
+    padded = torch.zeros(BH, N, np_pad, dtype=torch.int64, device=keep.device)
+    padded[..., :N] = keep
+    shifts = torch.arange(32, dtype=torch.int64, device=keep.device)
+    words = (padded.view(BH, N, np_pad // 32, 32) << shifts).sum(-1)
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
+                       words).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version (CPU path, and the reference the kernels are held to)
 # ---------------------------------------------------------------------------
@@ -169,7 +190,8 @@ def plain_bwd(q, k, v, bias, seed, rate, dout, lse, delta):
 
 def delta_of(dout, out):
     """rowsum(dO * O) in f32, ``[B*H, N]`` (a torch reduction, as JAX
-    computes it outside its kernels)."""
+    computes it outside its kernels; on the card the dq kernel computes
+    it)."""
     B, N, H, _ = out.shape
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(
         B * H, N).contiguous()
@@ -184,11 +206,13 @@ def _lib():
     if not getattr(lib, "_srt_typed", False):
         p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                       ctypes.c_float)
-        tail = [i, i, i, i, i, f, u, f, p]
-        lib.srt_flash_fwd.argtypes = [p] * 7 + tail
+        tail = [i, i, i, i, i, f, u, f]
+        lib.srt_flash_fwd.argtypes = [p] * 8 + tail + [p]
         lib.srt_flash_fwd.restype = i
-        lib.srt_flash_bwd.argtypes = [p] * 11 + tail
+        lib.srt_flash_bwd.argtypes = [p] * 13 + tail + [p]
         lib.srt_flash_bwd.restype = i
+        lib.srt_flash_head_dim.restype = i
+        lib._srt_head_dim = lib.srt_flash_head_dim()
         lib._srt_typed = True
     return lib
 
@@ -209,15 +233,17 @@ def _check(name, t, shape, dtype):
 
 
 def _check_args(q, k, v, bias, seed):
+    """-> (library, B, N, H, d) after checking what every kernel takes."""
     B, N, H, d = q.shape
     if not q.is_cuda:
         raise ValueError(f"flash_attention: q is on {q.device}, expected CUDA")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention: the CUDA kernels take bfloat16, "
                          f"got {q.dtype}")
-    if d != _lib().srt_flash_head_dim():
+    lib = _lib()
+    if d != lib._srt_head_dim:
         raise ValueError(f"flash_attention: the CUDA kernels take head dim "
-                         f"{_lib().srt_flash_head_dim()}, got d={d}")
+                         f"{lib._srt_head_dim}, got d={d}")
     if B * H > 65535:
         raise ValueError(f"flash_attention: B*H = {B * H} exceeds the grid")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -226,52 +252,80 @@ def _check_args(q, k, v, bias, seed):
         _check("bias", bias, (B * H, N), torch.float32)
     if seed is not None:
         _check("seed", seed, (1,), torch.int32)
-    return B, N, H, d
+    return lib, B, N, H, d
 
 
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _tail(B, N, H, d, rate, q):
+@functools.lru_cache(maxsize=64)
+def _shape_args(B, N, H, d, rate):
     thresh = keep_threshold(rate) if rate else 0
     inv = 1.0 / (1.0 - rate) if rate else 1.0
-    return [B, N, H, d, padded_len(N), 1.0 / math.sqrt(d), thresh, inv,
-            torch.cuda.current_stream(q.device).cuda_stream]
+    return (B, N, H, d, padded_len(N), 1.0 / math.sqrt(d), thresh, inv)
+
+
+def _stream(t):
+    """The raw handle of the current stream on ``t``'s device: the query
+    PyTorch's own compiled code launches with. ``torch.cuda.current_stream``
+    builds a Stream object a call, host time that the host-bound steps
+    running these kernels pay."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _raise_if(err, what):
     if err != 0:
-        raise RuntimeError(f"flash_attention: {what} launch failed with CUDA "
-                           f"error {err}")
+        why = {-1: "arguments the kernels do not take",
+               -2: "cuTensorMapEncodeTiled missing or refused"}.get(
+                   err, f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention: {what} launch failed: {why}")
 
 
-def kernel_fwd(q, k, v, bias=None, seed=None, rate: float = 0.0):
-    """The forward kernel: -> (out [B, N, H, d] bf16, lse [B*H, N] f32)."""
-    B, N, H, d = _check_args(q, k, v, bias, seed)
+def kernel_fwd(q, k, v, bias=None, seed=None, rate: float = 0.0,
+               keep_bits: bool = False):
+    """The forward kernel: -> (out [B, N, H, d] bf16, lse [B*H, N] f32,
+    bits). With dropout and ``keep_bits`` the kernel also writes the keep
+    bits it drew (``[B*H, N, Np // 32]`` int32, :func:`pack_keep_bits`'s
+    layout) for the backward; else ``bits`` is None."""
+    lib, B, N, H, d = _check_args(q, k, v, bias, seed)
+    dev = q.device
     out = torch.empty_like(q)
-    lse = torch.empty(B * H, N, device=q.device, dtype=torch.float32)
-    err = _lib().srt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               _ptr(bias), _ptr(seed) if rate else None,
-                               out.data_ptr(), lse.data_ptr(),
-                               *_tail(B, N, H, d, rate, q))
+    lse = torch.empty(B * H, N, device=dev, dtype=torch.float32)
+    bits = (torch.empty(B * H, N, padded_len(N) // 32, device=dev,
+                        dtype=torch.int32) if rate and keep_bits else None)
+    err = lib.srt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            _ptr(bias), _ptr(seed) if rate else None,
+                            out.data_ptr(), lse.data_ptr(), _ptr(bits),
+                            *_shape_args(B, N, H, d, rate), _stream(q))
     _raise_if(err, "forward")
     launches["flash_attention_fwd"] += 1
-    return out, lse
+    return out, lse, bits
 
 
-def kernel_bwd(q, k, v, bias, seed, rate, dout, lse, delta):
-    """The dq and dk/dv kernels: -> (dq, dk, dv) bf16."""
-    B, N, H, d = _check_args(q, k, v, bias, seed)
+def kernel_bwd(q, k, v, bias, seed, rate, dout, lse, out, bits):
+    """The dq and dk/dv kernels: -> (dq, dk, dv) bf16. ``out`` is the
+    forward's output (the dq kernel computes ``delta = rowsum(dout * out)``
+    from it); under dropout ``bits`` are the forward's keep bits."""
+    lib, B, N, H, d = _check_args(q, k, v, bias, seed)
     _check("dout", dout, (B, N, H, d), torch.bfloat16)
     _check("lse", lse, (B * H, N), torch.float32)
-    _check("delta", delta, (B * H, N), torch.float32)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    err = _lib().srt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               _ptr(bias), _ptr(seed) if rate else None,
-                               dout.data_ptr(), lse.data_ptr(),
-                               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                               dv.data_ptr(), *_tail(B, N, H, d, rate, q))
+    _check("out", out, (B, N, H, d), torch.bfloat16)
+    if rate:
+        if bits is None:
+            raise ValueError("flash_attention: the backward under dropout "
+                             "reads the forward's keep bits; got none")
+        _check("bits", bits, (B * H, N, padded_len(N) // 32), torch.int32)
+    grads = torch.empty((3,) + tuple(q.shape), device=q.device,
+                        dtype=q.dtype)
+    delta = torch.empty(B * H, N, device=q.device, dtype=torch.float32)
+    dq, dk, dv = grads.unbind(0)
+    err = lib.srt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            _ptr(bias), _ptr(seed) if rate else None,
+                            dout.data_ptr(), lse.data_ptr(), out.data_ptr(),
+                            _ptr(bits) if rate else None, delta.data_ptr(),
+                            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            *_shape_args(B, N, H, d, rate), _stream(q))
     _raise_if(err, "backward")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -279,21 +333,26 @@ def kernel_bwd(q, k, v, bias, seed, rate, dout, lse, delta):
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, rate):
-        fwd = plain_fwd if q.device.type == "cpu" else kernel_fwd
-        out, lse = fwd(q, k, v, bias, seed, rate)
-        ctx.save_for_backward(q, k, v, bias, seed, out, lse)
+    def forward(ctx, q, k, v, bias, seed, rate, keep_bits):
+        if q.device.type == "cpu":
+            (out, lse), bits = plain_fwd(q, k, v, bias, seed, rate), None
+        else:
+            out, lse, bits = kernel_fwd(q, k, v, bias, seed, rate, keep_bits)
+        ctx.save_for_backward(q, k, v, bias, seed, out, lse, bits)
         ctx.rate = rate
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, seed, out, lse = ctx.saved_tensors
+        q, k, v, bias, seed, out, lse, bits = ctx.saved_tensors
         dout = dout.to(q.dtype).contiguous()
-        bwd = plain_bwd if q.device.type == "cpu" else kernel_bwd
-        dq, dk, dv = bwd(q, k, v, bias, seed, ctx.rate, dout, lse,
-                         delta_of(dout, out))
-        return dq, dk, dv, None, None, None
+        if q.device.type == "cpu":
+            dq, dk, dv = plain_bwd(q, k, v, bias, seed, ctx.rate, dout, lse,
+                                   delta_of(dout, out))
+        else:
+            dq, dk, dv = kernel_bwd(q, k, v, bias, seed, ctx.rate, dout, lse,
+                                    out, bits)
+        return dq, dk, dv, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -331,5 +390,8 @@ def flash_attention(q, k, v, bias=None, dropout_rate: float = 0.0,
         raise ValueError(f"flash_attention: no path for device {q.device}")
     key_bias = None if bias is None else _key_bias_of(bias, B, H, N)
     seed = _seed_tensor(dropout_seed, q.device) if rate else None
+    # the backward's keep bits, only where a backward can follow
+    keep_bits = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                        key_bias, seed, rate)
+                        key_bias, seed, rate, keep_bits)

@@ -72,12 +72,12 @@ def _group(name: str) -> str:
     # (a template's name carries its return type, a plain function's not)
     ours = n.startswith(("void (anonymous namespace)::",
                          "(anonymous namespace)::"))
-    if ours and "flash_fwd_kernel" in n:
+    # K1's, K2's and K3's kernels by their k1_ / k2_ / k3_ prefix, before
+    # any gemm match
+    if ours and "::k2_fwd_" in n:
         return "flash_attention_fwd"
-    if ours and ("flash_dq_kernel" in n or "flash_dkv_kernel" in n):
+    if ours and "::k2_bwd_" in n:
         return "flash_attention_bwd"
-    # K1's and K3's GEMMs are wgmma kernels by their k1_ / k3_ prefix,
-    # before any gemm match
     if ours and "::k3_fwd_" in n:
         return "fused_mlp_blocked_fwd"
     if ours and "::k3_bwd_" in n:

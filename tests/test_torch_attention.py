@@ -3,13 +3,17 @@ against the JAX package's Pallas kernels, run in interpret mode on the CPU
 (``flash_attention(..., interpret=True, force=True)``), on the same inputs.
 
 - The dropout keep mask is bit-equal to ``attention_keep_mask``, at a ragged
-  N (Np = 256 for N = 200) and with ``bh_offset`` / ``local_heads``.
+  N (Np = 256 for N = 200) and with ``bh_offset`` / ``local_heads``; so is
+  the mask packed into the kernels' keep words (``pack_keep_bits``) and
+  unpacked again.
 - The plain forward and the gradients through the port's autograd Function
   (its plain backward on the CPU) match ``jax.vjp`` of the interpret-mode
   kernels: f32 inputs within 1e-5 of max|JAX| (f32 sums in another order);
   bf16 inputs within 1% of max|JAX| (one bf16 rounding of the output, 0.4%,
   with room for the order of the f32 sums before it).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,26 +27,56 @@ from semireward_tpu_torch.ops import attention as TA
 B, H, D = 2, 2, 64
 
 
-@pytest.mark.parametrize("seed,BH,N,rate,off,hl,st", [
+_MASK_CASES = [
     (1234, 4, 200, 0.1, 0, None, None),       # ragged: Np = 256
     (77, 6, 128, 0.1, 10, None, None),        # bh_offset
     (-5, 8, 136, 0.3, 4, 2, 6),               # head-sharded decomposition
     (2 ** 31 - 1, 3, 64, 0.5, 0, 3, None),    # local_heads, default stride
     (9, 3, 120, 0.1, 2 ** 18 - 1, None, None),  # counter wraps past 2**32
-])
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_keep_mask(seed, BH, N, rate, off, hl, st):
+    """The JAX package's keep mask of one case (numpy bool [BH, N, N]),
+    computed once for the tests that read it."""
+    np_pad = JA._BQ * -(-N // JA._BQ)
+    return np.asarray(jax.jit(lambda s, o: JA.attention_keep_mask(
+        s, BH, N, np_pad, JA.keep_threshold(rate), bh_offset=o,
+        local_heads=hl, head_stride=st))(seed, off))
+
+
+@pytest.mark.parametrize("seed,BH,N,rate,off,hl,st", _MASK_CASES)
 def test_keep_mask_is_bit_equal(seed, BH, N, rate, off, hl, st):
     np_pad = JA._BQ * -(-N // JA._BQ)
     assert TA.padded_len(N) == np_pad
     thresh = JA.keep_threshold(rate)
     assert TA.keep_threshold(rate) == thresh
-    want = np.asarray(jax.jit(lambda s, o: JA.attention_keep_mask(
-        s, BH, N, np_pad, thresh, bh_offset=o, local_heads=hl,
-        head_stride=st))(seed, off))
+    want = _jax_keep_mask(seed, BH, N, rate, off, hl, st)
     got = TA.attention_keep_mask(torch.tensor(seed, dtype=torch.int32), BH,
                                  N, np_pad, thresh, bh_offset=off,
                                  local_heads=hl, head_stride=st)
     np.testing.assert_array_equal(got.numpy(), want)
     assert abs(want.mean() - (1.0 - rate)) < 0.01
+
+
+@pytest.mark.parametrize("seed,BH,N,rate,off,hl,st", _MASK_CASES)
+def test_packed_keep_bits_are_bit_equal(seed, BH, N, rate, off, hl, st):
+    """pack_keep_bits: [BH, N, Np / 32] int32 words, bit k % 32 of word
+    k // 32 is keep[q, k], the bits of keys >= N are 0; unpacked, the port's
+    mask equals the JAX package's attention_keep_mask bit for bit."""
+    np_pad = TA.padded_len(N)
+    want = _jax_keep_mask(seed, BH, N, rate, off, hl, st)
+    bits = TA.pack_keep_bits(TA.attention_keep_mask(
+        torch.tensor(seed, dtype=torch.int32), BH, N, np_pad,
+        TA.keep_threshold(rate), bh_offset=off, local_heads=hl,
+        head_stride=st))
+    assert bits.dtype == torch.int32 and bits.shape == (BH, N, np_pad // 32)
+    words = bits.numpy().view(np.uint32)
+    unpacked = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    unpacked = unpacked.reshape(BH, N, np_pad).astype(bool)
+    np.testing.assert_array_equal(unpacked[..., :N], want)
+    assert not unpacked[..., N:].any()
 
 
 def _inputs(N, dtype, seed=0):
@@ -149,3 +183,27 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 64, 1, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="expected CUDA"):
         TA.kernel_fwd(x, x, x)
+    lse = torch.zeros(1, 64)
+    bits = torch.zeros(1, 64, 4, dtype=torch.int32)
+    seed = torch.tensor([3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        TA.kernel_bwd(x, x, x, None, None, 0.0, x, lse, x, None)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        TA.kernel_bwd(x, x, x, None, seed, 0.1, x, lse, x, bits)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        TA.kernel_fwd(x, x, x, None, seed, 0.1, keep_bits=True)
+
+
+def test_profile_groups_the_k2_kernels_by_name():
+    """profile_step files K2's forward and its dq and dk/dv kernels under
+    the flash attention rows, not under "other" or cuBLAS's GEMMs."""
+    from semireward_tpu_torch.profile_step import _group
+
+    for name, group in (
+            ("(anonymous namespace)::k2_fwd_kernel"
+             "((anonymous namespace)::FlashArgs)", "flash_attention_fwd"),
+            ("(anonymous namespace)::k2_bwd_dq_kernel"
+             "((anonymous namespace)::FlashArgs)", "flash_attention_bwd"),
+            ("(anonymous namespace)::k2_bwd_dkv_kernel"
+             "((anonymous namespace)::FlashArgs)", "flash_attention_bwd")):
+        assert _group(name) == group, name

@@ -13,8 +13,9 @@ from semireward_tpu_torch.ops import attention as A
 from semireward_tpu_torch.ops import fused_mlp as F
 
 
-def _close(got, want, rel):
-    scale = float(np.abs(want).max()) + 1e-12
+def _close(got, want, rel, floor=0.0):
+    """max|got - want| <= rel * max(max|want|, floor)."""
+    scale = max(float(np.abs(want).max()), floor) + 1e-12
     np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale)
 
 
@@ -201,44 +202,95 @@ def _attn_inputs(dev, B, N, H, d, pad, seed=0):
     q, k, v, do = (torch.randn(B, N, H, d, generator=g).to(dev, torch.bfloat16)
                    for _ in range(4))
     lens = torch.full((B,), N)
-    lens[0] = N - pad
+    lens[0] = max(N - pad, 1)
     keep = torch.arange(N)[None, :] < lens[:, None]
     bias = torch.where(keep, 0.0, -1e9)[:, None, None, :].to(dev)
     return q, k, v, do, bias
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N", [200, 512, 77, 130])
-@pytest.mark.parametrize("bias,rate", [(False, 0.0), (True, 0.0), (True, 0.1)])
-def test_flash_kernels_match_plain_on_the_card(cuda_device, N, bias, rate):
-    """K2 forward (out, lse) and backward (dq, dk, dv) against the plain
+def _check_flash(dev, B, N, H, bias, rate, pad=37):
+    """K2 forward (out, lse, keep bits) and backward (dq, dk, dv from the
+    forward's bits, delta computed in the dq kernel) against the plain
     version on the same bf16 inputs. The kernels round P, dS and P^T to bf16
     before their products: bf16 outputs within 1% of max|plain|; lse (f32)
-    within 1e-5 of its magnitude."""
-    B, H, d = 2, 3, 64
-    q, k, v, do, kb = _attn_inputs(cuda_device, B, N, H, d, pad=37)
+    within 1e-5 of its magnitude; the bits equal pack_keep_bits of
+    attention_keep_mask. dq and dk sum p * (dp - delta), a difference of two
+    f32 dot products taken in another order than the plain version's; at N
+    1 (a softmax over one key) the plain dq and dk are exactly 0, so their
+    scale floors at 1e-3 of max|plain dv|: f32 rounding of that difference
+    (~1e-7 of |dp|) passes, a wrong gradient does not."""
+    d = 64
+    q, k, v, do, kb = _attn_inputs(dev, B, N, H, d, pad=pad)
     kb = A._key_bias_of(kb, B, H, N) if bias else None
-    seed = torch.tensor([1234], dtype=torch.int32, device=cuda_device)
-    out, lse = A.kernel_fwd(q, k, v, kb, seed, rate)
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    out, lse, bits = A.kernel_fwd(q, k, v, kb, seed, rate, keep_bits=True)
     p_out, p_lse = A.plain_fwd(q, k, v, kb, seed, rate)
-    delta = A.delta_of(do, out)
-    grads = A.kernel_bwd(q, k, v, kb, seed, rate, do, lse, delta)
-    p_grads = A.plain_bwd(q, k, v, kb, seed, rate, do, lse, delta)
+    grads = A.kernel_bwd(q, k, v, kb, seed, rate, do, lse, out, bits)
+    p_grads = A.plain_bwd(q, k, v, kb, seed, rate, do, lse,
+                          A.delta_of(do, out))
     torch.cuda.synchronize()
     _close(out.float().cpu().numpy(), p_out.float().cpu().numpy(), 1e-2)
     _close(lse.cpu().numpy(), p_lse.cpu().numpy(), 1e-5)
+    floor = 1e-3 * float(p_grads[2].float().abs().max())
     for a, b in zip(grads, p_grads):
-        _close(a.float().cpu().numpy(), b.float().cpu().numpy(), 1e-2)
+        _close(a.float().cpu().numpy(), b.float().cpu().numpy(), 1e-2, floor)
+    if rate:
+        want = A.pack_keep_bits(A.attention_keep_mask(
+            seed, B * H, N, A.padded_len(N), A.keep_threshold(rate)))
+        assert torch.equal(bits, want), int((bits != want).sum())
+    else:
+        assert bits is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [200, 512, 77, 130, 1, 63, 65, 127, 129, 1000])
+@pytest.mark.parametrize("bias,rate", [(False, 0.0), (True, 0.0), (True, 0.1)])
+def test_flash_kernels_match_plain_on_the_card(cuda_device, N, bias, rate):
+    """K2 against its plain version at B 2, H 3: ragged N (1, 63, 65, 77,
+    127, 129, 130, 200: partial 64-row tiles, a consumer with no rows), 512
+    and 1000 (the shared-memory rings wrap), without bias, with the key
+    bias, with bias and dropout."""
+    _check_flash(cuda_device, 2, N, 3, bias, rate, pad=min(37, N - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,bias,rate", [
+    (24, 257, 6, False, 0.0),    # ViT-S train
+    (24, 199, 12, False, 0.1),   # HuBERT-base train
+    (12, 512, 12, True, 0.1),    # BERT-base train
+    (12, 512, 12, True, 0.0),    # BERT-base eval (bias only)
+])
+def test_flash_kernels_match_plain_at_the_model_shapes(cuda_device, B, N, H,
+                                                      bias, rate):
+    """K2 against its plain version at the main path's shapes."""
+    _check_flash(cuda_device, B, N, H, bias, rate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,rate", [(512, 0.1), (199, 0.1), (257, 0.0)])
+def test_flash_backward_gives_the_same_bits_twice(cuda_device, N, rate):
+    """dq, dk and dv are bit-equal across two launches (one writer per
+    output, no atomics)."""
+    B, H = 4, 3
+    q, k, v, do, kb = _attn_inputs(cuda_device, B, N, H, 64, pad=40)
+    kb = A._key_bias_of(kb, B, H, N)
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda_device)
+    out, lse, bits = A.kernel_fwd(q, k, v, kb, seed, rate, keep_bits=True)
+    first = A.kernel_bwd(q, k, v, kb, seed, rate, do, lse, out, bits)
+    again = A.kernel_bwd(q, k, v, kb, seed, rate, do, lse, out, bits)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [200, 512])
 def test_flash_dropout_stream_is_bit_exact_on_the_card(cuda_device, N):
-    """The kernel's keep mask read out exactly: q = k = 0 makes every score
-    equal; a key bias of -1e9 outside a window of 64 keys leaves p = 1/64
-    there and exactly 0 elsewhere; v one-hot per window key puts keep[q, key]
-    in output column key - window start. Zero against non-zero is exact, so
-    the mask is compared bit for bit with attention_keep_mask."""
+    """The forward kernel's keep mask read out exactly: q = k = 0 makes
+    every score equal; a key bias of -1e9 outside a window of 64 keys leaves
+    p = 1/64 there and exactly 0 elsewhere; v one-hot per window key puts
+    keep[q, key] in output column key - window start. Zero against non-zero
+    is exact, so the mask is compared bit for bit with
+    attention_keep_mask."""
     B, H, d = 2, 3, 64
     z = torch.zeros(B, N, H, d, device=cuda_device, dtype=torch.bfloat16)
     seed = torch.tensor([20240601], dtype=torch.int32, device=cuda_device)
@@ -252,12 +304,56 @@ def test_flash_dropout_stream_is_bit_exact_on_the_card(cuda_device, N):
         keys = torch.arange(N, device=cuda_device)
         kb = torch.where((keys >= w) & (keys < w + width), 0.0, -1e9)
         kb = kb.expand(B * H, N).contiguous()
-        out, _ = A.kernel_fwd(z, z, v, kb, seed, 0.1)
+        out, _, _ = A.kernel_fwd(z, z, v, kb, seed, 0.1)
         got[:, :, w:w + width] = (out[..., :width] != 0).permute(
             0, 2, 1, 3).reshape(B * H, N, width).cpu()
     torch.cuda.synchronize()
     assert torch.equal(got, want), int((got != want).sum())
     assert abs(want.float().mean().item() - 0.9) < 0.01
+
+
+def _backward_mask_readout(dev, B, N, H, which):
+    """The keep mask as the backward kernels apply it, read out exactly
+    from bits packed by the plain pack_keep_bits. lse = 0 and q.k = 0 make
+    every p = 1; out = 0 makes delta = 0. dq: K one-hot over a 64-key
+    window, V = dO = e0, so dp = 1, ds = keep / keep_prob and dq[q, c] is
+    keep[q, w + c] * scale / keep_prob. dv: K = V = 0, dO one-hot over a
+    64-query window, so dv[key, c] is keep[w + c, key] / keep_prob."""
+    d = 64
+    seed = torch.tensor([424242], dtype=torch.int32, device=dev)
+    keep = A.attention_keep_mask(seed, B * H, N, A.padded_len(N),
+                                 A.keep_threshold(0.1))
+    bits = A.pack_keep_bits(keep)
+    z = torch.zeros(B, N, H, d, device=dev, dtype=torch.bfloat16)
+    lse = torch.zeros(B * H, N, device=dev)
+    e0 = z.clone()
+    e0[..., 0] = 1
+    got = torch.zeros_like(keep)
+    for w in range(0, N, 64):
+        width = min(64, N - w)
+        one_hot = z.clone()
+        one_hot[:, w:w + width, :, :width] = torch.eye(width, device=dev).to(
+            z)[:, None, :]
+        if which == "dq":
+            dq, _, _ = A.kernel_bwd(z, one_hot, e0, None, seed, 0.1, e0, lse,
+                                    z, bits)
+            got[:, :, w:w + width] = (dq[..., :width] != 0).permute(
+                0, 2, 1, 3).reshape(B * H, N, width)
+        else:
+            _, _, dv = A.kernel_bwd(z, z, z, None, seed, 0.1, one_hot, lse,
+                                    z, bits)
+            got[:, w:w + width, :] = (dv[..., :width] != 0).permute(
+                0, 2, 3, 1).reshape(B * H, width, N)
+    torch.cuda.synchronize()
+    assert torch.equal(got, keep), int((got != keep).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [512, 199, 65])
+@pytest.mark.parametrize("which", ["dq", "dv"])
+def test_flash_backward_applies_the_keep_bits_exactly(cuda_device, N, which):
+    """The dq and dk/dv kernels' dropout masks, read out bit for bit."""
+    _backward_mask_readout(cuda_device, 2, N, 3, which)
 
 
 @pytest.mark.cuda
@@ -277,3 +373,8 @@ def test_flash_autograd_uses_the_kernels(cuda_device):
     with pytest.raises(ValueError, match="key-only"):
         A.flash_attention(q, k, v, bias=full)
     assert A.launches["flash_attention_fwd"] == 1
+    with pytest.raises(ValueError, match="keep bits"):
+        A.kernel_bwd(q.detach(), k.detach(), v.detach(), None,
+                     torch.tensor([7], dtype=torch.int32, device=cuda_device),
+                     0.1, do, torch.zeros(4, 128, device=cuda_device),
+                     out.detach(), None)
