@@ -56,6 +56,23 @@
      synthetic ESC-50-layout corpus for ``AUDIO_STEPS`` steps, every MLP
      on K3 and every attention call on K2 (no bias, dropout 0.1; eval too,
      at N 199 >= 128), the strong views' sox effects on the device;
+   - the other SemiReward variants on the ViT-S/2-32 path (K1 and K2):
+     SRFreeMatch (``usb_cv/freematch/freematch_cifar100_200_0.yaml``,
+     ``FREE_STEPS`` steps; its stage-2 remask applies the FreeMatch hook
+     sr_decay(step) times, up to 18,619 at step 11), SRSoftMatch
+     (``usb_cv/softmatch/...``, ``SOFT_STEPS``) and SRPseudoLabel
+     (``usb_cv/pseudolabel/...``, ``PL_STEPS``: two forwards and two
+     backwards per layer per step, K1 at M 8 x 257 = 2056 rows, K2 at B 8),
+     with each algorithm's own state checked (FreeMatch's time_p and
+     p_model moved; SoftMatch's mu and var moved, weights in (0, 1];
+     PseudoLabel's warm-up factor above 0 and util_ratio finite);
+   - classic_cv: WRN-28-2 at the YAMLs' batch 64 + 448 with SGD-nesterov,
+     SRFixMatch (``classic_cv/fixmatch/fixmatch_cifar100_10000_0.yaml``)
+     and SRPseudoLabel (``classic_cv/pseudolabel/...``), ``WRN_STEPS``
+     each, convs and BatchNorm on cuDNN (no Pallas kernel covers this
+     path): the BatchNorm running statistics read before and after each
+     forward of one step move in the lb / concatenated pass and stay put
+     in SRPseudoLabel's unlabeled pass;
 5. prints one ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 Any failed check raises, so the exit code is not 0 and the ``ok`` line is
@@ -81,6 +98,12 @@ NLP_YAML = os.path.join(
     HERE, "config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml")
 AUDIO_YAML = os.path.join(
     HERE, "config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml")
+FREE_YAML, SOFT_YAML, PL_YAML = (os.path.join(
+    HERE, f"config/SemiReward/usb_cv/{a}/{a}_cifar100_200_0.yaml")
+    for a in ("freematch", "softmatch", "pseudolabel"))
+WRN_FIX_YAML, WRN_PL_YAML = (os.path.join(
+    HERE, f"config/SemiReward/classic_cv/{a}/{a}_cifar100_10000_0.yaml")
+    for a in ("fixmatch", "pseudolabel"))
 # H100 SXM published peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -98,6 +121,9 @@ PEAK_BYTES = 3.35e12
 TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 1200, 10, 10, 100
 BERT_STEPS, BERT_LOG_EVERY = 700, 100
 AUDIO_STEPS, AUDIO_LOG_EVERY = 1000, 100
+FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 400, 200, 200, 200
+# the step whose forwards read the BatchNorm statistics before and after
+BN_PROBE_STEP = 5
 
 
 def card_line() -> str:
@@ -165,13 +191,13 @@ def fused_mlp_phase(F):
     largest magnitude is 0.4% of it and sums run in another order: 1% of
     max|plain|. Bias grads are f32 sums of the same terms: 0.1%. The
     kernels line takes K1 at the headline shape and K3 at the HuBERT-base
-    train shape; K1 at the eval and ViT-Ti shapes and K3 at the BERT-base
-    one are printed beside them."""
+    train shape; K1 at the eval, SRPseudoLabel (M 2056) and ViT-Ti shapes
+    and K3 at the BERT-base one are printed beside them."""
     dev = torch.device("cuda")
     results = {}
     for m, c, h in ((100, 128, 256), (6168, 384, 1536), (4112, 384, 1536),
-                    (6168, 192, 768), (100, 768, 3072), (4776, 768, 3072),
-                    (6144, 768, 3072)):
+                    (2056, 384, 1536), (6168, 192, 768), (100, 768, 3072),
+                    (4776, 768, 3072), (6144, 768, 3072)):
         blocked = c == 768
         fwd = F.kernel_blocked_fwd if blocked else F.kernel_fwd
         bwd = F.kernel_blocked_bwd if blocked else F.kernel_bwd
@@ -299,6 +325,9 @@ RAGGED_FLASH_SHAPES = (("ragged", (2, 77, 3, True, 0.1)),
                        ("ragged_130", (3, 130, 2, True, 0.1)),
                        ("ragged_1", (2, 1, 3, True, 0.1)),
                        ("ragged_1000", (2, 1000, 3, True, 0.1)))
+# shapes held against the plain version but not timed: the ViT-S step of
+# SRPseudoLabel, whose forwards take 8 images at a time
+CHECK_ONLY_FLASH_SHAPES = (("vit_srpseudolabel", (8, 257, 6, False, 0.0)),)
 HASH_OPS = 19  # integer instructions a score: two lowbias32, counter, compare
 
 
@@ -323,8 +352,10 @@ def flash_phase(A, model_shapes):
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     bert = model_shapes["bert"]
-    shapes = (RAGGED_FLASH_SHAPES + tuple(model_shapes.items())
+    shapes = (RAGGED_FLASH_SHAPES + CHECK_ONLY_FLASH_SHAPES
+              + tuple(model_shapes.items())
               + (("bert_no_dropout", bert[:4] + (0.0,)),))
+    check_only = {n for n, _ in RAGGED_FLASH_SHAPES + CHECK_ONLY_FLASH_SHAPES}
     for name, (B, N, H, padded, rate) in shapes:
         q, k, v, do, bias4 = _attn_inputs(B, N, H, d, padded)
         kb = A._key_bias_of(bias4, B, H, N) if padded else None
@@ -359,7 +390,7 @@ def flash_phase(A, model_shapes):
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError("flash backward is not deterministic")
         print("  backward bit-equal across two launches: ok")
-        if name.startswith("ragged"):
+        if name in check_only:
             continue
         if name in ("vit", "hubert", "bert"):
             versus[name] = dict(
@@ -509,15 +540,58 @@ def check_backward_masks(A, B, N, H, d, rate):
                                  f"from attention_keep_mask")
 
 
+def passes_per_step(base: str, use_cat: bool):
+    """(forwards, backwards) per train step of every layer, from the step's
+    structure: PseudoLabel forwards the labeled and the unlabeled view
+    apart and back-propagates through both; the others forward the
+    concatenated views once with ``use_cat``, else three times with the
+    weak pass under no_grad."""
+    if base == "pseudolabel":
+        return 2, 2
+    return (1, 1) if use_cat else (3, 2)
+
+
+def _algo_tensors(base: str, algo):
+    """The algorithm state the phase checks, cloned."""
+    if base == "flexmatch":
+        return {"selected_label": algo.selected_label.clone()}
+    if base == "freematch":
+        return {"time_p": algo.time_p.clone(), "p_model": algo.p_model.clone()}
+    if base == "softmatch":
+        return {"mu": algo.gaussian.prob_max_mu_t.clone(),
+                "var": algo.gaussian.prob_max_var_t.clone()}
+    return {}
+
+
+def _bn_probe(model, record):
+    """Wrap ``model.forward`` so that each call records whether the last
+    BatchNorm's running mean moved in it; returns the undo."""
+    from semireward_tpu_torch.models.batchnorm import BatchNorm
+
+    bn = [m for m in model.modules() if isinstance(m, BatchNorm)][-1]
+    orig = model.forward
+
+    def forward(*a, **kw):
+        before = bn.running_mean.clone()
+        out = orig(*a, **kw)
+        record.append(not torch.equal(before, bn.running_mean))
+        return out
+
+    model.forward = forward
+    return lambda: model.__dict__.pop("forward")
+
+
 def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                 main_kernels):
     """Train ``steps`` steps through ``Trainer.train`` with every count set
     to 0 just before and read just after; checks the launch counts exactly
-    (one forward per step with ``use_cat``, one per eval batch, one
-    backward per step, for every layer on a kernel), that the path's
-    kernels launched, losses, the stage-2 reward filter and rewarder update,
-    FlexMatch's selected_label and the eval."""
+    (per step, the step's forwards and backwards of every layer on a
+    kernel, ``passes_per_step``; one forward per eval batch), that the
+    path's kernels launched, losses, the stage-2 reward filter and rewarder
+    update, the base algorithm's own state, the BatchNorm running
+    statistics where the net has them, and the eval."""
     from semireward_tpu_torch.core.trainer import Trainer
+    from semireward_tpu_torch.models.batchnorm import BatchNorm
     from semireward_tpu_torch.profile_step import synthetic_config
 
     cfg = synthetic_config(yaml_path, {"num_log_iter": log_every,
@@ -525,6 +599,8 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                                        "N_k": N_K, **overrides})
     trainer = Trainer(cfg)
     model = trainer.model
+    base = trainer.alg.base.NAME
+    n_fwd, n_bwd = passes_per_step(base, cfg.use_cat)
     # fused MLP layers by the kernel their width takes (K1 or K3)
     fused = {"full": 0, "blocked": 0}
     for m in model.modules():
@@ -536,12 +612,24 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     n_flash = sum(bool(getattr(m, "use_flash", False))
                   for m in model.modules()
                   if not getattr(m, "attn_drop", 0.0))
+    has_bn = any(isinstance(m, BatchNorm) for m in model.modules())
     print(f"train {name}: {cfg.algorithm} {cfg.net} "
           f"batch={cfg.batch_size}+{cfg.ulb_batch_size} use_cat={cfg.use_cat} "
-          f"steps={steps} fused MLP layers K1={fused['full']} "
-          f"K3={fused['blocked']} flash layers={n_flash}")
-    sel0 = trainer.state.algo.selected_label.clone()
-    history, rewarder_snaps, first_select = [], {}, []
+          f"steps={steps} forwards/backwards a step={n_fwd}/{n_bwd} fused "
+          f"MLP layers K1={fused['full']} K3={fused['blocked']} flash "
+          f"layers={n_flash} BatchNorm={has_bn}")
+    state0 = _algo_tensors(base, trainer.state.algo)
+    history, rewarder_snaps, first_select, bn_moved = [], {}, [], []
+    last = {}
+    loss_fn = trainer.alg.loss
+
+    def loss_spy(ctx):
+        out = loss_fn(ctx)
+        last["mask"], last["unsup_weight"] = out.mask, out.unsup_weight
+        return out
+
+    trainer.alg.loss = loss_spy
+    weights_range, undo = [], []
 
     def step_hook(step, metrics):
         history.append((step, metrics))
@@ -549,10 +637,19 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         if step in (20, 21):
             rewarder_snaps[step] = [p.detach().clone() for p in
                                     trainer.state.sr.rewarder.parameters()]
+        if has_bn and step == BN_PROBE_STEP - 1:
+            undo.append(_bn_probe(model, bn_moved))
+        if has_bn and step == BN_PROBE_STEP:
+            undo.pop()()
         # read at the log boundaries, where the trainer syncs anyway
-        if not first_select and step % log_every == 0 and bool(
-                (trainer.state.algo.selected_label != sel0).any()):
-            first_select.append(step)
+        if step % log_every == 0:
+            if base == "softmatch":
+                w = last["mask"]
+                weights_range.append((float(w.min()), float(w.max())))
+            if (base == "flexmatch" and not first_select and bool(
+                    (trainer.state.algo.selected_label
+                     != state0["selected_label"]).any())):
+                first_select.append(step)
 
     F.reset_launches()
     A.reset_launches()
@@ -561,18 +658,19 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     launches = {**F.launches, **A.launches}
 
     n_eval = math.ceil(len(trainer.bundle.eval) / cfg.eval_batch_size)
-    want = {"fused_mlp_fwd": fused["full"] * (steps + n_eval),
-            "fused_mlp_bwd": fused["full"] * steps,
-            "fused_mlp_blocked_fwd": fused["blocked"] * (steps + n_eval),
-            "fused_mlp_blocked_bwd": fused["blocked"] * steps,
-            "flash_attention_fwd": n_flash * (steps + n_eval),
-            "flash_attention_bwd": n_flash * steps}
+    fwd_calls, bwd_calls = n_fwd * steps + n_eval, n_bwd * steps
+    want = {"fused_mlp_fwd": fused["full"] * fwd_calls,
+            "fused_mlp_bwd": fused["full"] * bwd_calls,
+            "fused_mlp_blocked_fwd": fused["blocked"] * fwd_calls,
+            "fused_mlp_blocked_bwd": fused["blocked"] * bwd_calls,
+            "flash_attention_fwd": n_flash * fwd_calls,
+            "flash_attention_bwd": n_flash * bwd_calls}
     print(f"  launches {launches} (expected {want})")
     assert launches == want, (launches, want)
     for k in main_kernels:
         assert launches[k] > 0, f"{k} never launched on the {name} path"
     for step, m in history:
-        for k in ("total_loss", "sup_loss", "unsup_loss"):
+        for k in ("total_loss", "sup_loss", "unsup_loss", "util_ratio"):
             v = float(m[k])
             assert math.isfinite(v), (step, k, v)
         keep = float(m["sr_keep_ratio"])
@@ -583,20 +681,38 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     assert any(not torch.equal(a, b) for a, b in
                zip(rewarder_snaps[20], rewarder_snaps[21])), \
         "the stage-2 rewarder update did not move the rewarder"
-    changed = int((trainer.state.algo.selected_label != sel0).sum())
-    assert changed > 0, "FlexMatch selected_label never changed"
+    state = _algo_tensors(base, trainer.state.algo)
+    moved = {k: int((state[k] != v).sum()) for k, v in state0.items()}
+    for k, n in moved.items():
+        assert n > 0, f"{base}'s {k} never moved"
+    extra = {"state_entries_moved": moved}
+    if base == "flexmatch":
+        extra["first_selected_at_step"] = (first_select or [None])[0]
+    if base == "softmatch":
+        assert weights_range and all(0.0 < lo <= hi <= 1.0
+                                     for lo, hi in weights_range), \
+            weights_range
+        extra["weights_min_max"] = weights_range
+    if base == "pseudolabel":
+        assert last["unsup_weight"] > 0.0, last["unsup_weight"]
+        extra["unsup_warmup_weight"] = last["unsup_weight"]
+    if has_bn:
+        # the lb (or concatenated) pass moves the statistics; PseudoLabel's
+        # unlabeled pass runs with them frozen
+        want_bn = [True, False] if base == "pseudolabel" else [True] * n_fwd
+        assert bn_moved == want_bn, (bn_moved, want_bn)
+        extra["bn_stats_moved_by_forward"] = bn_moved
     for k, v in results.items():
         assert math.isfinite(v), (k, v)
     windows = trainer.log_history[1:]  # after the first (warm-up) window
     sps = sum(w["steps"] for w in windows) / sum(w["seconds"] for w in windows)
     print(f"  losses finite over {len(history)} steps; stage-2 keep ratio in "
-          f"(0, 1]; selected_label changed at {changed} entries (first seen "
-          f"at step {first_select[0] if first_select else 'after the last check'}); "
-          f"eval top-1 {results['eval/top-1-acc']:.4f}")
-    print(json.dumps({"phase": name, "train_steps_per_sec": sps,
+          f"(0, 1]; {base} state moved {moved}; eval top-1 "
+          f"{results['eval/top-1-acc']:.4f}")
+    print(json.dumps({"phase": name, "algorithm": cfg.algorithm,
+                      "net": cfg.net, "train_steps_per_sec": sps,
                       "measured_steps": sum(w["steps"] for w in windows),
-                      "selected_label_changed": changed,
-                      "first_selected_at_step": (first_select or [None])[0],
+                      **extra, "eval_top1": results["eval/top-1-acc"],
                       "card": card_line(), "log": trainer.log_history}))
     del trainer, model
     torch.cuda.empty_cache()
@@ -651,13 +767,25 @@ def main() -> int:
                           "shape": name, "card": card}))
     k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
     k2 = ("flash_attention_fwd", "flash_attention_bwd")
+    k1 = ("fused_mlp_fwd", "fused_mlp_bwd")
     phases = [
         train_phase("vit", HEADLINE_YAML, {}, TRAIN_STEPS, LOG_EVERY, F, A,
-                    ("fused_mlp_fwd", "fused_mlp_bwd") + k2),
+                    k1 + k2),
         train_phase("bert", NLP_YAML, {}, BERT_STEPS, BERT_LOG_EVERY, F, A,
                     k2 + k3),
         train_phase("audio", AUDIO_YAML, {}, AUDIO_STEPS, AUDIO_LOG_EVERY, F,
-                    A, k2 + k3)]
+                    A, k2 + k3),
+        train_phase("vit_srfreematch", FREE_YAML, {}, FREE_STEPS, LOG_EVERY,
+                    F, A, k1 + k2),
+        train_phase("vit_srsoftmatch", SOFT_YAML, {}, SOFT_STEPS, 50, F, A,
+                    k1 + k2),
+        train_phase("vit_srpseudolabel", PL_YAML, {}, PL_STEPS, 50, F, A,
+                    k1 + k2),
+        # no Pallas kernel covers the WRN step: no kernel of the port runs
+        train_phase("wrn_srfixmatch", WRN_FIX_YAML, {}, WRN_STEPS, 50, F, A,
+                    ()),
+        train_phase("wrn_srpseudolabel", WRN_PL_YAML, {}, WRN_STEPS, 50, F,
+                    A, ())]
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
 
     where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from semireward_tpu_torch.algorithms import common as C
@@ -28,7 +29,8 @@ class LossOut(NamedTuple):
     total_loss: torch.Tensor
     sup_loss: torch.Tensor
     unsup_loss: torch.Tensor
-    unsup_weight: float
+    extra_loss: Optional[torch.Tensor]  # e.g. FreeMatch's entropy term
+    unsup_weight: float                 # lambda_u * warm-up factor
     mask: Optional[torch.Tensor]
     pseudo_label: Optional[torch.Tensor]
     fwd: Optional[C.ForwardOut]
@@ -90,13 +92,36 @@ class Algorithm:
                              ctx.generator, train=True,
                              use_cat=self.cfg.use_cat, stop_grad_w=stop_grad_w)
 
-    def pack(self, *, sup_loss, unsup_loss, fwd, new_algo_state, mask,
-             pseudo_label) -> LossOut:
-        lam = self.cfg.ulb_loss_ratio
-        total = sup_loss + lam * unsup_loss
+    def unsup_warmup_factor(self, step: int, warm: Optional[float] = None
+                            ) -> float:
+        """clip(step / (unsup_warm_up * num_train_iter), 0, 1), in float32
+        like the JAX package's (a host float: the step is a host int)."""
+        warm = self.cfg.unsup_warm_up if warm is None else warm
+        denom = max(warm * self.cfg.num_train_iter, 1e-9)
+        return float(np.clip(np.float32(step) / np.float32(denom), 0.0, 1.0))
+
+    def pack(self, *, sup_loss, unsup_loss, fwd, new_algo_state,
+             extra_loss=None, mask=None, pseudo_label=None, lambda_u=None,
+             warmup=None, metrics=None) -> LossOut:
+        """``total = sup + lambda_u * unsup * warmup + extra``; a missing
+        warm-up factor (1) or extra loss (0) adds no operation, which
+        leaves the same bits."""
+        lam = self.cfg.ulb_loss_ratio if lambda_u is None else lambda_u
+        total = lam * unsup_loss
+        if warmup is not None:
+            total = total * warmup
+        total = sup_loss + total
+        if extra_loss is not None:
+            total = total + extra_loss
         m = {"sup_loss": sup_loss, "unsup_loss": unsup_loss,
-             "total_loss": total, "util_ratio": mask.float().mean()}
+             "total_loss": total}
+        if mask is not None:
+            m["util_ratio"] = mask.float().mean()
+        if metrics:
+            m.update(metrics)
+        w = 1.0 if warmup is None else warmup
         return LossOut(total_loss=total, sup_loss=sup_loss,
-                       unsup_loss=unsup_loss, unsup_weight=lam, mask=mask,
-                       pseudo_label=pseudo_label, fwd=fwd,
+                       unsup_loss=unsup_loss, extra_loss=extra_loss,
+                       unsup_weight=float(np.float32(lam) * np.float32(w)),
+                       mask=mask, pseudo_label=pseudo_label, fwd=fwd,
                        new_algo_state=new_algo_state, metrics=m)

@@ -1,7 +1,8 @@
 """SemiReward (port of ``semireward_tpu/algorithms/semireward.py``).
 
 One wrapper, :class:`SemiRewardWrapper`, composes the reward model with a
-base algorithm; ``srfixmatch`` and ``srflexmatch`` are registered here.
+base algorithm; ``srpseudolabel``, ``srfixmatch``, ``srflexmatch``,
+``srfreematch`` and ``srsoftmatch`` are registered here.
 
 - The ``Rewarder`` keeps the reference's batch-dim "cross-attention": one
   softmax over the ``[2B, 128]`` concat of projected features and label
@@ -13,9 +14,15 @@ base algorithm; ``srfixmatch`` and ``srflexmatch`` are registered here.
   from ``step >= start_timing`` on, tracks the max reward and trains on the
   unlabeled batch every ``N_k`` steps once ``step > start_timing``.
 - The generator's parameters never move (its output is cast to int).
+- In stage 2 the base algorithm's masking hook is applied again, as the
+  reference's data generator does: ``sr_decay(step)`` times for FreeMatch
+  and SoftMatch, whose hooks move EMA statistics. With the weak-view
+  probabilities fixed, each statistic moves linearly toward a fixed
+  target, so the repeats run in closed form (``common.ema_repeat``: a few
+  launches, however many repeats). SoftMatch re-applies only its weighting,
+  not the distribution alignment, on the raw weak probabilities.
 
-Not ported yet (ROADMAP): ``sr_reforward > 1``, ``sr_per_sample`` and the
-stateful (FreeMatch/SoftMatch) remask loop.
+Not ported yet (ROADMAP): ``sr_reforward > 1`` and ``sr_per_sample``.
 """
 from __future__ import annotations
 
@@ -104,6 +111,11 @@ SR_DEFAULTS = {"start_timing": 20000, "feature_dim": 384, "sr_lr": 0.0005,
                "N_k": 10, "sr_ema": True, "sr_ema_m": 0.999}
 
 
+# the base algorithms whose masking hook the wrapper knows how to re-apply
+_REMASK_BASES = ("pseudolabel", "fixmatch", "flexmatch", "freematch",
+                 "softmatch")
+
+
 def _check_sr_mode(cfg):
     if cfg.sr_per_sample:
         raise NotImplementedError(
@@ -159,10 +171,10 @@ class SemiRewardWrapper(Algorithm):
         super().__init__(cfg, data_info, device)
         _check_sr_mode(cfg)
         self.base = self.BASE_CLS(cfg, data_info, device)
-        if self.base.NAME not in ("fixmatch", "flexmatch"):
+        if self.base.NAME not in _REMASK_BASES:
             raise NotImplementedError(
-                f"SemiReward over {self.base.NAME} (and its remask loop) is "
-                f"not ported yet (ROADMAP: the other algorithms)")
+                f"SemiReward over {self.base.NAME} is not ported yet "
+                f"(ROADMAP: the other algorithms)")
         self.BATCH_KEYS = tuple(dict.fromkeys(self.base.BATCH_KEYS
                                               + ("idx_ulb",)))
 
@@ -172,13 +184,26 @@ class SemiRewardWrapper(Algorithm):
     def init_sr(self, generator=None) -> SRState:
         return init_sr_state(self.cfg, self.device, generator)
 
-    def _remask(self, algo_state, probs_w, idx_ulb):
+    def _remask(self, algo_state, probs_w, idx_ulb, step: int):
         """The base algorithm's masking hook, re-applied as the reference's
-        data generator does."""
+        data generator does: once for the stateless hooks and FlexMatch's,
+        ``sr_decay(step)`` times on the same ``probs_w`` for FreeMatch's
+        and SoftMatch's (the last state and mask kept)."""
         cfg = self.cfg
-        if self.base.NAME == "flexmatch":
+        name = self.base.NAME
+        if name == "flexmatch":
             return C.flex_mask(algo_state, probs_w, idx_ulb, cfg.p_cutoff,
                                cfg.thresh_warmup)
+        if name in ("freematch", "softmatch"):
+            n = sr_decay(step, cfg.num_train_iter, cfg.sr_max_sampling)
+            if name == "freematch":
+                return C.free_mask(algo_state, probs_w, momentum=cfg.ema_p,
+                                   use_quantile=cfg.use_quantile,
+                                   clip_thresh=cfg.clip_thresh, repeat=n)
+            g, mask = C.softmatch_mask(
+                algo_state.gaussian, probs_w, n_sigma=cfg.n_sigma,
+                momentum=cfg.ema_p, per_class=cfg.per_class, repeat=n)
+            return algo_state._replace(gaussian=g), mask
         return algo_state, C.fixed_threshold_mask(probs_w, cfg.p_cutoff)
 
     @staticmethod
@@ -193,14 +218,16 @@ class SemiRewardWrapper(Algorithm):
             metrics = dict(base_out.metrics, sr_keep_ratio=ones)
             return base_out._replace(metrics=metrics)
         fwd = base_out.fwd
-        probs_w = C.compute_prob(fwd.logits_x_ulb_w)
+        probs_w = C.compute_prob(fwd.logits_x_ulb_w.detach())
         pl = base_out.pseudo_label
         algo_state, mask_dg = self._remask(base_out.new_algo_state, probs_w,
-                                           ctx.batch.get("idx_ulb"))
+                                           ctx.batch.get("idx_ulb"), ctx.step)
         with torch.no_grad():
             reward = ctx.sr_state.rewarder(fwd.feats_x_ulb_w.detach(),
                                            self._int_labels(pl))
         mask2 = (reward >= reward.mean()).squeeze(-1).float()
+        # PseudoLabel has no strong view: its logits_x_ulb_s are the ulb
+        # logits of its second forward
         unsup = consistency_loss(fwd.logits_x_ulb_s, pl, "ce", mask=mask_dg,
                                  mask2=mask2)
         total = (base_out.total_loss
@@ -280,5 +307,8 @@ def _make_sr_variant(name: str, base_name: str):
     return _SR
 
 
+SRPseudoLabel = _make_sr_variant("srpseudolabel", "pseudolabel")
 SRFixMatch = _make_sr_variant("srfixmatch", "fixmatch")
 SRFlexMatch = _make_sr_variant("srflexmatch", "flexmatch")
+SRFreeMatch = _make_sr_variant("srfreematch", "freematch")
+SRSoftMatch = _make_sr_variant("srsoftmatch", "softmatch")

@@ -4,7 +4,10 @@ The JAX package threads one immutable pytree through a donated jitted step.
 Here the state is a plain object whose tensors the step updates in place:
 the model's parameters, the EMA shadow, the optimizer moments. The step
 count is a host int, so every schedule and stage condition is a Python
-branch that never waits for the device.
+branch that never waits for the device. BatchNorm running statistics (the
+JAX package's ``batch_stats``) are model buffers that the forwards update
+in place; the EMA shadows parameters only, and eval runs the EMA
+parameters with the live running statistics, as the JAX package does.
 """
 from __future__ import annotations
 

@@ -1,7 +1,11 @@
 """Training loop (port of the CV, NLP and audio branches of
 ``semireward_tpu/core/trainer.py``): build data, model, algorithm and state
 from a ``Config``, run the step loop with the log and eval cadence, and
-evaluate / predict with the EMA weights.
+evaluate / predict with the EMA weights. The CV branch takes the ViTs
+(usb_cv) and the WideResNets (classic_cv: BatchNorm running statistics
+are model buffers that the train step updates in place; the EMA covers
+parameters only, and eval runs the EMA parameters with the live running
+statistics, BatchNorm in eval mode).
 
 Per step, CV: the host gathers a raw uint8 batch (seeded samplers), copies
 it to the device, builds the weak/strong views there. NLP: the host
@@ -139,6 +143,13 @@ class Trainer:
                              dtype=_DTYPES[cfg.compute_dtype],
                              device=self.device, generator=self.generator,
                              img_size=cfg.img_size, **net_kw)
+        # the rewarder reads the net's features: its input width is the
+        # net's (the classic_cv YAMLs say 384, WRN-28-2's features are 128)
+        width = getattr(self.model, "num_features", cfg.feature_dim)
+        if width != cfg.feature_dim:
+            self.logger.info(f"feature_dim {cfg.feature_dim} -> {width}, the "
+                             f"width of {cfg.net}'s features")
+            cfg.feature_dim = width
         self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
         no_color = bool(cfg.extra.get(
             "randaug_no_color", cfg.dataset in ("tissuemnist", "medmnist")))

@@ -1,8 +1,10 @@
 """Datasets of the port (the parts of ``semireward_tpu/data/datasets.py``
-the headline path uses): raw uint8 arrays in host memory, CIFAR-10/100 from
-local torchvision file layouts, and the seeded synthetic task. numpy only,
-copied so that both packages produce the same arrays for the same seed.
-Augmentation runs on the device (``data/augment``).
+and ``data/cv_extra.py`` the ported paths use): raw uint8 arrays in host
+memory; CIFAR-10/100, SVHN and STL-10 from their local torchvision file
+layouts, EuroSAT and TissueMNIST from their npz files, and the seeded
+synthetic task. numpy (and scipy for SVHN's .mat) only, copied so that both
+packages produce the same arrays for the same seed. Augmentation runs on the
+device (``data/augment``). Loaders read local files only.
 """
 from __future__ import annotations
 
@@ -28,6 +30,19 @@ STD = {
     "cifar100": tuple(x / 255 for x in (68.2, 65.4, 70.4)),
     "synthetic": (0.25, 0.25, 0.25),
 }
+# reference svhn.py / stl10.py / eurosat.py / medmnist.py constants
+MEAN_STD = {
+    "svhn": ((0.4380, 0.4440, 0.4730), (0.1751, 0.1771, 0.1744)),
+    "stl10": ((112.4 / 255, 109.1 / 255, 98.6 / 255),
+              (68.4 / 255, 66.6 / 255, 68.5 / 255)),
+    "eurosat": ((0.3442, 0.3802, 0.4077), (0.2025, 0.1369, 0.1156)),
+    "tissuemnist": ((0.5,) * 3, (0.5,) * 3),  # grayscale, repeated to RGB
+}
+
+
+# the names get_dataset reads
+CV_DATASETS = ("cifar10", "cifar100", "svhn", "stl10", "eurosat",
+               "tissuemnist", "medmnist", "synthetic")
 
 
 @dataclass
@@ -91,6 +106,67 @@ def _load_cifar100(data_dir: str):
     return out[0], out[1]
 
 
+def load_svhn(data_dir: str):
+    """torchvision SVHN .mat layout (``svhn/{train,test}_32x32.mat``): X is
+    HWCN, label 10 is digit 0."""
+    from scipy.io import loadmat
+
+    out = []
+    for split in ("train", "test"):
+        m = loadmat(os.path.join(data_dir, "svhn", f"{split}_32x32.mat"))
+        x = np.transpose(m["X"], (3, 0, 1, 2))
+        out.append((x, m["y"].reshape(-1).astype(np.int64) % 10))
+    return out[0], out[1]
+
+
+def load_stl10(data_dir: str):
+    """torchvision STL-10 binary layout (``stl10_binary/*.bin``, 96 px,
+    column-major CWH images, labels 1-10). Returns ``((train_x, train_y),
+    (test_x, test_y), unlabeled_x)``."""
+    base = os.path.join(data_dir, "stl10", "stl10_binary")
+    if not os.path.isdir(base):
+        base = os.path.join(data_dir, "stl10_binary")
+
+    def images(name):
+        with open(os.path.join(base, name), "rb") as f:
+            x = np.frombuffer(f.read(), np.uint8)
+        return x.reshape(-1, 3, 96, 96).transpose(0, 3, 2, 1)
+
+    def labels(name):
+        with open(os.path.join(base, name), "rb") as f:
+            return np.frombuffer(f.read(), np.uint8).astype(np.int64) - 1
+
+    return ((images("train_X.bin"), labels("train_y.bin")),
+            (images("test_X.bin"), labels("test_y.bin")),
+            images("unlabeled_X.bin"))
+
+
+def load_eurosat(data_dir: str):
+    """EuroSAT RGB, preprocessed to ``eurosat/eurosat.npz`` (train_x,
+    train_y, test_x, test_y)."""
+    d = np.load(os.path.join(data_dir, "eurosat", "eurosat.npz"))
+    return ((d["train_x"], d["train_y"].astype(np.int64)),
+            (d["test_x"], d["test_y"].astype(np.int64)))
+
+
+def load_medmnist(data_dir: str, name: str = "tissuemnist"):
+    """MedMNIST npz layout (``medmnist/<name>.npz`` or ``<name>.npz``, keys
+    ``{train,val,test}_{images,labels}``); grayscale repeated to 3
+    channels."""
+    path = os.path.join(data_dir, "medmnist", f"{name}.npz")
+    if not os.path.isfile(path):
+        path = os.path.join(data_dir, f"{name}.npz")
+    d = np.load(path)
+
+    def split(s):
+        x = np.asarray(d[f"{s}_images"])
+        if x.ndim == 3:
+            x = np.repeat(x[..., None], 3, axis=-1)
+        return x, np.asarray(d[f"{s}_labels"]).reshape(-1).astype(np.int64)
+
+    return split("train"), split("val"), split("test")
+
+
 def make_synthetic(num_classes: int, img_size: int, n_train: int = 512,
                    n_test: int = 128, seed: int = 0, noise: int = 40,
                    class_sim: float = 0.0, proto_scale: int = 0):
@@ -142,9 +218,14 @@ def make_synthetic(num_classes: int, img_size: int, n_train: int = 512,
 
 
 def get_dataset(cfg, alg: str = "fixmatch") -> SSLDataBundle:
-    """Dataset-name dispatch: cifar10, cifar100 (local files) and synthetic.
-    The other datasets of the JAX package are not ported yet (ROADMAP)."""
+    """Dataset-name dispatch: cifar10, cifar100, svhn, stl10, eurosat,
+    tissuemnist (local files) and synthetic. The other datasets of the JAX
+    package are not ported yet (ROADMAP)."""
     name = cfg.dataset
+    if name in ("imagenet", "imagenet127"):
+        raise NotImplementedError(f"dataset '{name}' needs the ImageNet "
+                                  f"loader, which is not ported yet "
+                                  f"(ROADMAP: data)")
     if name in ("cifar10", "cifar100"):
         loader = _load_cifar10 if name == "cifar10" else _load_cifar100
         try:
@@ -156,6 +237,35 @@ def get_dataset(cfg, alg: str = "fixmatch") -> SSLDataBundle:
                 f"dataset='synthetic')") from e
         mean, std = MEAN[name], STD[name]
         num_classes = 10 if name == "cifar10" else 100
+    elif name == "svhn":
+        (data, targets), (tdata, ttargets) = load_svhn(cfg.data_dir)
+        mean, std = MEAN_STD["svhn"]
+        num_classes = 10
+    elif name == "stl10":
+        # the labeled split comes from train; the dedicated unlabeled set
+        # is the ulb set
+        (data, targets), (tdata, ttargets), unlabeled = load_stl10(
+            cfg.data_dir)
+        lb_data, lb_targets, _, _ = split_ssl_data(
+            data, targets, 10, cfg.num_labels, include_lb_to_ulb=False,
+            rng=np.random.RandomState(cfg.seed))
+        ulb = (np.concatenate([lb_data, unlabeled], 0)
+               if cfg.include_lb_to_ulb else unlabeled)
+        return SSLDataBundle(
+            train_lb=ArrayDataset(lb_data, lb_targets),
+            train_ulb=ArrayDataset(ulb, np.full(len(ulb), -1, np.int64)),
+            eval=ArrayDataset(tdata, ttargets), num_classes=10,
+            mean=MEAN_STD["stl10"][0], std=MEAN_STD["stl10"][1])
+    elif name == "eurosat":
+        (data, targets), (tdata, ttargets) = load_eurosat(cfg.data_dir)
+        mean, std = MEAN_STD["eurosat"]
+        num_classes = 10
+    elif name in ("tissuemnist", "medmnist"):
+        # the eval split is val (the USB convention)
+        (data, targets), (tdata, ttargets), _ = load_medmnist(
+            cfg.data_dir, "tissuemnist")
+        mean, std = MEAN_STD["tissuemnist"]
+        num_classes = cfg.num_classes
     elif name == "synthetic":
         n_train = int(cfg.extra.get("synthetic_train", 2048))
         n_test = int(cfg.extra.get("synthetic_test", 256))
@@ -168,7 +278,7 @@ def get_dataset(cfg, alg: str = "fixmatch") -> SSLDataBundle:
         num_classes = cfg.num_classes
     else:
         raise KeyError(f"dataset '{name}' is not ported yet; available: "
-                       f"cifar10, cifar100, synthetic")
+                       f"{', '.join(CV_DATASETS)}")
 
     rng = np.random.RandomState(cfg.seed)
     dump_dir = os.path.join(cfg.data_dir, "data_statistics", name,

@@ -1,5 +1,5 @@
-"""Model zoo of the port: the ViT, BERT, HuBERT and wav2vec2 builders, registered under the
-JAX package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
+"""Model zoo of the port: the ViT, BERT, HuBERT, wav2vec2 and WideResNet
+builders, registered under the JAX package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
 ``{'logits', 'feat'}`` like the flax models."""
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ from semireward_tpu_torch.models import bert as _bert
 from semireward_tpu_torch.models import hubert as _hubert
 from semireward_tpu_torch.models import wav2vec2 as _wav2vec2
 from semireward_tpu_torch.models import vit as _vit
+from semireward_tpu_torch.models import wrn as _wrn
 from semireward_tpu_torch.registry import NETS
 
 for _name in ("vit_tiny_patch2_32", "vit_small_patch2_32",
@@ -17,6 +18,8 @@ for _name in ("bert_base_uncased", "bert_base_cased"):
     NETS.register(getattr(_bert, _name), name=_name)
 NETS.register(_hubert.hubert_base, name="hubert_base")
 NETS.register(_wav2vec2.wave2vecv2_base, name="wave2vecv2_base")
+for _name in ("wrn_28_2", "wrn_28_8", "wrn_var_37_2"):
+    NETS.register(getattr(_wrn, _name), name=_name)
 
 
 def get_net_builder(net_name: str):

@@ -14,8 +14,12 @@ device busy time per step (union of kernel intervals) and the idle share,
 and device time per kernel group (the fused MLP's K1 and K3 and the flash
 attention kernels by their own names, other GEMMs, convolutions,
 elementwise/reduction, ...) and per top kernel. Takes the audio config
-(config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml) as the
-others. Needs a CUDA card.
+(config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml), the
+other SemiReward variants (e.g.
+config/SemiReward/usb_cv/freematch/freematch_cifar100_200_0.yaml) and the
+classic_cv WRN-28-2 ones
+(config/SemiReward/classic_cv/pseudolabel/pseudolabel_cifar100_10000_0.yaml)
+as the others. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -41,8 +45,10 @@ def synthetic_config(path: str, overrides=None):
     """``path``'s config as the smoke run, the profile and the A/B run it:
     random weights and no resume (the repo ships no weights), start_timing
     10 and N_k 10 (stage 2 and the reward filter within a short run), and
-    synthetic data: CIFAR-shaped images (``dataset synthetic``) for an
-    image net; for a text net the seeded aclImdb-layout corpus, written
+    synthetic data: CIFAR-shaped images (``dataset synthetic``; 2048 train
+    images, or twice the YAML's ``num_labels`` where that is more, so that
+    the classic_cv YAMLs' 10000 labels split) for an image net; for a text
+    net the seeded aclImdb-layout corpus, written
     under ``build/synth_text`` on first use; for an audio net the seeded
     ESC-50-layout corpus under ``build/synth_audio``. ``overrides`` go on
     top."""
@@ -54,8 +60,9 @@ def synthetic_config(path: str, overrides=None):
     cfg = config_lib.from_yaml(path, overrides)
     modality = modality_of(cfg.net)
     if modality == "cv":
-        return config_lib.from_yaml(path, {"dataset": "synthetic",
-                                           **overrides})
+        return config_lib.from_yaml(path, {
+            "dataset": "synthetic",
+            "synthetic_train": max(2048, 2 * cfg.num_labels), **overrides})
     if modality == "nlp":
         from semireward_tpu_torch.data.nlp import write_synthetic_corpus
         root = SYNTH_TEXT
@@ -87,8 +94,10 @@ def _group(name: str) -> str:
     if ours and "::k1_bwd_" in n:
         return "fused_mlp_bwd"
     # cuDNN's convolutions, some of them CUTLASS kernels by name
+    if "bn_" in n or "batch_norm" in n or "batchnorm" in n:
+        return "batch_norm (fwd + bwd)"
     if any(s in n for s in ("conv", "dgrad", "wgrad", "fprop")):
-        return "conv (patch embed; audio feature extractor, pos conv)"
+        return "conv (patch embed; WRN; audio feature extractor, pos conv)"
     if any(s in n for s in ("gemm", "cutlass", "sm90", "matmul", "nvjet")):
         return "gemm (attention, qkv/proj, head, rewarder)"
     if "softmax" in n:

@@ -1,0 +1,102 @@
+"""The SemiReward YAML corpus in the port: every config under
+``config/SemiReward/`` resolves (its algorithm in ``ALGORITHMS`` and built,
+its net in ``NETS``, its dataset read by the port's loaders), except the
+ImageNet ones, which raise naming the ImageNet loader. Plus two-step CPU
+runs of the CLI on a usb_nlp ``srpseudolabel`` and a usb_audio
+``srsoftmatch`` YAML at the shrunk sizes of the slices' CLI tests: token
+dicts and waveforms through PseudoLabel's separate forwards and SoftMatch's
+weighting."""
+import glob
+import json
+import math
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from semireward_tpu_torch import config as config_lib
+from semireward_tpu_torch.data import datasets as TD
+from semireward_tpu_torch.data.modality import modality_of
+from semireward_tpu_torch.registry import ALGORITHMS, NETS
+
+ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "config", "SemiReward")
+SUITES = {"classic_cv": 150, "usb_cv": 120, "usb_nlp": 150,
+          "usb_audio": 135, "imagenet_stretch": 15}
+DATA_INFO = {"ulb_dest_len": 64, "lb_dest_len": 16}
+
+
+def _configs(suite):
+    paths = sorted(glob.glob(os.path.join(ROOT, suite, "*", "*.yaml")))
+    return [(p, config_lib.from_yaml(p)) for p in paths]
+
+
+@pytest.mark.parametrize("suite", sorted(SUITES))
+def test_every_semireward_yaml_resolves(suite):
+    configs = _configs(suite)
+    assert len(configs) == SUITES[suite]
+    for path, cfg in configs:
+        NETS.get(cfg.net)
+        alg = ALGORITHMS.get(cfg.algorithm)(cfg, DATA_INFO,
+                                            torch.device("cpu"))
+        assert alg.NAME == cfg.algorithm and alg.HAS_SR, path
+        modality = modality_of(cfg.net)
+        if suite == "imagenet_stretch":
+            with pytest.raises(NotImplementedError, match="ImageNet loader"):
+                TD.get_dataset(cfg)
+        elif modality == "cv":
+            assert cfg.dataset in TD.CV_DATASETS, path
+        else:  # the layout loaders read any corpus of their modality
+            assert modality == {"usb_nlp": "nlp", "usb_audio": "audio"}[suite]
+
+
+def test_555_of_570_resolve():
+    assert sum(SUITES.values()) == len(glob.glob(
+        os.path.join(ROOT, "*", "*", "*.yaml"))) == 570
+    assert sum(SUITES.values()) - SUITES["imagenet_stretch"] == 555
+
+
+def test_cli_trains_a_usb_nlp_srpseudolabel_yaml_on_cpu(tmp_path,
+                                                          monkeypatch):
+    from semireward_tpu_torch import train as cli
+    from semireward_tpu_torch.data.nlp import write_synthetic_corpus
+
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    write_synthetic_corpus(str(tmp_path / "data"), "aclImdb", 2,
+                           sizes=(("train", 24), ("dev", 10), ("test", 4)))
+    argv = ["--c", os.path.join(ROOT, "usb_nlp", "pseudolabel",
+                                "pseudolabel_aclImdb_100_0.yaml"),
+            "--device", "cpu", "--use_pretrain", "False", "--resume",
+            "False", "--data_dir", str(tmp_path / "data"), "--num_labels",
+            "8", "--num_train_iter", "2", "--num_log_iter", "1",
+            "--start_timing", "0", "--N_k", "1", "--max_length", "64",
+            "--use_flash_attention", "True", "--use_fused_mlp", "False",
+            "--feature_dim", "64", "--save_dir", str(tmp_path / "out"),
+            "--net_kwargs", json.dumps(dict(hidden=64, layers=2, heads=2,
+                                            intermediate=128))]
+    results = cli.main(argv)
+    assert all(math.isfinite(v) for v in results.values())
+    assert 0.0 <= results["eval/top-1-acc"] <= 1.0
+
+
+def test_cli_trains_a_usb_audio_srsoftmatch_yaml_on_cpu(tmp_path):
+    from semireward_tpu_torch import train as cli
+    from semireward_tpu_torch.data.audio import write_synthetic_corpus
+
+    write_synthetic_corpus(str(tmp_path / "data"), "esc50", num_classes=5,
+                           sizes=(("train", 30), ("dev", 6), ("test", 2)))
+    argv = ["--c", os.path.join(ROOT, "usb_audio", "softmatch",
+                                "softmatch_esc50_250_0.yaml"),
+            "--device", "cpu", "--use_pretrain", "False", "--resume",
+            "False", "--data_dir", str(tmp_path / "data"), "--num_classes",
+            "5", "--num_labels", "10", "--num_train_iter", "2",
+            "--num_log_iter", "1", "--start_timing", "0", "--N_k", "1",
+            "--max_length_seconds", "0.1", "--eval_batch_size", "4",
+            "--feature_dim", "64", "--save_dir", str(tmp_path / "out"),
+            "--net_kwargs", json.dumps(dict(hidden=64, layers=2, heads=2))]
+    results = cli.main(argv)
+    assert all(math.isfinite(v) for v in results.values())
+    assert 0.0 <= results["eval/top-1-acc"] <= 1.0
+    assert np.isfinite(results["eval/best_acc"])

@@ -83,11 +83,12 @@ def _check_kernels(dev, m, c, h, kernel, plan=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,c,h", [(100, 128, 256), (129, 192, 768),
-                                   (6168, 384, 1536)])
+                                   (6168, 384, 1536), (2056, 384, 1536)])
 def test_kernel_matches_plain_on_the_card(cuda_device, m, c, h):
     """K1 (F1 + F2; B1 + B2 + B3 + reduction) against the plain version on
     the plan the wrapper picks: a small ragged shape, ViT-Ti's width with
-    one row past a 128-row tile, and the ViT-S train shape (M 24*257)."""
+    one row past a 128-row tile, the ViT-S train shape (M 24*257) and
+    SRPseudoLabel's (each of its two forwards takes 8*257 rows)."""
     _check_kernels(cuda_device, m, c, h, "full")
 
 
@@ -197,6 +198,73 @@ def test_vit_tiny_steps_on_the_card_through_k1(cuda_device):
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("train,frozen", [(True, False), (True, True),
+                                          (False, False)])
+def test_flax_batchnorm_on_the_card_matches_the_cpu(cuda_device, train,
+                                                    frozen):
+    """The flax-semantics BatchNorm (models/batchnorm.py) on the card
+    against its CPU result on the same f32 input: output within 1e-5 of its
+    magnitude, running statistics within 1e-6 (updated in training, left
+    as they were frozen or in eval); the bf16 output on the card within 1%
+    (one bf16 rounding is 0.4%)."""
+    from semireward_tpu_torch.models.batchnorm import BatchNorm, frozen_bn
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(64, 32, 16, 16, generator=g) * 3 + 1
+    scale = torch.rand(32, generator=g) + 0.5
+    shift = torch.randn(32, generator=g)
+    outs, stats = [], []
+    for dev in (torch.device("cpu"), cuda_device):
+        bn = BatchNorm(32, momentum=0.9).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(scale)
+            bn.bias.copy_(shift)
+            bn.running_var.fill_(2.0)
+        with torch.no_grad():
+            if frozen:
+                with frozen_bn(bn):
+                    outs.append(bn(x.to(dev), train=train).cpu())
+            else:
+                outs.append(bn(x.to(dev), train=train).cpu())
+            stats.append([bn.running_mean.cpu().clone(),
+                          bn.running_var.cpu().clone()])
+            if dev.type == "cuda":
+                half = bn(x.to(dev, torch.bfloat16), train=train)
+                assert half.dtype == torch.bfloat16
+    _close(outs[1].numpy(), outs[0].numpy(), 1e-5)
+    for a, b in zip(stats[1], stats[0]):
+        _close(a.numpy(), b.numpy(), 1e-6)
+    moved = not torch.equal(stats[0][1], torch.full((32,), 2.0))
+    assert moved == (train and not frozen)
+    _close(half.float().cpu().numpy(), outs[0].numpy(), 1e-2)
+
+
+@pytest.mark.cuda
+def test_wrn_steps_on_the_card(cuda_device):
+    """wrn_28_2 (bf16 convs on cuDNN, f32 parameters and statistics)
+    builds on the card and takes one train step; its running statistics
+    move in train mode and eval runs on them. The dead bn1s' scale and
+    bias take no gradient (allow_unused)."""
+    from semireward_tpu_torch.models import get_net_builder
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = get_net_builder("wrn_28_2")(num_classes=10, device=cuda_device,
+                                        generator=gen)
+    x = torch.randn(16, 32, 32, 3, device=cuda_device)
+    before = model.bn1.running_mean.clone()
+    out = model(x, train=True)
+    loss = out["logits"].float().logsumexp(-1).mean()
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    assert not torch.equal(before, model.bn1.running_mean)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert model.bn1.running_mean.dtype == torch.float32
+    ev = model(x, train=False)
+    assert bool(torch.isfinite(ev["logits"]).all())
+    assert ev["feat"].dtype == torch.float32 and ev["feat"].shape == (16, 128)
+
+
 def _attn_inputs(dev, B, N, H, d, pad, seed=0):
     g = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(B, N, H, d, generator=g).to(dev, torch.bfloat16)
@@ -256,6 +324,7 @@ def test_flash_kernels_match_plain_on_the_card(cuda_device, N, bias, rate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,H,bias,rate", [
     (24, 257, 6, False, 0.0),    # ViT-S train
+    (8, 257, 6, False, 0.0),     # ViT-S, SRPseudoLabel's separate forwards
     (24, 199, 12, False, 0.1),   # HuBERT-base train
     (12, 512, 12, True, 0.1),    # BERT-base train
     (12, 512, 12, True, 0.0),    # BERT-base eval (bias only)
