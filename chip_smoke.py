@@ -73,7 +73,26 @@
      path): the BatchNorm running statistics read before and after each
      forward of one step move in the lb / concatenated pass and stay put
      in SRPseudoLabel's unlabeled pass;
-5. prints one ``kernels`` JSON line and, last, the ``ok`` JSON line.
+   every train phase writes its checkpoints (``latest_model.ckpt``,
+   ``model_best.ckpt``) and ``metrics.jsonl`` into a temporary directory,
+   prints each checkpoint's bytes and write seconds, and, where the data
+   has a test split (BERT, audio), counts the after-run test eval of the
+   best checkpoint's weights among its forwards;
+5. the run's lifecycle on the headline config, ``vit_resume``: trainer A
+   trains ``RESUME_EVAL`` steps (its eval writes the checkpoints, in stage
+   2 with a rewarder that has trained); trainer B resumes from a copy of
+   A's ``latest_model.ckpt`` as the CLI does (``train.build_trainer``);
+   every tensor of B's state equals A's bit for bit on the card, the CUDA
+   generator's state included, and ``it``, ``best_metric`` and
+   ``best_it`` agree; both then train ``RESUME_MORE`` more steps on the
+   same stream (restarted at the seed) and must end bit-equal (the max abs
+   difference is printed per group: parameters, EMA, moments, algorithm
+   state, SemiReward state); the eval CLI
+   (``semireward_tpu_torch.eval.main``) on A's ``model_best.ckpt`` gives
+   A's top-1 at ``best_it``; ``metrics.jsonl`` holds the JAX package's
+   keys; K1f / K2f launches counted exactly (one forward per eval batch of
+   the four evals, the CLI's included);
+6. prints one ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 Any failed check raises, so the exit code is not 0 and the ``ok`` line is
 not printed. Needs one CUDA card; fails without one.
@@ -85,8 +104,10 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -124,6 +145,16 @@ AUDIO_STEPS, AUDIO_LOG_EVERY = 1000, 100
 FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 400, 200, 200, 200
 # the step whose forwards read the BatchNorm statistics before and after
 BN_PROBE_STEP = 5
+# vit_resume: A's first eval (and checkpoint) at step 40, in stage 2 after
+# the rewarder's stage-2 update at step 20 and 30; then 10 steps each
+RESUME_EVAL, RESUME_MORE = 40, 10
+# the JAX package's metrics.jsonl keys beside the step's own train/<k> and
+# eval/<k> (core/trainer.py:570-575, 608-609)
+LOG_KEYS = {"step", "ts", "lr", "train/steps_per_sec", "train/prefetch_time",
+            "train/run_time"}
+EVAL_KEYS = {"step", "ts"} | {f"eval/{k}" for k in (
+    "top-1-acc", "balanced_acc", "precision", "recall", "F1", "top-5-acc",
+    "loss")}
 
 
 def card_line() -> str:
@@ -594,9 +625,11 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     from semireward_tpu_torch.models.batchnorm import BatchNorm
     from semireward_tpu_torch.profile_step import synthetic_config
 
+    save_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
     cfg = synthetic_config(yaml_path, {"num_log_iter": log_every,
                                        "start_timing": START_TIMING,
-                                       "N_k": N_K, **overrides})
+                                       "N_k": N_K, "save_dir": save_dir,
+                                       **overrides})
     trainer = Trainer(cfg)
     model = trainer.model
     base = trainer.alg.base.NAME
@@ -658,7 +691,12 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     launches = {**F.launches, **A.launches}
 
     n_eval = math.ceil(len(trainer.bundle.eval) / cfg.eval_batch_size)
-    fwd_calls, bwd_calls = n_fwd * steps + n_eval, n_bwd * steps
+    # the after-run eval of the best checkpoint on the test split
+    test = getattr(trainer.bundle, "test", None)
+    n_test = (math.ceil(len(test) / cfg.eval_batch_size)
+              if test is not None else 0)
+    assert (n_test > 0) == any(k.startswith("test/") for k in results)
+    fwd_calls, bwd_calls = n_fwd * steps + n_eval + n_test, n_bwd * steps
     want = {"fused_mlp_fwd": fused["full"] * fwd_calls,
             "fused_mlp_bwd": fused["full"] * bwd_calls,
             "fused_mlp_blocked_fwd": fused["blocked"] * fwd_calls,
@@ -709,12 +747,140 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     print(f"  losses finite over {len(history)} steps; stage-2 keep ratio in "
           f"(0, 1]; {base} state moved {moved}; eval top-1 "
           f"{results['eval/top-1-acc']:.4f}")
+    writes = _checkpoint_writes(trainer)
     print(json.dumps({"phase": name, "algorithm": cfg.algorithm,
                       "net": cfg.net, "train_steps_per_sec": sps,
                       "measured_steps": sum(w["steps"] for w in windows),
                       **extra, "eval_top1": results["eval/top-1-acc"],
+                      "test_top1": results.get("test/top-1-acc"),
+                      "checkpoint_writes": writes,
                       "card": card_line(), "log": trainer.log_history}))
     del trainer, model
+    shutil.rmtree(save_dir)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _checkpoint_writes(trainer):
+    """Each checkpoint file the trainer wrote: name, bytes, seconds."""
+    return [{"file": os.path.basename(w["path"]), "bytes": w["bytes"],
+             "seconds": w["seconds"]} for w in trainer.ckpt_writes]
+
+
+def _diff_by_group(sa, sb):
+    """Max abs difference of two state dicts by group of leaves, and the
+    leaves that differ."""
+    groups = {"parameters and buffers": "model.", "EMA": "ema.",
+              "moments and counts": "opt.", "algorithm state": "algo",
+              "SemiReward state": "sr.", "step and generator": ("step", "rng")}
+    out, differ = {}, []
+    for group, prefix in groups.items():
+        worst = 0.0
+        for k in sa:
+            if not k.startswith(prefix):
+                continue
+            a, b = sa[k], sb[k]
+            if not torch.equal(a, b):
+                differ.append(k)
+                worst = max(worst, (a.double() - b.double()).abs().max()
+                            .item() if a.is_floating_point() else math.inf)
+        out[group] = worst
+    return out, differ
+
+
+def resume_phase(F, A):
+    """Checkpoint, resume, continue and the eval CLI on the headline config
+    (section 5 of the module docstring); returns the phase's launches."""
+    from semireward_tpu_torch import eval as port_eval
+    from semireward_tpu_torch.core.checkpoint import BEST, LATEST
+    from semireward_tpu_torch.core.trainer import Trainer
+    from semireward_tpu_torch.profile_step import synthetic_config
+    from semireward_tpu_torch.train import build_trainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+
+    def config(run, **kw):
+        return synthetic_config(HEADLINE_YAML, {
+            "num_log_iter": 10, "num_eval_iter": RESUME_EVAL,
+            "start_timing": START_TIMING, "N_k": N_K,
+            "save_dir": os.path.join(root, run), **kw})
+
+    F.reset_launches()
+    A.reset_launches()
+    a = Trainer(config("a"))
+    cfg = a.cfg
+    top1 = {}
+    a.train(num_iters=RESUME_EVAL,
+            eval_hook=lambda step, m: top1.__setitem__(step, m["top-1-acc"]))
+    run_dir = os.path.join(root, "a", cfg.save_name)
+    copy = os.path.join(root, "resume_from.ckpt")
+    shutil.copy(os.path.join(run_dir, LATEST), copy)
+    writes = _checkpoint_writes(a)
+    b = build_trainer(config("b", resume=True, load_path=copy))
+    sa, sb = a.state.state_dict(), b.state.state_dict()
+    assert sorted(sa) == sorted(sb)
+    for k in sa:
+        assert sa[k].device == sb[k].device and sa[k].dtype == sb[k].dtype, k
+        assert torch.equal(sa[k], sb[k]), f"leaf {k} differs after the load"
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert (b.state.step, b.best_metric, b.best_it) == (
+        a.state.step, a.best_metric, a.best_it) and b.state.step == RESUME_EVAL
+    print(f"vit_resume: {len(sa)} leaves bit-equal after the load on "
+          f"{a.device} (the {a.generator.device} generator's state "
+          f"included); it {b.state.step}, best "
+          f"{b.best_metric:.4f} @ {b.best_it}")
+    more = RESUME_EVAL + RESUME_MORE
+    a.train(num_iters=more,
+            eval_hook=lambda step, m: top1.__setitem__(step, m["top-1-acc"]))
+    b.train(num_iters=more)
+    torch.cuda.synchronize()
+    diffs, differ = _diff_by_group(a.state.state_dict(), b.state.state_dict())
+    # tolerance: 0 (every op of the step gives the same bits every launch)
+    print(json.dumps({"vit_resume_continued_steps": RESUME_MORE,
+                      "max_abs_diff_by_group": diffs,
+                      "leaves_that_differ": differ[:20], "tolerance": 0.0}))
+    assert not differ, f"the continued steps differ in {differ[:20]}"
+    best = os.path.join(run_dir, BEST)
+    m = port_eval.main(["--load_path", best, "--dataset", cfg.dataset,
+                        "--net", cfg.net, "--num_classes",
+                        str(cfg.num_classes), "--img_size", str(cfg.img_size),
+                        "--crop_ratio", str(cfg.crop_ratio), "--batch_size",
+                        str(cfg.eval_batch_size)])
+    torch.cuda.synchronize()
+    launches = {**F.launches, **A.launches}
+    assert m["top-1-acc"] == top1[a.best_it], (m, top1, a.best_it)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    losses = {f"train/{k}" for k in ("sup_loss", "unsup_loss", "total_loss",
+                                      "util_ratio", "sr_keep_ratio")}
+    for line in lines:
+        keys = set(line)
+        if "eval/top-1-acc" in line:
+            assert keys == EVAL_KEYS, keys ^ EVAL_KEYS
+        else:
+            assert LOG_KEYS | losses <= keys, (LOG_KEYS | losses) - keys
+            assert all(k.startswith("train/") for k in keys - LOG_KEYS), keys
+    n_eval = math.ceil(len(a.bundle.eval) / cfg.eval_batch_size)
+    steps = more + RESUME_MORE  # A's 50 and B's 10
+    fwd_calls, bwd_calls = steps + 4 * n_eval, steps  # A 2 evals, B, CLI
+    n_mlp = sum(bool(getattr(m, "use_fused", False))
+                for m in a.model.modules())
+    n_flash = sum(bool(getattr(m, "use_flash", False))
+                  for m in a.model.modules())
+    want = {"fused_mlp_fwd": n_mlp * fwd_calls,
+            "fused_mlp_bwd": n_mlp * bwd_calls,
+            "fused_mlp_blocked_fwd": 0, "fused_mlp_blocked_bwd": 0,
+            "flash_attention_fwd": n_flash * fwd_calls,
+            "flash_attention_bwd": n_flash * bwd_calls}
+    print(f"  launches {launches} (expected {want})")
+    assert launches == want, (launches, want)
+    print(json.dumps({"phase": "vit_resume", "algorithm": cfg.algorithm,
+                      "net": cfg.net, "evals_top1": top1,
+                      "best_it": a.best_it, "eval_cli_top1": m["top-1-acc"],
+                      "metrics_jsonl_lines": len(lines),
+                      "checkpoint_writes": writes, "card": card_line()}))
+    del a, b
+    shutil.rmtree(root)
     torch.cuda.empty_cache()
     return launches
 
@@ -785,7 +951,8 @@ def main() -> int:
         train_phase("wrn_srfixmatch", WRN_FIX_YAML, {}, WRN_STEPS, 50, F, A,
                     ()),
         train_phase("wrn_srpseudolabel", WRN_PL_YAML, {}, WRN_STEPS, 50, F,
-                    A, ())]
+                    A, ()),
+        resume_phase(F, A)]
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
 
     where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),

@@ -1,4 +1,4 @@
-"""A/B of a kernel path in the training step, on one CUDA card.
+"""A/B of a knob of the training step, on one CUDA card.
 
     python -m semireward_tpu_torch.ab_flash [--knob use_flash_attention]
         [--configs bert_base_L512,vit_small_N257,hubert_base_N199]
@@ -8,15 +8,18 @@ For each named config (the usb_nlp BERT-base config
 config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml, the
 headline ViT-S config, the usb_audio HuBERT-base config
 config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml), builds
-two trainers with ``--knob`` (``use_flash_attention``, K2, or
-``use_fused_mlp``, K1/K3) True and False as ``profile_step.synthetic_config``
-sets them up, warms each up, then times windows of ``--steps`` steps in the
-order on, off, off, on (host clock, each window ends in a device sync) so a
-drift of the host shows as a difference between the two windows of one arm.
-Prints one JSON object with steps/s per window and per arm and the card's
-name and power limit. The flash numbers set ``flash_auto_default`` in
-``core/trainer.py``; the fused-MLP default follows the JAX package, and its
-A/B is recorded only.
+two trainers with ``--knob`` on and off as ``profile_step.synthetic_config``
+sets them up (``use_flash_attention``, K2, or ``use_fused_mlp``, K1/K3:
+True / False; ``prefetch_depth``, the producer thread that assembles the
+host batches: 2 / 0), warms each up, then times windows of ``--steps``
+steps in the order on, off, off, on (host clock, each window ends in a
+device sync; each step takes its raw batch from the trainer's train
+stream, as ``Trainer.train`` does) so a drift of the host shows as a
+difference between the two windows of one arm. Prints one JSON object
+with steps/s per window and per arm and the card's name and power limit.
+The flash numbers set ``flash_auto_default`` and the prefetch numbers the
+``prefetch_depth`` default in ``core/trainer.py``; the fused-MLP default
+follows the JAX package, and its A/B is recorded only.
 """
 from __future__ import annotations
 
@@ -33,6 +36,9 @@ from semireward_tpu_torch.profile_step import HEADLINE, synthetic_config
 
 NLP = "config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml"
 AUDIO = "config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml"
+# each knob's (on, off) values
+KNOBS = {"use_flash_attention": (True, False), "use_fused_mlp": (True, False),
+         "prefetch_depth": (2, 0)}
 CONFIGS = {
     "bert_base_L512": (NLP, {}),
     "vit_small_N257": (HEADLINE, {}),
@@ -55,34 +61,38 @@ def ab(path: str, overrides: dict, steps: int, warmup: int,
        knob: str = "use_flash_attention") -> dict:
     from semireward_tpu_torch.core.trainer import Trainer
 
+    on, off = KNOBS[knob]
     arms = {}
-    for on in (True, False):
+    for value in (on, off):
         cfg = synthetic_config(path, {**overrides, "num_log_iter": 10 ** 9,
-                                      knob: on})
+                                      knob: value})
         trainer = Trainer(cfg)
-        loader = trainer._make_loader()
+        loader = trainer._train_loader()
         _window(trainer, loader, warmup)
-        arms[on] = (trainer, loader)
+        arms[value] = (trainer, loader)
     windows = []
-    for on in (True, False, False, True):
-        windows.append({knob: on,
-                        "steps_per_sec": _window(*arms[on], steps)})
+    for value in (on, off, off, on):
+        windows.append({knob: value,
+                        "steps_per_sec": _window(*arms[value], steps)})
+    for _, loader in arms.values():
+        if hasattr(loader, "close"):
+            loader.close()
     arms.clear()
     gc.collect()
     torch.cuda.empty_cache()
     mean = {arm: sum(w["steps_per_sec"] for w in windows
-                     if w[knob] == arm) / 2 for arm in (True, False)}
+                     if w[knob] == arm) / 2 for arm in (on, off)}
     return {"config": path, "knob": knob, "overrides": overrides,
             "steps": steps, "warmup": warmup, "windows": windows,
-            "on_steps_per_sec": mean[True],
-            "off_steps_per_sec": mean[False],
-            "on_over_off": mean[True] / mean[False]}
+            "on": on, "off": off, "on_steps_per_sec": mean[on],
+            "off_steps_per_sec": mean[off],
+            "on_over_off": mean[on] / mean[off]}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--knob", default="use_flash_attention",
-                    choices=("use_flash_attention", "use_fused_mlp"))
+                    choices=sorted(KNOBS))
     ap.add_argument("--configs", default=",".join(CONFIGS),
                     help="comma-separated names of CONFIGS")
     ap.add_argument("--steps", type=int, default=100)

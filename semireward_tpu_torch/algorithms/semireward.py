@@ -142,8 +142,7 @@ def init_sr_state(cfg, device=None, generator=None) -> SRState:
            if cfg.sr_ema else None)
     max_reward = torch.full((), -float("inf"), device=device)
     return SRState(rewarder=rewarder,
-                   rewarder_opt=build_adam(list(rewarder.parameters()),
-                                           cfg.sr_lr),
+                   rewarder_opt=build_adam(rewarder, cfg.sr_lr),
                    rewarder_ema=ema, generator=gen, max_reward=max_reward)
 
 

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from semireward_tpu_torch.core.train_state import check_leaves
+
 
 def cosine_schedule_with_warmup(lr: float, num_training_steps: int,
                                 num_warmup_steps: int = 0,
@@ -80,11 +82,15 @@ class Optimizer:
                  weight_decay: float = 0.0, nesterov: bool = True,
                  clip_grad: float = 0.0, wd_mask: Optional[Sequence[bool]] = None,
                  scales: Optional[Sequence[float]] = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 names: Optional[Sequence[str]] = None):
         kind = kind.lower()
         if kind not in ("adamw", "adam", "sgd"):
             raise ValueError(f"unknown optimizer {kind}")
         self.params = list(params)
+        # the parameters' names, which key the moments in state_dict()
+        self.names = (list(names) if names is not None
+                      else [str(i) for i in range(len(self.params))])
         self.kind, self.schedule = kind, schedule
         self.momentum, self.nesterov = momentum, nesterov
         self.weight_decay = weight_decay if kind != "adam" else 0.0
@@ -104,6 +110,29 @@ class Optimizer:
             self.trace = zeros()
         else:
             self.mu, self.nu = zeros(), zeros()
+
+    def _moments(self) -> Dict[str, List[torch.Tensor]]:
+        return ({"trace": self.trace} if self.kind == "sgd"
+                else {"mu": self.mu, "nu": self.nu})
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """``count`` and the moments (``mu.<name>`` / ``nu.<name>``, or
+        ``trace.<name>`` for SGD), the live tensors."""
+        out = {"count": torch.tensor(self.count, dtype=torch.int64)}
+        for kind, ts in self._moments().items():
+            out.update(zip((f"{kind}.{n}" for n in self.names), ts))
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, src: Dict[str, torch.Tensor]) -> None:
+        """Copy a :meth:`state_dict` into the moments in place (names,
+        shapes and dtypes checked first) and set the count."""
+        live = self.state_dict()
+        check_leaves(src, live, "optimizer")
+        for name, dst in live.items():
+            if name != "count":
+                dst.copy_(src[name])
+        self.count = int(src["count"])
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
@@ -174,9 +203,12 @@ def build_optimizer(model: nn.Module, optim_name: str = "SGD",
                                                  num_warmup_steps),
                      momentum=momentum, weight_decay=weight_decay,
                      nesterov=nesterov, clip_grad=clip_grad,
-                     wd_mask=[mask[n] for n in names], scales=scales)
+                     wd_mask=[mask[n] for n in names], scales=scales,
+                     names=names)
 
 
-def build_adam(params: Sequence[torch.Tensor], lr: float) -> Optimizer:
-    """Plain Adam at a constant LR for the SemiReward rewarder."""
-    return Optimizer(params, "adam", lambda count: lr)
+def build_adam(module: nn.Module, lr: float) -> Optimizer:
+    """Plain Adam at a constant LR over ``module``'s parameters (the
+    SemiReward rewarder)."""
+    names, params = zip(*module.named_parameters())
+    return Optimizer(params, "adam", lambda count: lr, names=names)

@@ -33,7 +33,7 @@ def init_train_state(cfg, alg: Algorithm, model, builder=None,
     sr = alg.init_sr(generator) if getattr(alg, "HAS_SR", False) else None
     return TrainState(step=0, model=model,
                       ema=[p.detach().clone() for p in model.parameters()],
-                      opt=opt, algo=alg.init_state(), sr=sr)
+                      opt=opt, algo=alg.init_state(), sr=sr, rng=generator)
 
 
 def make_train_step(cfg, alg: Algorithm) -> Callable:

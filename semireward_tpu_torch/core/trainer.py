@@ -13,8 +13,17 @@ tokenizes the views into one static length bucket and copies the token
 dicts over. Audio: the host crops / pads the waveforms into the fixed
 bucket, the strong views' crops go over raw and get their sox effects on
 the device. Then the train step runs. Metrics stay on the device until a log
-boundary. Not ported yet (ROADMAP): checkpoint save/resume, the metrics
-sink, prefetch, pretrained grafting, bio data.
+boundary. With ``extra['prefetch_depth']`` > 0 a producer thread
+assembles the host batches ahead of the step (``PrefetchLoader``); the
+device copies and augmentation stay on the main thread.
+
+At each eval boundary the trainer writes ``latest_model.ckpt`` and, when
+the metric improved, ``model_best.ckpt`` under ``save_dir/save_name``
+(``core/checkpoint.py``) and logs to ``metrics.jsonl`` there
+(``utils/metrics_sink.py``); after the run it scores the test split, where
+the data has one, with the best checkpoint's weights. ``load`` resumes a
+run; ``use_pretrain`` grafts released weights onto the net before the EMA
+and the optimizer are built. Not ported yet (ROADMAP): bio data.
 """
 from __future__ import annotations
 
@@ -33,13 +42,15 @@ from semireward_tpu_torch import resolve_device
 from semireward_tpu_torch import algorithms as _algorithms  # noqa: F401
 from semireward_tpu_torch import models as _models  # noqa: F401
 from semireward_tpu_torch.config import Config
+from semireward_tpu_torch.core import checkpoint as ckpt
 from semireward_tpu_torch.core import metrics as M
 from semireward_tpu_torch.core.optim import cosine_schedule_with_warmup
 from semireward_tpu_torch.core.step import init_train_state, make_train_step
 from semireward_tpu_torch.data.augment import (AugmentSpec, augment_views,
                                                normalize)
 from semireward_tpu_torch.data.datasets import SSLDataBundle, get_dataset
-from semireward_tpu_torch.data.loader import SSLLoader, eval_batches
+from semireward_tpu_torch.data.loader import (PrefetchLoader, SSLLoader,
+                                              eval_batches)
 from semireward_tpu_torch.data.modality import (AudioSSLLoader,
                                                 GenericBundle, NLPSSLLoader,
                                                 modality_of)
@@ -50,6 +61,15 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # nets whose MLP runs the fused kernels unless the config says otherwise, as
 # in the JAX package (K1 at ViT-S widths, K3 at C = 768)
 FUSED_MLP_NETS = ("vit_", "bert_", "hubert_", "wave2vecv2_")
+
+
+# No producer thread unless the config asks for one: set by the H100 A/B
+# of ``python -m semireward_tpu_torch.ab_flash --knob prefetch_depth``
+# (PERF.md), where depth 2 against 0 ran 0.92-1.01x on the headline ViT-S
+# step and 0.90-1.01x on the BERT-base step (the host-bound steps lose the
+# GIL to the producer; the host batch work it takes over is small). The
+# JAX package's default of 2 was set on a TPU host.
+PREFETCH_DEPTH_DEFAULT = 0
 
 
 def _not_ported(what: str, item: str):
@@ -73,7 +93,8 @@ def flash_auto_default(cfg: Config, device: torch.device) -> bool:
 
 class Trainer:
     """``Trainer(cfg).train()`` is the CLI path; ``evaluate``/``predict``
-    score the EMA weights. Runs on CUDA unless ``device='cpu'``."""
+    score the EMA weights (the live ones with ``eval_use_ema = False``).
+    Runs on CUDA unless ``device='cpu'``."""
 
     def __init__(self, cfg: Config, bundle: Optional[SSLDataBundle] = None,
                  device=None, logger: Optional[logging.Logger] = None):
@@ -81,12 +102,6 @@ class Trainer:
         self.device = resolve_device(device)
         self.logger = logger or logging.getLogger(
             f"semireward_tpu_torch.{cfg.save_name}")
-        if cfg.resume and cfg.load_path and os.path.exists(
-                cfg.load_path.replace(".pth", ".ckpt")):
-            _not_ported("resume from a checkpoint", "checkpoint/resume")
-        if cfg.use_pretrain:
-            _not_ported("grafting released pretrained weights",
-                        "pretrained weights")
         if cfg.imb_algorithm:
             _not_ported("imbalanced SSL", "imb")
         if cfg.gradient_checkpointing:
@@ -150,6 +165,19 @@ class Trainer:
             self.logger.info(f"feature_dim {cfg.feature_dim} -> {width}, the "
                              f"width of {cfg.net}'s features")
             cfg.feature_dim = width
+        if cfg.use_pretrain:
+            # the released weights replace the init before the EMA shadow
+            # is taken (it restarts from them) and the optimizer moments
+            # are made (zero); each parameter keeps its init dtype
+            from semireward_tpu_torch.models.utils import load_pretrained
+            grafted = load_pretrained(cfg.net,
+                                      dict(self.model.named_parameters()),
+                                      cfg.pretrain_path)
+            with torch.no_grad():
+                for n, p in self.model.named_parameters():
+                    p.copy_(grafted[n])
+            self.logger.info(
+                f"pretrained backbone loaded from {cfg.pretrain_path}")
         self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
         no_color = bool(cfg.extra.get(
             "randaug_no_color", cfg.dataset in ("tissuemnist", "medmnist")))
@@ -165,7 +193,10 @@ class Trainer:
             cfg.lr, cfg.num_train_iter, cfg.num_warmup_iter)
         self.best_metric = -math.inf
         self.best_it = 0
+        self.eval_use_ema = True  # eval CLI --use_train_model flips this
         self.log_history = []  # one dict per log boundary
+        self.ckpt_writes = []  # {path, bytes, seconds} per checkpoint file
+        self._save_dir = os.path.join(cfg.save_dir, cfg.save_name)
 
     # ------------------------------------------------------------------
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -218,6 +249,25 @@ class Trainer:
                 batch[k] = self._to_device(raw[k].astype(np.int64))
         return batch
 
+    def _train_loader(self):
+        """The train stream, restarted at the seed (as the JAX package's
+        ``train`` does, a resumed run included), behind a producer thread of
+        ``extra['prefetch_depth']`` batches (0: none, the default)."""
+        loader = self._make_loader()
+        depth = int(self.cfg.extra.get("prefetch_depth",
+                                       PREFETCH_DEPTH_DEFAULT))
+        return PrefetchLoader(loader, depth=depth) if depth > 0 else loader
+
+    def _sink(self):
+        from semireward_tpu_torch.utils.metrics_sink import MetricsSink
+        cfg = self.cfg
+        return MetricsSink(self._save_dir,
+                           use_tensorboard=cfg.use_tensorboard,
+                           use_wandb=cfg.use_wandb, use_aim=cfg.use_aim,
+                           run_name=cfg.save_name,
+                           config={k: v for k, v in cfg.to_dict().items()
+                                   if isinstance(v, (int, float, str, bool))})
+
     def train(self, num_iters: Optional[int] = None,
               eval_hook: Optional[Callable] = None,
               step_hook: Optional[Callable] = None) -> Dict[str, float]:
@@ -225,57 +275,146 @@ class Trainer:
         sees each step's device metrics (no host sync)."""
         cfg = self.cfg
         num_iters = num_iters or cfg.num_train_iter
-        loader = self._make_loader()
-        for _ in range(self.state.step):  # keep the index stream aligned
-            next(loader)
+        loader = self._train_loader()
+        sink = self._sink()
         log = self.logger.info
         results: Dict[str, float] = {}
         t0 = time.time()
+        prefetch_acc = 0.0  # host wait for the next raw batch
         window_start = self.state.step
-        for it in range(self.state.step, num_iters):
-            metrics = self._step(self.state, self.make_batch(next(loader)),
-                                 self.generator)
-            step_now = it + 1
-            if step_hook is not None:
-                step_hook(step_now, metrics)
-            if step_now % cfg.num_log_iter == 0:
-                fetched = {k: float(v) for k, v in metrics.items()
-                           if v.ndim == 0}
-                fetched = {k: v for k, v in fetched.items()
-                           if math.isfinite(v) or math.isnan(v)}
-                dt = time.time() - t0
-                n = step_now - window_start
-                sps = n / dt if n else 0.0
-                lr = self._schedule(step_now)
-                log(f"it {step_now}/{num_iters} "
-                    + " ".join(f"{k}={v:.4f}" for k, v in sorted(fetched.items()))
-                    + f" lr={lr:.2e} steps/s={sps:.2f}")
-                self.log_history.append({"step": step_now, "steps": n,
-                                         "seconds": dt, **fetched})
-                t0, window_start = time.time(), step_now
-            if step_now % cfg.num_eval_iter == 0 or step_now == num_iters:
-                eval_m = self.evaluate()
-                key = "top-1-acc" if not cfg.is_regression else "mse"
-                score = eval_m[key] if not cfg.is_regression else -eval_m[key]
-                if score > self.best_metric:
-                    self.best_metric, self.best_it = score, step_now
-                log(f"eval @ {step_now}: "
-                    + " ".join(f"{k}={v:.4f}" for k, v in eval_m.items())
-                    + f" (best {self.best_metric:.4f} @ {self.best_it})")
-                results = {f"eval/{k}": v for k, v in eval_m.items()}
-                results["eval/best_acc"] = self.best_metric
-                results["eval/best_it"] = self.best_it
-                if eval_hook:
-                    eval_hook(step_now, eval_m)
-                t0, window_start = time.time(), step_now
+        try:
+            for it in range(self.state.step, num_iters):
+                tp = time.time()
+                raw = next(loader)
+                prefetch_acc += time.time() - tp
+                metrics = self._step(self.state, self.make_batch(raw),
+                                     self.generator)
+                step_now = it + 1
+                if step_hook is not None:
+                    step_hook(step_now, metrics)
+                if step_now % cfg.num_log_iter == 0:
+                    fetched = {k: float(v) for k, v in metrics.items()
+                               if v.ndim == 0}
+                    fetched = {k: v for k, v in fetched.items()
+                               if math.isfinite(v) or math.isnan(v)}
+                    dt = time.time() - t0
+                    n = step_now - window_start
+                    sps = n / dt if n else 0.0
+                    lr = self._schedule(step_now)
+                    log(f"it {step_now}/{num_iters} "
+                        + " ".join(f"{k}={v:.4f}"
+                                   for k, v in sorted(fetched.items()))
+                        + f" lr={lr:.2e} steps/s={sps:.2f}")
+                    self.log_history.append({"step": step_now, "steps": n,
+                                             "seconds": dt, **fetched})
+                    per = max(n, 1)
+                    sink.log({**{f"train/{k}": v for k, v in fetched.items()},
+                              "lr": lr, "train/steps_per_sec": sps,
+                              "train/prefetch_time": prefetch_acc / per,
+                              "train/run_time": max(
+                                  dt / per - prefetch_acc / per, 0.0)},
+                             step_now)
+                    prefetch_acc = 0.0
+                    t0, window_start = time.time(), step_now
+                if step_now % cfg.num_eval_iter == 0 or step_now == num_iters:
+                    eval_m = self.evaluate()
+                    key = "top-1-acc" if not cfg.is_regression else "mse"
+                    score = (eval_m[key] if not cfg.is_regression
+                             else -eval_m[key])
+                    if score > self.best_metric:
+                        self.best_metric, self.best_it = score, step_now
+                        self._write(ckpt.BEST, step_now, eval_m)
+                    self._write(ckpt.LATEST, step_now, eval_m)
+                    log(f"eval @ {step_now}: "
+                        + " ".join(f"{k}={v:.4f}" for k, v in eval_m.items())
+                        + f" (best {self.best_metric:.4f} @ {self.best_it})")
+                    sink.log({f"eval/{k}": v for k, v in eval_m.items()},
+                             step_now)
+                    results = {f"eval/{k}": v for k, v in eval_m.items()}
+                    results["eval/best_acc"] = self.best_metric
+                    results["eval/best_it"] = self.best_it
+                    if eval_hook:
+                        eval_hook(step_now, eval_m)
+                    prefetch_acc = 0.0
+                    t0, window_start = time.time(), step_now
+        finally:
+            if isinstance(loader, PrefetchLoader):
+                loader.close()  # stop the producer, on an error too
+            sink.close()
+        # the JAX package's after-run protocol: score the test split, where
+        # the data has one, with the best checkpoint's weights (read from
+        # the file; the live state is untouched)
+        best = os.path.join(self._save_dir, ckpt.BEST)
+        if getattr(self.bundle, "test", None) is not None and os.path.exists(
+                best):
+            test_m = self.evaluate(split="test", weights=self._file_weights(
+                best))
+            results.update({f"test/{k}": v for k, v in test_m.items()})
+            log("test (best ckpt): "
+                + " ".join(f"{k}={v:.4f}" for k, v in test_m.items()))
         return results
 
-    @torch.no_grad()
-    def _logits(self, x) -> np.ndarray:
-        """Logits of the EMA weights for an image batch, a token dict or a
-        waveform batch (no normalization for tokens and waveforms)."""
+    def _write(self, name: str, step_now: int, eval_m: Dict[str, float]):
+        path = os.path.join(self._save_dir, name)
+        t0 = time.time()
+        size = ckpt.save_checkpoint(path, self.state,
+                                    self._ckpt_extra(step_now, eval_m))
+        self.ckpt_writes.append({"path": path, "bytes": size,
+                                 "seconds": time.time() - t0})
+
+    def _ckpt_extra(self, step_now: int, eval_m: Dict[str, float]) -> Dict:
+        """Checkpoint metadata: the best-model tracking survives a resume,
+        as in the reference's save dict."""
+        return {"it": step_now, "eval": eval_m,
+                "best_metric": self.best_metric, "best_it": self.best_it,
+                "algorithm": self.cfg.algorithm}
+
+    def load(self, path: str) -> Dict:
+        """Resume from a checkpoint of this configuration: the whole state
+        and the best-model tracking, so a later eval cannot overwrite
+        ``model_best.ckpt`` with a worse model."""
+        extra = ckpt.load_checkpoint(path, self.state)
+        if "best_metric" in extra:
+            self.best_metric = float(extra["best_metric"])
+            self.best_it = int(extra.get("best_it", 0))
+        self.logger.info(f"resumed from {path} at it={extra.get('it')}")
+        return extra
+
+    def load_weights(self, path: str) -> Dict:
+        """Algorithm-agnostic weight load for offline eval: parameters,
+        buffers and EMA only (``checkpoint.load_eval_weights``)."""
+        return ckpt.load_eval_weights(path, self.state)
+
+    def save(self, path: str) -> int:
+        return ckpt.save_checkpoint(path, self.state,
+                                    self._ckpt_extra(self.state.step, {}))
+
+    def _file_weights(self, path: str) -> Dict[str, torch.Tensor]:
+        """The eval weights of a checkpoint file of this run (EMA or live
+        parameters, as ``eval_use_ema`` says, and the buffers), on the
+        device, for ``evaluate(weights=...)``."""
+        src = ckpt.read_payload(path)["state"]
+        group = "ema." if self.eval_use_ema else "model."
+        out = {n: src[group + n] for n, _ in self.model.named_parameters()}
+        out.update({n: src["model." + n]
+                    for n, _ in self.model.named_buffers()})
+        return {n: v.to(self.device) for n, v in out.items()}
+
+    def _eval_weights(self) -> Dict[str, torch.Tensor]:
+        if not self.eval_use_ema:
+            return {}
         names = [n for n, _ in self.model.named_parameters()]
-        weights = dict(zip(names, self.state.ema))
+        return dict(zip(names, self.state.ema))
+
+    @torch.no_grad()
+    def _logits(self, x, weights: Optional[Dict[str, torch.Tensor]] = None
+                ) -> np.ndarray:
+        """Logits of ``weights`` (default: the EMA weights, or the live ones
+        with ``eval_use_ema`` off; the live buffers) for an image batch, a
+        token dict or a waveform batch (no normalization for tokens and
+        waveforms)."""
+        if weights is None:
+            weights = self._eval_weights()
         if isinstance(x, dict):
             xs = {k: self._to_device(v) for k, v in x.items()}
         elif self.modality == "audio":
@@ -307,11 +446,19 @@ class Trainer:
             yield {"x": self.collator([items[i] for i in idx]),
                    "y": np.asarray(ds.targets)[idx], "mask": mask}
 
-    def evaluate(self) -> Dict[str, float]:
-        """Metrics of the EMA weights on the eval split."""
+    def evaluate(self, split: str = "eval",
+                 weights: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, float]:
+        """Metrics of the EMA weights (or ``weights``, see ``_logits``) on
+        the eval split, or on the test split where ``split='test'`` and the
+        data has one."""
+        ds = getattr(self.bundle, "test", None) if split == "test" else None
+        if weights is None:
+            weights = self._eval_weights()
         preds, trues, logits_all = [], [], []
-        for b in self._eval_batches(self.bundle.eval):
-            logits = self._logits(b["x"])[b["mask"]]
+        for b in self._eval_batches(ds if ds is not None
+                                    else self.bundle.eval):
+            logits = self._logits(b["x"], weights)[b["mask"]]
             preds.append(logits.argmax(-1))
             trues.append(b["y"][b["mask"]])
             logits_all.append(logits)

@@ -1,8 +1,8 @@
 """Host-side batching (the parts of ``semireward_tpu/data/loader.py`` the
 headline path uses): seeded infinite samplers yielding raw uint8 batches,
-and fixed-shape eval batches. numpy only, copied so both packages draw the
-same index streams for the same seed. The native row gather and the
-prefetch thread are not ported yet (ROADMAP).
+fixed-shape eval batches, and the prefetch thread. numpy only, copied so
+both packages draw the same index streams for the same seed. The native
+row gather is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -146,3 +146,78 @@ def eval_batches(ds: ArrayDataset, batch_size: int):
             y = np.concatenate([y, np.repeat(y[-1:], pad, axis=0)])
             mask[stop - start:] = False
         yield {"x": x, "y": y, "mask": mask}
+
+
+class PrefetchLoader:
+    """Background-thread prefetch over any (infinite) batch iterator (copy
+    of the JAX package's).
+
+    Overlaps host-side batch assembly (JPEG decode, row gather, collate)
+    with device steps: a single producer thread fills a bounded FIFO
+    queue, so batch order — and therefore run reproducibility — is
+    unchanged. The consumer blocks only when the queue is empty; that
+    wait is the true loader-starvation signal surfaced as
+    ``train/prefetch_time`` (the analogue of the reference TimerHook's
+    metric, core/hooks/timer.py:13-27). Producer exceptions re-raise on
+    the consumer side. The wrapped loader does host work only: no CUDA
+    call and no draw from a torch generator (the trainer's device copies
+    and augmentation stay on the main thread, in stream order)."""
+
+    def __init__(self, loader, depth: int = 2):
+        import queue
+        import threading
+
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._thr = threading.Thread(target=self._run, args=(loader,),
+                                     name="batch-prefetch", daemon=True)
+        self._thr.start()
+
+    _END = object()  # producer-exhausted sentinel (finite wrapped loaders)
+
+    def _run(self, loader):
+        import queue
+
+        try:
+            for b in loader:
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(b, timeout=0.25)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set():
+                    return
+            while not self._stop.is_set():  # finite loader drained
+                try:
+                    self._q.put(self._END, timeout=0.25)
+                    break
+                except queue.Full:
+                    continue
+        except BaseException as e:  # surface on the consumer thread
+            # bounded, stop-aware put: an unconditional blocking put would
+            # hang this daemon thread forever if the consumer already
+            # close()d after its own error (queue full, nobody draining)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(e, timeout=0.25)
+                    break
+                except queue.Full:
+                    try:  # drop one stale batch to make room for the error
+                        self._q.get_nowait()
+                    except queue.Empty:
+                        pass
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._END:
+            raise StopIteration
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def close(self):
+        self._stop.set()

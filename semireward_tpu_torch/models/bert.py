@@ -20,13 +20,14 @@ Attention:
   to ``dtype`` before ``PV``.
 
 Module names follow torch idiom (``layer.3`` for flax ``layer3``);
-``semireward_tpu_torch.convert`` maps one onto the other. Gradient
-checkpointing of the attention (``remat_attn``) and grafting HuggingFace
-weights (``load_hf_bert_weights``) are not ported yet (ROADMAP).
+``semireward_tpu_torch.convert`` maps one onto the other.
+``load_hf_bert_weights`` grafts a HuggingFace ``BertModel`` state dict.
+Gradient checkpointing of the attention (``remat_attn``) is not ported yet
+(ROADMAP).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -218,3 +219,37 @@ def _builder(name: str, vocab_size: int):
 
 bert_base_uncased = _builder("bert_base_uncased", 30522)
 bert_base_cased = _builder("bert_base_cased", 28996)
+
+
+def load_hf_bert_weights(params: Mapping[str, torch.Tensor],
+                         state_dict: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """Every parameter of the net, those of a HuggingFace ``BertModel``
+    state dict (numpy-convertible values) grafted in; the head keeps its
+    own. HF's names and layouts are the port's."""
+    import numpy as np
+
+    from semireward_tpu_torch.models.utils import Graft
+
+    g = Graft(params)
+    sd = {k.replace("bert.", "", 1): np.asarray(v)
+          for k, v in state_dict.items()}
+    g.put("word_embeddings.weight", sd["embeddings.word_embeddings.weight"])
+    g.put("position_embeddings", sd["embeddings.position_embeddings.weight"])
+    g.put("token_type_embeddings",
+          sd["embeddings.token_type_embeddings.weight"])
+    g.put("embeddings_ln.weight", sd["embeddings.LayerNorm.weight"])
+    g.put("embeddings_ln.bias", sd["embeddings.LayerNorm.bias"])
+    for i in range(g.count(r"layer\.(\d+)\.")):
+        src, dst = f"encoder.layer.{i}.", f"layer.{i}."
+        for ours, hf in (("attention.query", "attention.self.query"),
+                         ("attention.key", "attention.self.key"),
+                         ("attention.value", "attention.self.value"),
+                         ("attention.output", "attention.output.dense"),
+                         ("attention_ln", "attention.output.LayerNorm"),
+                         ("intermediate", "intermediate.dense"),
+                         ("output", "output.dense"),
+                         ("output_ln", "output.LayerNorm")):
+            g.put(dst + ours + ".weight", sd[src + hf + ".weight"])
+            g.put(dst + ours + ".bias", sd[src + hf + ".bias"])
+    return g.result()

@@ -33,13 +33,13 @@ a dict with ``input_values``).
 
 Module names follow the flax tree (``feature_extractor.conv3``, ``fp_proj``,
 ``layer.3.ff1``), so ``semireward_tpu_torch.convert`` maps one onto the
-other. Gradient checkpointing of the attention (``remat_attn``) and grafting
-HuggingFace weights (``load_hf_audio_weights``) are not ported yet
-(ROADMAP).
+other. ``load_hf_audio_weights`` grafts a HuggingFace ``HubertModel`` /
+``Wav2Vec2Model`` state dict. Gradient checkpointing of the attention
+(``remat_attn``) is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -235,3 +235,63 @@ def _builder(name: str):
 
 
 hubert_base = _builder("hubert_base")
+
+
+def load_hf_audio_weights(params: Mapping[str, torch.Tensor],
+                          state_dict: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """Every parameter of the net, those of a HuggingFace ``HubertModel`` /
+    ``Wav2Vec2Model`` state dict (numpy-convertible values) grafted in; the
+    head keeps its own. The positional conv is weight-normed in HF: both
+    storage formats (``weight_g`` / ``weight_v`` and torch 2's
+    ``parametrizations.weight.original0/1``) are recomposed, ``w = v * g /
+    ||v||`` over each kernel tap, in float64 as the JAX package does."""
+    import numpy as np
+
+    from semireward_tpu_torch.models.utils import Graft
+
+    g = Graft(params)
+    sd = {}
+    for k, v in state_dict.items():
+        stripped = True
+        while stripped:  # wrapper checkpoints nest, e.g. 'model.hubert.'
+            stripped = False
+            for pre in ("hubert.", "wav2vec2.", "model."):
+                if k.startswith(pre):
+                    k = k[len(pre):]
+                    stripped = True
+        sd[k] = np.asarray(v)
+    for i in range(len(_CONVS)):
+        g.put(f"feature_extractor.conv{i}.weight",
+              sd[f"feature_extractor.conv_layers.{i}.conv.weight"])
+    g.put("feature_extractor.gn0.weight",
+          sd["feature_extractor.conv_layers.0.layer_norm.weight"])
+    g.put("feature_extractor.gn0.bias",
+          sd["feature_extractor.conv_layers.0.layer_norm.bias"])
+    for ours, hf in (("fp_ln", "feature_projection.layer_norm"),
+                     ("fp_proj", "feature_projection.projection")):
+        g.put(ours + ".weight", sd[hf + ".weight"])
+        g.put(ours + ".bias", sd[hf + ".bias"])
+    pc = "encoder.pos_conv_embed.conv."
+    if pc + "weight_g" in sd:
+        wg, wv = sd[pc + "weight_g"], sd[pc + "weight_v"]
+    else:
+        wg = sd[pc + "parametrizations.weight.original0"]
+        wv = sd[pc + "parametrizations.weight.original1"]
+    norm = np.sqrt((wv.astype(np.float64) ** 2).sum(axis=(0, 1),
+                                                    keepdims=True))
+    g.put("pos_conv.weight", (wv * (wg / norm)).astype(np.float32))
+    g.put("pos_conv.bias", sd[pc + "bias"])
+    g.put("encoder_ln.weight", sd["encoder.layer_norm.weight"])
+    g.put("encoder_ln.bias", sd["encoder.layer_norm.bias"])
+    for i in range(g.count(r"layer\.(\d+)\.")):
+        src, dst = f"encoder.layers.{i}.", f"layer.{i}."
+        for ours, hf in (("q", "attention.q_proj"), ("k", "attention.k_proj"),
+                         ("v", "attention.v_proj"),
+                         ("out", "attention.out_proj"),
+                         ("ff1", "feed_forward.intermediate_dense"),
+                         ("ff2", "feed_forward.output_dense"),
+                         ("ln1", "layer_norm"), ("ln2", "final_layer_norm")):
+            g.put(dst + ours + ".weight", sd[src + hf + ".weight"])
+            g.put(dst + ours + ".bias", sd[src + hf + ".bias"])
+    return g.result()

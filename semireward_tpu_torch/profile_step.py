@@ -27,6 +27,7 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 
@@ -143,11 +144,14 @@ def main(argv=None):
     from semireward_tpu_torch.core.trainer import Trainer
 
     overrides = dict(kv.split("=", 1) for kv in args.set)
-    cfg = synthetic_config(args.config,
-                           {"num_log_iter": 10 ** 9, **overrides})
-    trainer = Trainer(cfg)
-    trainer.train(num_iters=args.warmup)
-    torch.cuda.synchronize()
+    # the warm-up's eval writes its checkpoints into a scratch directory
+    with tempfile.TemporaryDirectory() as scratch:
+        cfg = synthetic_config(args.config, {"num_log_iter": 10 ** 9,
+                                             "save_dir": scratch,
+                                             **overrides})
+        trainer = Trainer(cfg)
+        trainer.train(num_iters=args.warmup)
+        torch.cuda.synchronize()
 
     loader = trainer._make_loader()
     batches = [next(loader) for _ in range(args.steps)]

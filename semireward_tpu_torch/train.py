@@ -4,7 +4,12 @@
 
 Takes the same YAML files and ``--key value`` overrides as the JAX
 package's ``train.py`` and trains on the first CUDA card
-(``--device cpu`` runs the plain PyTorch path on the CPU).
+(``--device cpu`` runs the plain PyTorch path on the CPU). The log file,
+``metrics.jsonl`` and the checkpoints go under ``save_dir/save_name``.
+``--resume`` with ``--load_path <...>/latest_model.ckpt`` (a ``.pth`` name
+means the ``.ckpt`` beside it) continues a run from its saved step; a
+checkpoint that does not load gives a warning and a fresh start, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -37,10 +42,26 @@ def parse_args(argv=None):
     return args.config, args.device, overrides
 
 
+def build_trainer(cfg, device=None, logger=None):
+    """The CLI's Trainer: resumed from ``load_path`` when ``resume`` is
+    set and the checkpoint exists; a load that raises leaves the fresh
+    state (nothing is written before every leaf checks) and warns."""
+    from semireward_tpu_torch.core.trainer import Trainer
+
+    trainer = Trainer(cfg, device=device, logger=logger)
+    path = cfg.load_path.replace(".pth", ".ckpt") if cfg.load_path else ""
+    if cfg.resume and path and os.path.exists(path):
+        try:
+            trainer.load(path)
+        except Exception as e:  # the reference's fresh start on failure
+            trainer.logger.warning(f"resume failed ({e}); fresh start",
+                                   exc_info=True)
+    return trainer
+
+
 def main(argv=None):
     config_path, device, overrides = parse_args(argv)
     from semireward_tpu_torch import config as config_lib
-    from semireward_tpu_torch.core.trainer import Trainer
 
     cfg = (config_lib.from_yaml(config_path, overrides) if config_path
            else config_lib.from_dict(overrides))
@@ -54,7 +75,7 @@ def main(argv=None):
     logger.info(f"algorithm={cfg.algorithm} net={cfg.net} "
                 f"dataset={cfg.dataset} num_labels={cfg.num_labels} "
                 f"iters={cfg.num_train_iter}")
-    results = Trainer(cfg, device=device, logger=logger).train()
+    results = build_trainer(cfg, device, logger).train()
     for k, v in sorted(results.items()):
         logger.info(f"{k}: {v}")
     return results

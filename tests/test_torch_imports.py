@@ -11,6 +11,10 @@ import semireward_tpu_torch
 import semireward_tpu_torch.train
 import semireward_tpu_torch.convert
 import semireward_tpu_torch.core.trainer
+import semireward_tpu_torch.core.checkpoint
+import semireward_tpu_torch.utils.metrics_sink
+import semireward_tpu_torch.models.utils
+import semireward_tpu_torch.eval
 import semireward_tpu_torch.data.audio
 import semireward_tpu_torch.profile_step
 import semireward_tpu_torch.ab_flash
@@ -37,7 +41,12 @@ def test_entry_points_need_a_device(monkeypatch):
 
     from semireward_tpu_torch import resolve_device
 
+    from semireward_tpu_torch import eval as port_eval
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_eval.main(["--load_path", "absent.ckpt", "--dataset",
+                        "synthetic"])

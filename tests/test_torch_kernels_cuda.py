@@ -447,3 +447,46 @@ def test_flash_autograd_uses_the_kernels(cuda_device):
                      torch.tensor([7], dtype=torch.int32, device=cuda_device),
                      0.1, do, torch.zeros(4, 128, device=cuda_device),
                      out.detach(), None)
+
+
+@pytest.mark.cuda
+def test_headline_trainer_resumes_bit_equal_on_the_card(cuda_device,
+                                                        tmp_path):
+    """The headline config's Trainer (SRFlexMatch, ViT-S/2-32 through K1
+    and K2) trains 12 steps into stage 2 and writes its checkpoints; a
+    second Trainer resumes from ``latest_model.ckpt`` as the CLI does. Every
+    leaf of the state is bit-equal on the card, the CUDA generator's state
+    included, and so is the state after one more step of each on the same
+    raw batch."""
+    from semireward_tpu_torch.core.checkpoint import LATEST
+    from semireward_tpu_torch.core.trainer import Trainer
+    from semireward_tpu_torch.profile_step import HEADLINE, synthetic_config
+    from semireward_tpu_torch.train import build_trainer
+
+    def cfg(run, **kw):
+        return synthetic_config(HEADLINE, {
+            "num_eval_iter": 12, "num_log_iter": 4, "start_timing": 4,
+            "N_k": 4, "synthetic_test": 32,
+            "save_dir": str(tmp_path / run), **kw})
+
+    a = Trainer(cfg("a"), device=cuda_device)
+    a.train(num_iters=12)
+    latest = tmp_path / "a" / a.cfg.save_name / LATEST
+    b = build_trainer(cfg("b", resume=True, load_path=str(latest)),
+                      device=cuda_device)
+    assert a.generator.device.type == "cuda" and b.state.step == 12
+
+    def same(x, y):
+        sx, sy = x.state_dict(), y.state_dict()
+        assert sorted(sx) == sorted(sy)
+        for k in sx:
+            assert sx[k].device == sy[k].device, k
+            assert torch.equal(sx[k], sy[k]), k
+
+    same(a.state, b.state)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    raw = next(a._make_loader())
+    for tr in (a, b):
+        tr._step(tr.state, tr.make_batch(raw), tr.generator)
+    torch.cuda.synchronize()
+    same(a.state, b.state)

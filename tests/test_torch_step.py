@@ -164,7 +164,7 @@ def test_three_srflexmatch_steps_match_jax():
     assert any(selected_any)
 
 
-def test_trainer_two_steps_on_cpu():
+def test_trainer_two_steps_on_cpu(tmp_path):
     from semireward_tpu_torch.core.trainer import Trainer
 
     cfg = torch_config(
@@ -173,9 +173,9 @@ def test_trainer_two_steps_on_cpu():
         eval_batch_size=8, img_size=S, num_train_iter=2, num_eval_iter=2,
         num_log_iter=1, start_timing=1, N_k=1, feature_dim=EMB,
         optim="AdamW", lr=5e-4, layer_decay=0.5, synthetic_train=64,
-        synthetic_test=16, net_kwargs={k: v for k, v in ARCH.items()
-                                       if k not in ("use_fused_mlp",
-                                                    "img_size")})
+        synthetic_test=16, save_dir=str(tmp_path),
+        net_kwargs={k: v for k, v in ARCH.items()
+                    if k not in ("use_fused_mlp", "img_size")})
     F.reset_launches()
     tr = Trainer(cfg, device="cpu")
     results = tr.train()
@@ -189,17 +189,19 @@ def test_trainer_two_steps_on_cpu():
                           "fused_mlp_blocked_bwd": 0}
     logits = tr.predict(tr.bundle.eval.data[:5])
     assert logits.shape == (5, NC) and np.isfinite(logits).all()
+    assert sorted(p.name for p in (tmp_path / "run").iterdir()) == [
+        "latest_model.ckpt", "metrics.jsonl", "model_best.ckpt"]
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     from semireward_tpu_torch.core.trainer import Trainer
 
-    ckpt = tmp_path / "latest_model.ckpt"
-    ckpt.write_bytes(b"")
+    # resume and use_pretrain are ported (tests/test_torch_checkpoint.py,
+    # tests/test_torch_pretrained.py); imbalanced SSL is not
     cfg = torch_config(algorithm="srflexmatch", net="vit_small_patch2_32",
-                       dataset="synthetic", resume=True,
-                       load_path=str(ckpt))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+                       dataset="synthetic", imb_algorithm="abc",
+                       save_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="imbalanced"):
         Trainer(cfg, device="cpu")
     ref = torch_config(algorithm="srflexmatch")
     ref.extra["sr_reforward"] = 3  # the bench's ref-equivalent arm

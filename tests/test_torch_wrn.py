@@ -360,7 +360,7 @@ def test_imagenet_is_refused_by_name():
         TD.get_dataset(torch_config(dataset="imagenet"))
 
 
-def test_trainer_runs_classic_cv_on_cpu():
+def test_trainer_runs_classic_cv_on_cpu(tmp_path):
     """The classic_cv YAML through the port's Trainer, two steps on
     synthetic data with a narrow WRN: the rewarder takes the net's feature
     width (the YAML says 384), the EMA shadows the parameters only, and
@@ -378,6 +378,7 @@ def test_trainer_runs_classic_cv_on_cpu():
              batch_size=4, uratio=2, eval_batch_size=8, img_size=S,
              num_train_iter=2, num_eval_iter=2, num_log_iter=1,
              start_timing=0, N_k=1, use_pretrain=False, resume=False,
+             save_dir=str(tmp_path),
              compute_dtype="float32", synthetic_train=64, synthetic_test=16,
              net_kwargs=ARCH))
     assert cfg.feature_dim == 384 and cfg.optim == "SGD"
