@@ -12,7 +12,8 @@
    - K1, the fused MLP at C 128-384 (forward: two wgmma GEMMs, the GELU
      one ping-pong; backward: three and a fixed-order reduction), at the
      headline shape (M 24*257 = 6168, C 384, H 1536), the headline eval
-     shape (M 16*257 = 4112), ViT-Ti's width (M 6168, C 192, H 768) and a
+     shape (M 16*257 = 4112), the 8-image forwards' (M 2056), DeFixMatch's
+     (M 32*257 = 8224), CRMatch's (M 56*257 = 14392), ViT-Ti's width (M 6168, C 192, H 768) and a
      small ragged one, the backward bit-equal across two launches, with its
      breakdown by GEMM at the headline shape (``k3_profile.py``) and
      ptxas's registers and spills for every K1 kernel (none may spill);
@@ -27,7 +28,8 @@
      shape (12 x 12 heads, N 512, key-padding bias, dropout 0.1), the same
      without dropout (the difference is the hash's cost), HuBERT-base's (24
      x 12 heads, N 199, dropout 0.1, no bias), ViT-S's (24 x 6 heads, N 257,
-     no bias) and small ragged shapes (N 1, 77, 130, 1000): the forward's keep
+     no bias; also B 8, 32 and 56, the last timed: CRMatch's) and small
+     ragged shapes (N 1, 77, 130, 1000): the forward's keep
      bits equal to pack_keep_bits(attention_keep_mask), the backward
      bit-equal across two launches; the dropout stream read out of the
      forward kernel and the dq and dk/dv kernels' masks read out of the
@@ -73,6 +75,23 @@
      path): the BatchNorm running statistics read before and after each
      forward of one step move in the lb / concatenated pass and stay put
      in SRPseudoLabel's unlabeled pass;
+   - the USB base algorithms on the ViT-S/2-32 path (K1 and K2), each on
+     its ``config/usb_cv/<name>/<name>_cifar100_200_0.yaml`` (8 + 8 images,
+     AdamW, layer decay 0.5) for ``USB_STEPS`` steps: PiModel and
+     MeanTeacher (MeanTeacher's weak forward counted on the EMA weights),
+     VAT (the norm of the r_adv its adversarial forward took and whether
+     the power iteration's gradient was zero, every 20th step), MixMatch
+     and ReMixMatch (forwards of 8 images:
+     K1 at M 2056, K2 at B 8; ReMixMatch's p_model moves, its rotation head
+     trains), UDA (at p_cutoff 0), Dash (a 20-step supervised warm-up: rho_init equals the
+     eval loss read after it, its steps and eval counted), AdaMatch
+     (p_model and p_target move), CRMatch (one forward of 56 images: K1 at
+     M 14392, K2 at B 56; at p_cutoff 0 so that its ds and rotation heads
+     train) and DeFixMatch (32 images a forward: K1 at M 8224, K2 at B
+     32; at p_cutoff 0); the launches of each algorithm's forwards and
+     backwards a step (``PASSES``) counted exactly, the warm-up weight of
+     the ramped ones above 0, and every mask that the loss reports
+     (``util_ratio``, ``util_ratio_lb``) above 0 at some step;
    every train phase writes its checkpoints (``latest_model.ckpt``,
    ``model_best.ckpt``) and ``metrics.jsonl`` into a temporary directory,
    prints each checkpoint's bytes and write seconds, and, where the data
@@ -122,6 +141,22 @@ AUDIO_YAML = os.path.join(
 FREE_YAML, SOFT_YAML, PL_YAML = (os.path.join(
     HERE, f"config/SemiReward/usb_cv/{a}/{a}_cifar100_200_0.yaml")
     for a in ("freematch", "softmatch", "pseudolabel"))
+# the USB base algorithms, each on its usb_cv ViT-S/2-32 YAML (8 + 8 images,
+# AdamW, layer decay 0.5), and the steps each phase trains
+USB_ALGOS = ("pimodel", "meanteacher", "vat", "mixmatch", "remixmatch",
+             "uda", "dash", "adamatch", "crmatch", "defixmatch")
+USB_YAML = {a: os.path.join(HERE, f"config/usb_cv/{a}/{a}_cifar100_200_0.yaml")
+            for a in USB_ALGOS}
+USB_STEPS, USB_LOG_EVERY = 80, 20
+# Dash: a short supervised warm-up (the default is 2048 steps). CRMatch,
+# UDA and DeFixMatch: no sample of random weights passes the YAMLs' cutoffs
+# (0.95, 0.8, 0.95) in 80 steps (H100 runs: util_ratio 0 in every window of
+# UDA and DeFixMatch), which would leave their masked terms (CRMatch's Lu
+# and the ds head's Ld, DeFixMatch's debiasing term) without a gradient; at
+# 0 every sample passes
+USB_OVERRIDES = {"dash": {"num_wu_iter": 20},
+                 **{a: {"p_cutoff": 0.0}
+                    for a in ("crmatch", "uda", "defixmatch")}}
 WRN_FIX_YAML, WRN_PL_YAML = (os.path.join(
     HERE, f"config/SemiReward/classic_cv/{a}/{a}_cifar100_10000_0.yaml")
     for a in ("fixmatch", "pseudolabel"))
@@ -222,13 +257,16 @@ def fused_mlp_phase(F):
     largest magnitude is 0.4% of it and sums run in another order: 1% of
     max|plain|. Bias grads are f32 sums of the same terms: 0.1%. The
     kernels line takes K1 at the headline shape and K3 at the HuBERT-base
-    train shape; K1 at the eval, SRPseudoLabel (M 2056) and ViT-Ti shapes
-    and K3 at the BERT-base one are printed beside them."""
+    train shape; K1 at the eval, SRPseudoLabel / MixMatch / ReMixMatch (M
+    2056), DeFixMatch (M 32 * 257 = 8224), CRMatch (M 56 * 257 = 14392) and
+    ViT-Ti shapes and K3 at the
+    BERT-base one are printed beside them."""
     dev = torch.device("cuda")
     results = {}
     for m, c, h in ((100, 128, 256), (6168, 384, 1536), (4112, 384, 1536),
-                    (2056, 384, 1536), (6168, 192, 768), (100, 768, 3072),
-                    (4776, 768, 3072), (6144, 768, 3072)):
+                    (2056, 384, 1536), (8224, 384, 1536),
+                    (14392, 384, 1536), (6168, 192, 768),
+                    (100, 768, 3072), (4776, 768, 3072), (6144, 768, 3072)):
         blocked = c == 768
         fwd = F.kernel_blocked_fwd if blocked else F.kernel_fwd
         bwd = F.kernel_blocked_bwd if blocked else F.kernel_bwd
@@ -357,8 +395,12 @@ RAGGED_FLASH_SHAPES = (("ragged", (2, 77, 3, True, 0.1)),
                        ("ragged_1", (2, 1, 3, True, 0.1)),
                        ("ragged_1000", (2, 1000, 3, True, 0.1)))
 # shapes held against the plain version but not timed: the ViT-S step of
-# SRPseudoLabel, whose forwards take 8 images at a time
-CHECK_ONLY_FLASH_SHAPES = (("vit_srpseudolabel", (8, 257, 6, False, 0.0)),)
+# SRPseudoLabel, MixMatch and ReMixMatch, whose forwards take 8 images at a
+# time, and DeFixMatch's one forward of 32
+CHECK_ONLY_FLASH_SHAPES = (("vit_srpseudolabel", (8, 257, 6, False, 0.0)),
+                           ("vit_defixmatch", (32, 257, 6, False, 0.0)))
+# timed beside the model shapes: CRMatch's one forward of 56 images
+EXTRA_TIMED_FLASH_SHAPES = (("vit_crmatch", (56, 257, 6, False, 0.0)),)
 HASH_OPS = 19  # integer instructions a score: two lowbias32, counter, compare
 
 
@@ -384,7 +426,7 @@ def flash_phase(A, model_shapes):
         check=True).stdout.split()[0])
     bert = model_shapes["bert"]
     shapes = (RAGGED_FLASH_SHAPES + CHECK_ONLY_FLASH_SHAPES
-              + tuple(model_shapes.items())
+              + tuple(model_shapes.items()) + EXTRA_TIMED_FLASH_SHAPES
               + (("bert_no_dropout", bert[:4] + (0.0,)),))
     check_only = {n for n, _ in RAGGED_FLASH_SHAPES + CHECK_ONLY_FLASH_SHAPES}
     for name, (B, N, H, padded, rate) in shapes:
@@ -571,19 +613,42 @@ def check_backward_masks(A, B, N, H, d, rate):
                                  f"from attention_keep_mask")
 
 
+# (forwards, backwards) per train step of every layer, read off each
+# algorithm's loss (the JAX package's, which the port's follows forward for
+# forward): a forward without gradient counts as a forward only
+PASSES = {
+    # labeled; unlabeled weak (BN frozen)
+    "pseudolabel": (2, 2),
+    # labeled; weak (no gradient; MeanTeacher's on the EMA weights);
+    # second weak
+    "pimodel": (3, 2), "meanteacher": (3, 2),
+    # labeled; unlabeled; the probe (its autograd.grad is a backward);
+    # adversarial
+    "vat": (4, 4),
+    # two weak (no gradient); three mixed chunks of num_lb rows (the JAX
+    # loss's labeled forward, whose outputs no loss reads, is not run)
+    "mixmatch": (5, 3),
+    # weak (no gradient); s0 (the u1 loss); four mixed chunks; the rotated
+    # s0 view (the JAX loss's labeled and s1 forwards, whose outputs no
+    # loss reads, are not run)
+    "remixmatch": (7, 6),
+    # one forward over [lb, w, s, rot x 4]
+    "crmatch": (1, 1),
+}
+
+
 def passes_per_step(base: str, use_cat: bool):
-    """(forwards, backwards) per train step of every layer, from the step's
-    structure: PseudoLabel forwards the labeled and the unlabeled view
-    apart and back-propagates through both; the others forward the
-    concatenated views once with ``use_cat``, else three times with the
-    weak pass under no_grad."""
-    if base == "pseudolabel":
-        return 2, 2
+    """(forwards, backwards) per train step of every layer (``PASSES``); the
+    algorithms on ``ssl_forward`` forward the concatenated views once with
+    ``use_cat`` (DeFixMatch's labeled part holds both labeled views), else
+    three times with the weak pass under no_grad."""
+    if base in PASSES:
+        return PASSES[base]
     return (1, 1) if use_cat else (3, 2)
 
 
 def _algo_tensors(base: str, algo):
-    """The algorithm state the phase checks, cloned."""
+    """The algorithm state the phase checks (each must move), cloned."""
     if base == "flexmatch":
         return {"selected_label": algo.selected_label.clone()}
     if base == "freematch":
@@ -591,7 +656,22 @@ def _algo_tensors(base: str, algo):
     if base == "softmatch":
         return {"mu": algo.gaussian.prob_max_mu_t.clone(),
                 "var": algo.gaussian.prob_max_var_t.clone()}
+    if base == "adamatch":  # both EMAs move (update_target)
+        return {"p_model": algo.p_model.clone(),
+                "p_target": algo.p_target.clone()}
+    if base == "remixmatch":  # p_target stays the labeled class shares
+        return {"p_model": algo.p_model.clone()}
+    if base == "dash":  # rho_init from the warm-up's eval, rho at step 0
+        return {"rho": algo.rho.clone()}
     return {}
+
+
+# the heads of the algorithm's wrapper; each must move in training
+HEADS = {"remixmatch": ("rot_classifier",),
+         "crmatch": ("ds_classifier", "rot_classifier")}
+# the algorithms whose unsupervised loss ramps up with unsup_warm_up
+RAMPED = ("pseudolabel", "pimodel", "meanteacher", "vat", "mixmatch",
+          "remixmatch")
 
 
 def _bn_probe(model, record):
@@ -612,15 +692,52 @@ def _bn_probe(model, record):
     return lambda: model.__dict__.pop("forward")
 
 
+def _spies(trainer, base):
+    """Wrap the module functions the phase reads: MeanTeacher's EMA forward
+    (each call must get the state's EMA list) and VAT's perturbation (every
+    20th power-iteration gradient and the r_adv that the adversarial
+    forward took); returns the records and the undo."""
+    from semireward_tpu_torch.algorithms import pimodel, vat
+
+    rec, undo = {"ema_forwards": 0, "grad_d": [], "r_adv": []}, []
+    if base == "meanteacher":
+        orig_ema = pimodel.ema_forward
+
+        def ema_forward(model, ema, x, generator=None):
+            assert ema is trainer.state.ema, "the teacher is not the EMA"
+            rec["ema_forwards"] += 1
+            return orig_ema(model, ema, x, generator)
+
+        pimodel.ema_forward = ema_forward
+        undo.append(lambda: setattr(pimodel, "ema_forward", orig_ema))
+    if base == "vat":
+        orig_perturb = vat.adversarial_perturbation
+        calls = [0]
+
+        def adversarial_perturbation(*a):
+            r_adv, g = orig_perturb(*a)
+            calls[0] += 1
+            if calls[0] % 20 == 1:
+                rec["grad_d"].append(g.clone())
+                rec["r_adv"].append(r_adv.clone())
+            return r_adv, g
+
+        vat.adversarial_perturbation = adversarial_perturbation
+        undo.append(lambda: setattr(vat, "adversarial_perturbation",
+                                    orig_perturb))
+    return rec, lambda: [u() for u in undo]
+
+
 def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                 main_kernels):
     """Train ``steps`` steps through ``Trainer.train`` with every count set
     to 0 just before and read just after; checks the launch counts exactly
     (per step, the step's forwards and backwards of every layer on a
-    kernel, ``passes_per_step``; one forward per eval batch), that the
-    path's kernels launched, losses, the stage-2 reward filter and rewarder
-    update, the base algorithm's own state, the BatchNorm running
-    statistics where the net has them, and the eval."""
+    kernel, ``passes_per_step``; one forward per eval batch; Dash's warm-up
+    steps and eval), that the path's kernels launched, losses, the
+    SemiReward stage-2 reward filter and rewarder update, the algorithm's
+    own state, its wrapper's heads, the BatchNorm running statistics where
+    the net has them, and the eval."""
     from semireward_tpu_torch.core.trainer import Trainer
     from semireward_tpu_torch.models.batchnorm import BatchNorm
     from semireward_tpu_torch.profile_step import synthetic_config
@@ -632,8 +749,11 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                                        **overrides})
     trainer = Trainer(cfg)
     model = trainer.model
-    base = trainer.alg.base.NAME
+    sr = getattr(trainer.alg, "HAS_SR", False)
+    base = (trainer.alg.base if sr else trainer.alg).NAME
     n_fwd, n_bwd = passes_per_step(base, cfg.use_cat)
+    n_wu = (int(cfg.extra.get("num_wu_iter", cfg.num_wu_iter))
+            if trainer.alg.NEEDS_WARMUP else 0)
     # fused MLP layers by the kernel their width takes (K1 or K3)
     fused = {"full": 0, "blocked": 0}
     for m in model.modules():
@@ -646,14 +766,16 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                   for m in model.modules()
                   if not getattr(m, "attn_drop", 0.0))
     has_bn = any(isinstance(m, BatchNorm) for m in model.modules())
-    print(f"train {name}: {cfg.algorithm} {cfg.net} "
+    print(f"train {name}: {cfg.algorithm} {cfg.net} {type(model).__name__} "
           f"batch={cfg.batch_size}+{cfg.ulb_batch_size} use_cat={cfg.use_cat} "
-          f"steps={steps} forwards/backwards a step={n_fwd}/{n_bwd} fused "
-          f"MLP layers K1={fused['full']} K3={fused['blocked']} flash "
-          f"layers={n_flash} BatchNorm={has_bn}")
+          f"steps={steps} warm-up steps={n_wu} forwards/backwards a "
+          f"step={n_fwd}/{n_bwd} fused MLP layers K1={fused['full']} "
+          f"K3={fused['blocked']} flash layers={n_flash} BatchNorm={has_bn}")
     state0 = _algo_tensors(base, trainer.state.algo)
+    heads0 = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(HEADS.get(base, ()))}
     history, rewarder_snaps, first_select, bn_moved = [], {}, [], []
-    last = {}
+    last, evals = {}, []
     loss_fn = trainer.alg.loss
 
     def loss_spy(ctx):
@@ -662,12 +784,21 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         return out
 
     trainer.alg.loss = loss_spy
+    evaluate = trainer.evaluate
+
+    def eval_spy(*a, **kw):
+        m = evaluate(*a, **kw)
+        evals.append(m)
+        return m
+
+    trainer.evaluate = eval_spy
+    spied, unspy = _spies(trainer, base)
     weights_range, undo = [], []
 
     def step_hook(step, metrics):
         history.append((step, metrics))
         # ctx.step = step - 1; the rewarder trains in stage 2 at ctx.step 20
-        if step in (20, 21):
+        if sr and step in (20, 21):
             rewarder_snaps[step] = [p.detach().clone() for p in
                                     trainer.state.sr.rewarder.parameters()]
         if has_bn and step == BN_PROBE_STEP - 1:
@@ -686,7 +817,10 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
 
     F.reset_launches()
     A.reset_launches()
-    results = trainer.train(num_iters=steps, step_hook=step_hook)
+    try:
+        results = trainer.train(num_iters=steps, step_hook=step_hook)
+    finally:
+        unspy()
     torch.cuda.synchronize()
     launches = {**F.launches, **A.launches}
 
@@ -696,7 +830,10 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     n_test = (math.ceil(len(test) / cfg.eval_batch_size)
               if test is not None else 0)
     assert (n_test > 0) == any(k.startswith("test/") for k in results)
-    fwd_calls, bwd_calls = n_fwd * steps + n_eval + n_test, n_bwd * steps
+    # Dash: its warm-up steps (labeled forward and backward) and the eval
+    # that sets rho_init
+    fwd_calls = n_fwd * steps + n_eval + n_test + (n_wu + n_eval) * bool(n_wu)
+    bwd_calls = n_bwd * steps + n_wu
     want = {"fused_mlp_fwd": fused["full"] * fwd_calls,
             "fused_mlp_bwd": fused["full"] * bwd_calls,
             "fused_mlp_blocked_fwd": fused["blocked"] * fwd_calls,
@@ -707,23 +844,37 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     assert launches == want, (launches, want)
     for k in main_kernels:
         assert launches[k] > 0, f"{k} never launched on the {name} path"
+    assert len(history) == steps, (len(history), steps)
     for step, m in history:
-        for k in ("total_loss", "sup_loss", "unsup_loss", "util_ratio"):
-            v = float(m[k])
-            assert math.isfinite(v), (step, k, v)
-        keep = float(m["sr_keep_ratio"])
-        if step - 1 > START_TIMING:
-            assert 0.0 < keep <= 1.0, (step, keep)
-        else:
-            assert keep == 1.0, (step, keep)
-    assert any(not torch.equal(a, b) for a, b in
-               zip(rewarder_snaps[20], rewarder_snaps[21])), \
-        "the stage-2 rewarder update did not move the rewarder"
+        for k, v in m.items():
+            # max_reward is -inf until the rewarder first scores
+            assert math.isfinite(float(v)) or k == "max_reward", (step, k, v)
+        if sr:
+            keep = float(m["sr_keep_ratio"])
+            if step - 1 > START_TIMING:
+                assert 0.0 < keep <= 1.0, (step, keep)
+            else:
+                assert keep == 1.0, (step, keep)
+    if sr:
+        assert any(not torch.equal(a, b) for a, b in
+                   zip(rewarder_snaps[20], rewarder_snaps[21])), \
+            "the stage-2 rewarder update did not move the rewarder"
+    # a masked term that no sample passes gives no gradient, and a wrong
+    # value of it would pass unseen
+    masks = {k: max(float(m[k]) for _, m in history)
+             for k in ("util_ratio", "util_ratio_lb") if k in history[0][1]}
+    if not sr:
+        assert all(v > 0.0 for v in masks.values()), masks
     state = _algo_tensors(base, trainer.state.algo)
     moved = {k: int((state[k] != v).sum()) for k, v in state0.items()}
     for k, n in moved.items():
         assert n > 0, f"{base}'s {k} never moved"
-    extra = {"state_entries_moved": moved}
+    extra = {"state_entries_moved": moved, "max_util_ratio": masks}
+    if heads0:
+        heads = {n: float((p.detach() - heads0[n]).abs().max())
+                 for n, p in model.named_parameters() if n in heads0}
+        assert all(v > 0 for v in heads.values()), heads
+        extra["head_max_abs_move"] = heads
     if base == "flexmatch":
         extra["first_selected_at_step"] = (first_select or [None])[0]
     if base == "softmatch":
@@ -731,9 +882,34 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                                      for lo, hi in weights_range), \
             weights_range
         extra["weights_min_max"] = weights_range
-    if base == "pseudolabel":
+    if base in RAMPED:
         assert last["unsup_weight"] > 0.0, last["unsup_weight"]
         extra["unsup_warmup_weight"] = last["unsup_weight"]
+    if n_wu:
+        # the warm-up's eval comes first; its loss is rho_init (float32)
+        rho_init = float(trainer.state.algo.rho_init)
+        assert rho_init == float(torch.tensor(evals[0]["loss"])), (
+            rho_init, evals[0]["loss"])
+        extra.update(warmup_steps=n_wu, rho_init=rho_init,
+                     rho=float(trainer.state.algo.rho),
+                     lr_log_offset=trainer._lr_log_offset)
+        assert trainer._lr_log_offset == n_wu
+        assert trainer.state.opt.count == n_wu + steps
+    if base == "meanteacher":
+        assert spied["ema_forwards"] == steps, spied
+        extra["ema_teacher_forwards"] = spied["ema_forwards"]
+    if base == "vat":
+        r_adv = [r.flatten(1).norm(dim=1) for r in spied["r_adv"]]
+        zero = [bool((g == 0).all()) for g in spied["grad_d"]]
+        extra.update(r_adv_norm_min_max=[(float(r.min()), float(r.max()))
+                                         for r in r_adv],
+                     grad_d_all_zero=zero,
+                     grad_d_abs_max=[float(g.abs().max())
+                                     for g in spied["grad_d"]])
+        assert spied["grad_d"] and not any(zero), zero
+        assert all(abs(float(r.min()) - cfg.vat_eps) < 1e-3 * cfg.vat_eps
+                   and abs(float(r.max()) - cfg.vat_eps) < 1e-3 * cfg.vat_eps
+                   for r in r_adv), r_adv
     if has_bn:
         # the lb (or concatenated) pass moves the statistics; PseudoLabel's
         # unlabeled pass runs with them frozen
@@ -744,13 +920,15 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         assert math.isfinite(v), (k, v)
     windows = trainer.log_history[1:]  # after the first (warm-up) window
     sps = sum(w["steps"] for w in windows) / sum(w["seconds"] for w in windows)
-    print(f"  losses finite over {len(history)} steps; stage-2 keep ratio in "
-          f"(0, 1]; {base} state moved {moved}; eval top-1 "
+    print(f"  losses finite over {len(history)} steps; "
+          + ("stage-2 keep ratio in (0, 1]; " if sr else "")
+          + f"{base} state moved {moved}; eval top-1 "
           f"{results['eval/top-1-acc']:.4f}")
     writes = _checkpoint_writes(trainer)
     print(json.dumps({"phase": name, "algorithm": cfg.algorithm,
                       "net": cfg.net, "train_steps_per_sec": sps,
                       "measured_steps": sum(w["steps"] for w in windows),
+                      "forwards_backwards_per_step": [n_fwd, n_bwd],
                       **extra, "eval_top1": results["eval/top-1-acc"],
                       "test_top1": results.get("test/top-1-acc"),
                       "checkpoint_writes": writes,
@@ -953,6 +1131,10 @@ def main() -> int:
         train_phase("wrn_srpseudolabel", WRN_PL_YAML, {}, WRN_STEPS, 50, F,
                     A, ()),
         resume_phase(F, A)]
+    # the USB base algorithms on the ViT-S/2-32 path (K1 and K2)
+    phases += [train_phase(f"vit_{a}", USB_YAML[a], USB_OVERRIDES.get(a, {}),
+                           USB_STEPS, USB_LOG_EVERY, F, A, k1 + k2)
+               for a in USB_ALGOS]
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
 
     where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),

@@ -6,7 +6,7 @@ keeps the returned algorithm state.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -14,6 +14,7 @@ import torch
 from semireward_tpu_torch.algorithms import common as C
 from semireward_tpu_torch.core.losses import (ce_loss, consistency_loss,
                                               gen_ulb_targets)
+from semireward_tpu_torch.data.modality import modality_of
 
 
 class StepCtx(NamedTuple):
@@ -23,6 +24,7 @@ class StepCtx(NamedTuple):
     generator: Optional[torch.Generator]
     step: int                  # host int, == reference `self.it`
     sr_state: Any = None       # SemiReward state (SR variants only)
+    ema: Optional[List[torch.Tensor]] = None  # EMA shadow (MeanTeacher)
 
 
 class LossOut(NamedTuple):
@@ -38,6 +40,18 @@ class LossOut(NamedTuple):
     metrics: Dict[str, torch.Tensor]
 
 
+def not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+def text_audio_item(net: str) -> str:
+    """The ROADMAP item that takes an algorithm's text and audio forms on
+    ``net``: audio's on the audio nets, else NLP's."""
+    if modality_of(net) == "audio":
+        return "the rest of audio, section 1 item 12"
+    return "the rest of NLP and bio, section 1 item 11"
+
+
 class Algorithm:
     """Base. Subclasses override ``init_state`` and ``loss``."""
 
@@ -46,12 +60,21 @@ class Algorithm:
     BATCH_KEYS: Tuple[str, ...] = ("x_lb", "y_lb", "idx_ulb", "x_ulb_w",
                                    "x_ulb_s")
     WEAK_ULB_S: bool = False
+    # a supervised pre-stage before the first step (Dash's)
+    NEEDS_WARMUP: bool = False
 
     def __init__(self, cfg, data_info: Optional[Dict[str, Any]] = None,
                  device=None):
+        self.check_ported(cfg)
         self.cfg = cfg
         self.data_info = data_info or {}
         self.device = device
+
+    @classmethod
+    def check_ported(cls, cfg) -> None:
+        """Raise ``NotImplementedError`` naming its ROADMAP item where
+        ``cfg`` asks this algorithm for a form that the port does not have
+        yet (the trainer asks before it loads the data)."""
 
     def ce_loss(self, logits, targets, reduction="none"):
         return ce_loss(logits, targets, reduction)
@@ -73,6 +96,12 @@ class Algorithm:
 
     def maybe_dist_align(self, probs_x_ulb, probs_x_lb=None):
         return probs_x_ulb
+
+    def wrap_model(self, model, generator=None):
+        """The net the algorithm trains: ``model`` itself, or ``model``
+        under a wrapper that adds heads (``models/wrappers.py``), their
+        weights drawn from ``generator``."""
+        return model
 
     def init_state(self):
         return ()
@@ -125,3 +154,22 @@ class Algorithm:
                        unsup_weight=float(np.float32(lam) * np.float32(w)),
                        mask=mask, pseudo_label=pseudo_label, fwd=fwd,
                        new_algo_state=new_algo_state, metrics=m)
+
+
+class SupervisedWarmup(Algorithm):
+    """The loss of a supervised pre-stage (Dash's warm-up): CE on the
+    labeled view alone; the algorithm state passes through."""
+
+    NAME = "supervised_warmup"
+    BATCH_KEYS = ("x_lb", "y_lb")
+
+    def loss(self, ctx: StepCtx) -> LossOut:
+        out = ctx.model(ctx.batch["x_lb"], train=True,
+                        generator=ctx.generator)
+        sup_loss = self.ce_loss(out["logits"], ctx.batch["y_lb"], "mean")
+        zero = torch.zeros((), device=sup_loss.device)
+        return LossOut(total_loss=sup_loss, sup_loss=sup_loss,
+                       unsup_loss=zero, extra_loss=None, unsup_weight=0.0,
+                       mask=None, pseudo_label=None, fwd=None,
+                       new_algo_state=ctx.algo_state,
+                       metrics={"sup_loss": sup_loss})

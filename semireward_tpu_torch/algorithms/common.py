@@ -1,10 +1,10 @@
 """Shared SSL building blocks (port of the parts of
-``semireward_tpu/algorithms/common.py`` that FixMatch, FlexMatch, FreeMatch,
-SoftMatch and PseudoLabel use).
+``semireward_tpu/algorithms/common.py`` that the ported algorithms use).
 
 State updates are functional (they return new tensors) and stay on the
 device: no step reads a value back to the host. The queue form of
-distribution alignment (``dist_align_queue``) waits for ReMixMatch.
+distribution alignment (``dist_align_queue``) and ``concat_all_gather``
+wait for CoMatch and SimMatch.
 """
 from __future__ import annotations
 
@@ -316,3 +316,43 @@ def dist_align_ema(state: DistAlignEMAState, probs_x_ulb,
                   initialized=torch.ones_like(state.initialized))
     aligned = probs_x_ulb * (p_target + 1e-6) / (p_model + 1e-6)
     return new, aligned / aligned.sum(-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# MixUp and the reference's interleave
+# ---------------------------------------------------------------------------
+
+def interleave(xy, batch: int):
+    """Swap the i-th of ``len(xy)`` near-equal row groups between part 0 and
+    part i (the reference marks it unused; kept for parity)."""
+    nu = len(xy) - 1
+    groups = [batch // (nu + 1)] * (nu + 1)
+    for x in range(batch - sum(groups)):
+        groups[-x - 1] += 1
+    offsets = [0]
+    for g in groups:
+        offsets.append(offsets[-1] + g)
+    xy = [[v[offsets[p]:offsets[p + 1]] for p in range(nu + 1)] for v in xy]
+    for i in range(1, nu + 1):
+        xy[0][i], xy[i][i] = xy[i][i], xy[0][i]
+    return [torch.cat(v, 0) for v in xy]
+
+
+def draw_mixup(n: int, alpha: float, is_bias: bool = False,
+               generator: Optional[torch.Generator] = None, device=None):
+    """The draws of one MixUp on the device: ``lam ~ Beta(alpha, alpha)``
+    (1 when ``alpha`` is 0; ``max(lam, 1 - lam)`` with ``is_bias``) as a
+    float32 scalar, and a permutation of the ``n`` rows."""
+    if alpha > 0:
+        conc = torch.full((2,), float(alpha), device=device)
+        lam = torch._sample_dirichlet(conc, generator=generator)[0]
+    else:
+        lam = torch.ones((), device=device)
+    if is_bias:
+        lam = torch.maximum(lam, 1 - lam)
+    return lam, torch.randperm(n, generator=generator, device=device)
+
+
+def mixup_one_target(x, y, lam, index):
+    """``lam * x + (1 - lam) * x[index]``, the same for the targets ``y``."""
+    return (lam * x + (1 - lam) * x[index], lam * y + (1 - lam) * y[index])

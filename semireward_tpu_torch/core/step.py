@@ -48,7 +48,7 @@ def make_train_step(cfg, alg: Algorithm) -> Callable:
                    generator: Optional[torch.Generator] = None):
         ctx = StepCtx(model=state.model, batch=batch, algo_state=state.algo,
                       generator=generator, step=state.step,
-                      sr_state=state.sr)
+                      sr_state=state.sr, ema=state.ema)
         out = alg.loss(ctx)
         params = list(state.model.parameters())
         # parameters outside the graph (a frozen feature extractor) get a

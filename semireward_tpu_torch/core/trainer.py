@@ -23,7 +23,10 @@ the metric improved, ``model_best.ckpt`` under ``save_dir/save_name``
 (``utils/metrics_sink.py``); after the run it scores the test split, where
 the data has one, with the best checkpoint's weights. ``load`` resumes a
 run; ``use_pretrain`` grafts released weights onto the net before the EMA
-and the optimizer are built. Not ported yet (ROADMAP): bio data.
+and the optimizer are built. An algorithm may put the net under a wrapper
+with heads of its own (ReMixMatch, CRMatch) before the state is built, and
+Dash trains a supervised warm-up (``warmup``) before its first step. What
+is not ported yet raises naming its ROADMAP item (``refuse_unported``).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import logging
 import math
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +44,7 @@ from torch.func import functional_call
 from semireward_tpu_torch import resolve_device
 from semireward_tpu_torch import algorithms as _algorithms  # noqa: F401
 from semireward_tpu_torch import models as _models  # noqa: F401
+from semireward_tpu_torch.algorithms.base import SupervisedWarmup, not_ported
 from semireward_tpu_torch.config import Config
 from semireward_tpu_torch.core import checkpoint as ckpt
 from semireward_tpu_torch.core import metrics as M
@@ -72,8 +76,24 @@ FUSED_MLP_NETS = ("vit_", "bert_", "hubert_", "wave2vecv2_")
 PREFETCH_DEPTH_DEFAULT = 0
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+def refuse_unported(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for what this
+    config asks of the port that it does not do yet, before any data is
+    loaded: CoMatch and SimMatch (no class yet); a form of the algorithm
+    that it does not have (``Algorithm.check_ported``); imbalanced SSL;
+    gradient checkpointing; the fast reverb; bio data."""
+    if cfg.algorithm in ("comatch", "simmatch"):
+        not_ported(cfg.algorithm, "CoMatch and SimMatch, section 1 item 9")
+    ALGORITHMS.get(cfg.algorithm).check_ported(cfg)
+    if cfg.imb_algorithm:
+        not_ported("imbalanced SSL", "imb")
+    if cfg.gradient_checkpointing:
+        not_ported("gradient checkpointing", "remat")
+    if (modality_of(cfg.net) == "audio"
+            and not cfg.extra.get("audio_exact_reverb", True)):
+        not_ported("the fast reverb (audio_exact_reverb False)", "audio")
+    if cfg.net.startswith("dnabert"):
+        not_ported("bio/DNA data", "NLP and bio")
 
 
 def flash_auto_default(cfg: Config, device: torch.device) -> bool:
@@ -102,16 +122,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.logger = logger or logging.getLogger(
             f"semireward_tpu_torch.{cfg.save_name}")
-        if cfg.imb_algorithm:
-            _not_ported("imbalanced SSL", "imb")
-        if cfg.gradient_checkpointing:
-            _not_ported("gradient checkpointing", "remat")
+        refuse_unported(cfg)
         self.modality = modality_of(cfg.net)
-        if self.modality == "audio" and not cfg.extra.get("audio_exact_reverb",
-                                                          True):
-            _not_ported("the fast reverb (audio_exact_reverb False)", "audio")
-        if cfg.net.startswith("dnabert"):
-            _not_ported("bio/DNA data", "NLP and bio")
 
         if self.modality == "nlp":
             from semireward_tpu_torch.data.nlp import (NLPCollator,
@@ -139,6 +151,11 @@ class Trainer:
                 cfg, cfg.algorithm)
         data_info = {"ulb_dest_len": self.bundle.ulb_dest_len,
                      "lb_dest_len": self.bundle.lb_dest_len}
+        if not cfg.is_regression:
+            counts = np.bincount(
+                np.asarray(self.bundle.train_lb.targets, np.int64),
+                minlength=cfg.num_classes).astype(np.float64)
+            data_info["lb_class_dist"] = counts / max(counts.sum(), 1)
 
         builder = NETS.get(cfg.net)
         fused = cfg.extra.get("use_fused_mlp")
@@ -165,10 +182,16 @@ class Trainer:
             self.logger.info(f"feature_dim {cfg.feature_dim} -> {width}, the "
                              f"width of {cfg.net}'s features")
             cfg.feature_dim = width
+        self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
+        # heads of the algorithm's own (ReMixMatch, CRMatch) go on before
+        # the state is built, the backbone under ``backbone``
+        self.model = self.alg.wrap_model(self.model, self.generator)
         if cfg.use_pretrain:
             # the released weights replace the init before the EMA shadow
             # is taken (it restarts from them) and the optimizer moments
-            # are made (zero); each parameter keeps its init dtype
+            # are made (zero); each parameter keeps its init dtype. The
+            # graft names the bare net's parameters, so on a wrapped net it
+            # raises a KeyError, as the JAX package's does
             from semireward_tpu_torch.models.utils import load_pretrained
             grafted = load_pretrained(cfg.net,
                                       dict(self.model.named_parameters()),
@@ -178,7 +201,6 @@ class Trainer:
                     p.copy_(grafted[n])
             self.logger.info(
                 f"pretrained backbone loaded from {cfg.pretrain_path}")
-        self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
         no_color = bool(cfg.extra.get(
             "randaug_no_color", cfg.dataset in ("tissuemnist", "medmnist")))
         self.aug_spec = AugmentSpec(
@@ -193,6 +215,9 @@ class Trainer:
             cfg.lr, cfg.num_train_iter, cfg.num_warmup_iter)
         self.best_metric = -math.inf
         self.best_it = 0
+        # the logged LR's offset: Dash's warm-up steps advance the
+        # optimizer's schedule, and the step count restarts at 0
+        self._lr_log_offset = 0
         self.eval_use_ema = True  # eval CLI --use_train_model flips this
         self.log_history = []  # one dict per log boundary
         self.ckpt_writes = []  # {path, bytes, seconds} per checkpoint file
@@ -205,23 +230,27 @@ class Trainer:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _make_loader(self):
+    def _make_loader(self, seed: Optional[int] = None):
         cfg = self.cfg
+        seed = cfg.seed if seed is None else seed
         if self.modality in ("nlp", "audio"):
             loader = NLPSSLLoader if self.modality == "nlp" else AudioSSLLoader
             return loader(
                 {"train_lb": self.bundle.train_lb,
                  "train_ulb": self.bundle.train_ulb},
                 self.collator, cfg.batch_size, cfg.ulb_batch_size,
-                self.alg.BATCH_KEYS, seed=cfg.seed)
+                self.alg.BATCH_KEYS, seed=seed)
         return SSLLoader(self.bundle, cfg.batch_size, cfg.ulb_batch_size,
-                         seed=cfg.seed, sampler=cfg.train_sampler)
+                         seed=seed, sampler=cfg.train_sampler)
 
-    def make_batch(self, raw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def make_batch(self, raw: Dict[str, np.ndarray],
+                   keys: Optional[Sequence[str]] = None
+                   ) -> Dict[str, torch.Tensor]:
         """Raw host batch -> device views + labels/indices the algorithm
-        consumes. Token views go over as they are (no augmentation);
-        waveform crops under ``<view>_base`` become that strong view on the
-        device, with draws from the trainer's generator."""
+        consumes (image views: ``keys``, default the algorithm's). Token
+        views go over as they are (no augmentation); waveform crops under
+        ``<view>_base`` become that strong view on the device, with draws
+        from the trainer's generator."""
         if self.modality == "nlp":
             batch = {k: {kk: self._to_device(vv) for kk, vv in v.items()}
                      for k, v in raw.items() if k.startswith("x_")}
@@ -241,7 +270,8 @@ class Trainer:
             batch = augment_views(
                 self._to_device(raw["x_lb"]), self._to_device(raw["x_ulb"]),
                 self.aug_spec,
-                [k for k in self.alg.BATCH_KEYS if k.startswith("x_")],
+                [k for k in (keys or self.alg.BATCH_KEYS)
+                 if k.startswith("x_")],
                 self.generator,
                 weak_ulb_s=getattr(self.alg, "WEAK_ULB_S", False))
         for k in ("y_lb", "idx_lb", "idx_ulb"):
@@ -275,6 +305,14 @@ class Trainer:
         sees each step's device metrics (no host sync)."""
         cfg = self.cfg
         num_iters = num_iters or cfg.num_train_iter
+        if self.alg.NEEDS_WARMUP:
+            if self.state.step == 0:
+                self.warmup()
+            # the warm-up's steps stay in the optimizer's count (and in a
+            # resumed checkpoint's), so the logged LR runs offset as the
+            # applied one does
+            self._lr_log_offset = int(cfg.extra.get("num_wu_iter",
+                                                    cfg.num_wu_iter))
         loader = self._train_loader()
         sink = self._sink()
         log = self.logger.info
@@ -300,7 +338,7 @@ class Trainer:
                     dt = time.time() - t0
                     n = step_now - window_start
                     sps = n / dt if n else 0.0
-                    lr = self._schedule(step_now)
+                    lr = self._schedule(step_now + self._lr_log_offset)
                     log(f"it {step_now}/{num_iters} "
                         + " ".join(f"{k}={v:.4f}"
                                    for k, v in sorted(fetched.items()))
@@ -353,6 +391,30 @@ class Trainer:
             log("test (best ckpt): "
                 + " ".join(f"{k}={v:.4f}" for k, v in test_m.items()))
         return results
+
+    def warmup(self):
+        """Dash's supervised pre-stage: ``num_wu_iter`` steps of the train
+        step on a labeled-only loss (``SupervisedWarmup``: the same model,
+        optimizer and EMA; the loader at ``seed + 99``), then ``rho_init``
+        = the eval CE loss, and the step count back to 0. The optimizer's
+        count, and so its schedule, keeps the steps."""
+        cfg = self.cfg
+        state = self.state
+        warm = SupervisedWarmup(cfg, device=self.device)
+        step = make_train_step(cfg, warm)
+        loader = self._make_loader(seed=cfg.seed + 99)
+        n = int(cfg.extra.get("num_wu_iter", cfg.num_wu_iter))
+        for i in range(n):
+            batch = self.make_batch(next(loader), keys=warm.BATCH_KEYS)
+            metrics = step(state, batch, self.generator)
+            if (i + 1) % cfg.num_wu_eval_iter == 0:
+                self.logger.info(f"warmup {i + 1}/{n} "
+                                 f"sup_loss={float(metrics['sup_loss']):.4f}")
+        rho_init = self.evaluate()["loss"]
+        state.algo = self.alg.set_rho_init(state.algo, rho_init)
+        state.step = 0
+        self.logger.info(f"warmup finished; rho_init={rho_init:.4f}")
+        return rho_init
 
     def _write(self, name: str, step_now: int, eval_m: Dict[str, float]):
         path = os.path.join(self._save_dir, name)

@@ -168,12 +168,28 @@ def strong_augment(batch, spec: AugmentSpec, dc: CropDraws, dr: RandAugDraws):
     return normalize(x, spec.mean, spec.std)
 
 
+def rot90_views(x):
+    """``[B, H, W, C]`` -> the four rotations by 0, 90, 180 and 270 degrees,
+    concatenated along the batch (``jnp.rot90(x, k, (1, 2))``)."""
+    return torch.cat([torch.rot90(x, k, (1, 2)) for k in range(4)])
+
+
+def rot90_per_sample(x, k):
+    """Rotate image ``i`` of ``[B, H, W, C]`` by ``k[i] * 90`` degrees."""
+    B = x.shape[0]
+    rots = rot90_views(x).reshape(4, B, *x.shape[1:])
+    return rots[k.long(), torch.arange(B, device=x.device)]
+
+
 def augment_views(raw_lb, raw_ulb, spec: AugmentSpec, keys: Sequence[str],
                   generator: Optional[torch.Generator] = None,
                   weak_ulb_s: bool = False) -> Dict[str, torch.Tensor]:
     """The views an algorithm's BATCH_KEYS ask for, from raw uint8 batches on
     the device: x_lb / x_ulb_w weak, x_ulb_s strong (or a second weak view
-    with ``weak_ulb_s``)."""
+    with ``weak_ulb_s``). ReMixMatch's ``x_ulb_s_0_rot`` is the x_ulb_s_0
+    view rotated by a drawn ``rot_v * 90`` degrees a sample; CRMatch's
+    ``x_ulb_rot`` is a fresh weak view in all four rotations, with ``rot_v``
+    0..3 a block of B each."""
     weak_keys = ("x_lb", "x_ulb_w", "x_ulb_w_2")
     strong_keys = ("x_lb_s", "x_ulb_s", "x_ulb_s_0", "x_ulb_s_1")
     out = {}
@@ -188,4 +204,13 @@ def augment_views(raw_lb, raw_ulb, spec: AugmentSpec, keys: Sequence[str],
                                       draw_randaug(B, spec, generator, dev))
         else:
             out[key] = weak_augment(src, spec, dc)
+    B, dev = raw_ulb.shape[0], raw_ulb.device
+    if "x_ulb_s_0_rot" in keys:
+        rot_v = torch.randint(0, 4, (B,), generator=generator, device=dev)
+        out["x_ulb_s_0_rot"] = rot90_per_sample(out["x_ulb_s_0"], rot_v)
+        out["rot_v"] = rot_v
+    if "x_ulb_rot" in keys:
+        out["x_ulb_rot"] = rot90_views(weak_augment(
+            raw_ulb, spec, draw_crop(B, spec, generator, dev)))
+        out["rot_v"] = torch.arange(4, device=dev).repeat_interleave(B)
     return out

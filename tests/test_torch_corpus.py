@@ -100,3 +100,84 @@ def test_cli_trains_a_usb_audio_srsoftmatch_yaml_on_cpu(tmp_path):
     assert all(math.isfinite(v) for v in results.values())
     assert 0.0 <= results["eval/top-1-acc"] <= 1.0
     assert np.isfinite(results["eval/best_acc"])
+
+
+# ---------------------------------------------------------------------------
+# the USB base algorithms' YAMLs (config/usb_cv, config/classic_cv)
+# ---------------------------------------------------------------------------
+
+USB_ROOT = os.path.dirname(ROOT)
+USB_ALGOS = ("pimodel", "meanteacher", "vat", "mixmatch", "remixmatch", "uda",
+             "dash", "adamatch", "crmatch", "defixmatch")
+WRAPPED = {"remixmatch": "RotNet", "crmatch": "CRMatchNet"}
+
+
+def _usb_configs(suite, algo):
+    paths = sorted(glob.glob(os.path.join(USB_ROOT, suite, algo, "*.yaml")))
+    return [(p, config_lib.from_yaml(p)) for p in paths]
+
+
+@pytest.mark.parametrize("suite", ["usb_cv", "classic_cv"])
+def test_every_usb_base_algorithm_yaml_resolves(suite):
+    n = 0
+    for algo in USB_ALGOS:
+        configs = _usb_configs(suite, algo)
+        assert len(configs) == {"usb_cv": 24, "classic_cv": 30}[suite], algo
+        for path, cfg in configs:
+            NETS.get(cfg.net)
+            alg = ALGORITHMS.get(cfg.algorithm)(cfg, DATA_INFO,
+                                                torch.device("cpu"))
+            assert alg.NAME == cfg.algorithm == algo, path
+            assert not getattr(alg, "HAS_SR", False), path
+            assert cfg.dataset in TD.CV_DATASETS, path
+            n += 1
+    assert n == {"usb_cv": 240, "classic_cv": 300}[suite]
+
+
+@pytest.mark.parametrize("algo", USB_ALGOS)
+def test_usb_cv_yaml_builds_a_trainer_and_the_wrn_its_net(algo, tmp_path):
+    from semireward_tpu_torch.core.trainer import Trainer
+
+    path = os.path.join(USB_ROOT, "usb_cv", algo, f"{algo}_cifar100_200_0.yaml")
+    cfg = config_lib.from_yaml(path, {
+        "dataset": "synthetic", "use_pretrain": False, "resume": False,
+        "synthetic_train": 400, "synthetic_test": 16,
+        "save_dir": str(tmp_path)})
+    tr = Trainer(cfg, device="cpu")
+    assert type(tr.model).__name__ == WRAPPED.get(algo, "VisionTransformer")
+    assert tr.model.num_features == 384
+    assert len(tr.state.ema) == len(list(tr.model.parameters()))
+    # the classic_cv WRN-28-2 under the algorithm's wrapper
+    wcfg = config_lib.from_yaml(os.path.join(
+        USB_ROOT, "classic_cv", algo, f"{algo}_cifar100_10000_0.yaml"))
+    alg = ALGORITHMS.get(algo)(wcfg, DATA_INFO, torch.device("cpu"))
+    net = alg.wrap_model(NETS.get(wcfg.net)(num_classes=wcfg.num_classes,
+                                            dtype=torch.float32),
+                         torch.Generator().manual_seed(0))
+    out = net(torch.zeros(2, 32, 32, 3), train=False)
+    assert out["logits"].shape == (2, 100)
+    assert type(net).__name__ == WRAPPED.get(algo, "WideResNet")
+
+
+REFUSED = {
+    ("usb_nlp", "mixmatch"): "item 11", ("usb_nlp", "remixmatch"): "item 11",
+    ("usb_nlp", "vat"): "item 11", ("usb_audio", "mixmatch"): "item 12",
+    ("usb_audio", "remixmatch"): "item 12", ("usb_audio", "vat"): "item 12",
+    ("usb_cv", "comatch"): "CoMatch and SimMatch",
+    ("usb_cv", "simmatch"): "CoMatch and SimMatch",
+    ("classic_cv", "comatch"): "CoMatch and SimMatch",
+    ("classic_cv", "simmatch"): "CoMatch and SimMatch"}
+
+
+@pytest.mark.parametrize("suite,algo", sorted(REFUSED))
+def test_what_this_slice_does_not_take_raises_naming_its_item(suite, algo,
+                                                              tmp_path):
+    from semireward_tpu_torch.core.trainer import Trainer
+
+    configs = _usb_configs(suite, algo)
+    assert configs
+    for path, cfg in configs:
+        cfg.save_dir = str(tmp_path)
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP: .*{REFUSED[suite, algo]}"):
+            Trainer(cfg, device="cpu")

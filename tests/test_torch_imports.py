@@ -18,6 +18,15 @@ import semireward_tpu_torch.eval
 import semireward_tpu_torch.data.audio
 import semireward_tpu_torch.profile_step
 import semireward_tpu_torch.ab_flash
+import semireward_tpu_torch.models.wrappers
+import semireward_tpu_torch.algorithms.pimodel
+import semireward_tpu_torch.algorithms.vat
+import semireward_tpu_torch.algorithms.mixmatch
+import semireward_tpu_torch.algorithms.remixmatch
+import semireward_tpu_torch.algorithms.uda
+import semireward_tpu_torch.algorithms.dash
+import semireward_tpu_torch.algorithms.adamatch
+import semireward_tpu_torch.algorithms.crmatch
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',

@@ -4,6 +4,8 @@ card. Imports no JAX, so it runs on a CUDA machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
 Without a card every test here skips."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -83,12 +85,14 @@ def _check_kernels(dev, m, c, h, kernel, plan=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,c,h", [(100, 128, 256), (129, 192, 768),
-                                   (6168, 384, 1536), (2056, 384, 1536)])
+                                   (6168, 384, 1536), (2056, 384, 1536),
+                                   (14392, 384, 1536), (8224, 384, 1536)])
 def test_kernel_matches_plain_on_the_card(cuda_device, m, c, h):
     """K1 (F1 + F2; B1 + B2 + B3 + reduction) against the plain version on
     the plan the wrapper picks: a small ragged shape, ViT-Ti's width with
-    one row past a 128-row tile, the ViT-S train shape (M 24*257) and
-    SRPseudoLabel's (each of its two forwards takes 8*257 rows)."""
+    one row past a 128-row tile, the ViT-S train shape (M 24*257),
+    SRPseudoLabel's, MixMatch's and ReMixMatch's (forwards of 8*257 rows),
+    CRMatch's one forward of 56*257 rows and DeFixMatch's of 32*257."""
     _check_kernels(cuda_device, m, c, h, "full")
 
 
@@ -175,6 +179,40 @@ def test_vit_base_steps_on_the_card_through_k3(cuda_device):
     assert F.launches["fused_mlp_blocked_fwd"] == 12
     assert F.launches["fused_mlp_blocked_bwd"] == 12
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+def test_vat_step_on_the_card_through_k1_and_k2(cuda_device):
+    """A VAT step on vit_tiny_patch2_32 with the fused MLP and flash
+    attention: four forwards and four backwards a layer (the power
+    iteration's ``autograd.grad`` runs the backward kernels), finite."""
+    from semireward_tpu_torch.algorithms import vat  # noqa: F401
+    from semireward_tpu_torch.config import get_config
+    from semireward_tpu_torch.core.step import (init_train_state,
+                                                make_train_step)
+    from semireward_tpu_torch.models import get_net_builder
+    from semireward_tpu_torch.ops import attention as A
+    from semireward_tpu_torch.registry import ALGORITHMS
+
+    cfg = get_config(algorithm="vat", net="vit_tiny_patch2_32",
+                     num_classes=10, batch_size=4, optim="AdamW", lr=5e-4)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    builder = get_net_builder("vit_tiny_patch2_32")
+    model = builder(num_classes=10, device=cuda_device, generator=gen,
+                    use_fused_mlp=True, use_flash=True)
+    alg = ALGORITHMS.get("vat")(cfg, {}, cuda_device)
+    state = init_train_state(cfg, alg, model, builder, gen)
+    batch = {"x_lb": torch.randn(4, 32, 32, 3, device=cuda_device),
+             "x_ulb_w": torch.randn(4, 32, 32, 3, device=cuda_device),
+             "y_lb": torch.randint(0, 10, (4,), device=cuda_device)}
+    F.reset_launches()
+    A.reset_launches()
+    metrics = make_train_step(cfg, alg)(state, batch, gen)
+    torch.cuda.synchronize()
+    assert F.launches["fused_mlp_fwd"] == F.launches["fused_mlp_bwd"] == 48
+    assert (A.launches["flash_attention_fwd"]
+            == A.launches["flash_attention_bwd"] == 48)
+    assert all(math.isfinite(float(v)) for v in metrics.values())
 
 
 @pytest.mark.cuda
@@ -325,6 +363,8 @@ def test_flash_kernels_match_plain_on_the_card(cuda_device, N, bias, rate):
 @pytest.mark.parametrize("B,N,H,bias,rate", [
     (24, 257, 6, False, 0.0),    # ViT-S train
     (8, 257, 6, False, 0.0),     # ViT-S, SRPseudoLabel's separate forwards
+    (56, 257, 6, False, 0.0),    # ViT-S, CRMatch's one forward
+    (32, 257, 6, False, 0.0),    # ViT-S, DeFixMatch's one forward
     (24, 199, 12, False, 0.1),   # HuBERT-base train
     (12, 512, 12, True, 0.1),    # BERT-base train
     (12, 512, 12, True, 0.0),    # BERT-base eval (bias only)
