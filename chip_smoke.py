@@ -13,21 +13,26 @@
      one ping-pong; backward: three and a fixed-order reduction), at the
      headline shape (M 24*257 = 6168, C 384, H 1536), the headline eval
      shape (M 16*257 = 4112), the 8-image forwards' (M 2056), DeFixMatch's
-     (M 32*257 = 8224), CRMatch's (M 56*257 = 14392), ViT-Ti's width (M 6168, C 192, H 768) and a
+     and CoMatch's (M 32*257 = 8224), CRMatch's (M 56*257 = 14392),
+     SimMatch's on STL-10 at 96 px (M 24*2305 = 55320; the EMA teacher's
+     18440, the eval's 36880), ViT-Ti's width (M 6168, C 192, H 768) and a
      small ragged one, the backward bit-equal across two launches, with its
      breakdown by GEMM at the headline shape (``k3_profile.py``) and
      ptxas's registers and spills for every K1 kernel (none may spill);
    - K3, the hidden-blocked fused MLP (forward: two wgmma GEMMs; backward:
      three and a fixed-order reduction), at the HuBERT-base train shape
-     (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M 12*512 = 6144)
-     and a small ragged M, the backward bit-equal across two launches, with
+     (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M 12*512 = 6144),
+     CoMatch's on BERT-base (M 16*512 = 8192) and a small ragged M, the
+     backward bit-equal across two launches, with
      each timed row's TFLOP/s and share of its bound and the tile plan;
    - K2, flash attention (forward; dq + dk/dv, all three wgmma + TMA
      kernels with two free-running consumer warpgroups and helper warps
      that stage each step's bias and keep bits), at the BERT-base train
      shape (12 x 12 heads, N 512, key-padding bias, dropout 0.1), the same
      without dropout (the difference is the hash's cost), HuBERT-base's (24
-     x 12 heads, N 199, dropout 0.1, no bias), ViT-S's (24 x 6 heads, N 257,
+     x 12 heads, N 199, dropout 0.1, no bias), CoMatch's on BERT-base (16 x
+     12 heads, N 512, bias, dropout 0.1; timed), SimMatch's on STL-10 (24,
+     16 and 8 x 6 heads, N 2305), ViT-S's (24 x 6 heads, N 257,
      no bias; also B 8, 32 and 56, the last timed: CRMatch's) and small
      ragged shapes (N 1, 77, 130, 1000): the forward's keep
      bits equal to pack_keep_bits(attention_keep_mask), the backward
@@ -92,6 +97,28 @@
      backwards a step (``PASSES``) counted exactly, the warm-up weight of
      the ramped ones above 0, and every mask that the loss reports
      (``util_ratio``, ``util_ratio_lb``) above 0 at some step;
+   - CoMatch and SimMatch (``CO_SIM_PHASES``), at ``p_cutoff`` 0 and
+     with short epochs (``epoch`` set from ``STEPS_PER_EPOCH``):
+     ``vit_comatch`` (one forward of 32 images: K1 at M 8224, K2 at B 32;
+     the 2048-row queue's pointer and rows, memory smoothing from step 129
+     counted exactly, the contrastive loss non-zero), ``vit_simmatch`` (24
+     images; the bank's columns at the labeled indices seen moved, its
+     labels those of the last batch, the instance loss 0 in the first
+     epoch and above 0 after it), ``vit_simmatch_ema`` (the SimMatch
+     STL-10 YAML on a seeded STL-10-layout corpus, ViT-S/2-32 at 96 px:
+     N 2305, K1 at M 55320 and the EMA teacher's 18440, whose forwards
+     on the EMA weights are counted), ``bert_comatch`` (16 texts a
+     forward: K2 at B 16 with the key bias and dropout, K3 at up to M
+     8192) and ``audio_simmatch`` (HuBERT-base, 24 clips: K3 at M 4776);
+     the queue form of distribution alignment's pointer and rows in each;
+   - SemiReward's other modes on the headline config:
+     ``vit_srflexmatch_reforward`` (``extra['sr_reforward']`` 8: 1 + 8
+     forwards and 2 backwards a layer a stage-2 step, the last
+     re-forward's strong logits bit-equal to the base forward's at steps
+     20 and 30, the reward filter below 1 in stage 2) and
+     ``vit_srflexmatch_per_sample`` (``sr_per_sample``: the rewarder moves
+     in stage 1 and stage 2, and scores two samples of one label
+     differently);
    every train phase writes its checkpoints (``latest_model.ckpt``,
    ``model_best.ckpt``) and ``metrics.jsonl`` into a temporary directory,
    prints each checkpoint's bytes and write seconds, and, where the data
@@ -157,6 +184,29 @@ USB_STEPS, USB_LOG_EVERY = 80, 20
 USB_OVERRIDES = {"dash": {"num_wu_iter": 20},
                  **{a: {"p_cutoff": 0.0}
                     for a in ("crmatch", "uda", "defixmatch")}}
+# CoMatch and SimMatch: (phase, YAML, steps, steps an epoch). At p_cutoff 0
+# every sample passes the mask; the short epochs (``epoch`` set from the
+# YAML's num_train_iter) start CoMatch's memory smoothing after step 128
+# (past the first epoch and ``queue_batch``) and SimMatch's instance loss
+# after the first epoch, within the phase
+CO_SIM_PHASES = (
+    ("vit_comatch", "config/usb_cv/comatch/comatch_cifar100_200_0.yaml",
+     160, 40),
+    ("vit_simmatch", "config/usb_cv/simmatch/simmatch_cifar100_200_0.yaml",
+     80, 40),
+    # STL-10 is outside _EMA_BANK_DATASETS: the EMA-teacher branch
+    ("vit_simmatch_ema", "config/usb_cv/simmatch/simmatch_stl10_40_0.yaml",
+     40, 20),
+    ("bert_comatch", "config/usb_nlp/comatch/comatch_aclImdb_100_0.yaml",
+     60, 20),
+    ("audio_simmatch",
+     "config/usb_audio/simmatch/simmatch_esc50_250_0.yaml", 60, 20))
+# SemiReward's reference-equivalent arm (the JAX bench's 8 re-forwards) and
+# per-sample mode, on the headline config
+REFORWARD, REFORWARD_STEPS, PER_SAMPLE_STEPS = 8, 40, 100
+# the stage-2 steps (ctx.step) whose last re-forward is held bit for bit
+# against the base forward
+REFORWARD_PROBE = (20, 30)
 WRN_FIX_YAML, WRN_PL_YAML = (os.path.join(
     HERE, f"config/SemiReward/classic_cv/{a}/{a}_cifar100_10000_0.yaml")
     for a in ("fixmatch", "pseudolabel"))
@@ -190,6 +240,13 @@ LOG_KEYS = {"step", "ts", "lr", "train/steps_per_sec", "train/prefetch_time",
 EVAL_KEYS = {"step", "ts"} | {f"eval/{k}" for k in (
     "top-1-acc", "balanced_acc", "precision", "recall", "F1", "top-5-acc",
     "loss")}
+
+
+def _num_train_iter(path: str) -> int:
+    import yaml
+
+    with open(path) as f:
+        return int(yaml.safe_load(f)["num_train_iter"])
 
 
 def card_line() -> str:
@@ -258,15 +315,18 @@ def fused_mlp_phase(F):
     max|plain|. Bias grads are f32 sums of the same terms: 0.1%. The
     kernels line takes K1 at the headline shape and K3 at the HuBERT-base
     train shape; K1 at the eval, SRPseudoLabel / MixMatch / ReMixMatch (M
-    2056), DeFixMatch (M 32 * 257 = 8224), CRMatch (M 56 * 257 = 14392) and
-    ViT-Ti shapes and K3 at the
-    BERT-base one are printed beside them."""
+    2056), DeFixMatch and CoMatch (M 32 * 257 = 8224), CRMatch (M 56 * 257
+    = 14392), SimMatch on STL-10 (M 24 * 2305 = 55320, its teacher's 18440
+    and its eval's 36880) and ViT-Ti shapes and K3 at the BERT-base one
+    and CoMatch's on it (M 16 * 512 = 8192) are printed beside them."""
     dev = torch.device("cuda")
     results = {}
     for m, c, h in ((100, 128, 256), (6168, 384, 1536), (4112, 384, 1536),
                     (2056, 384, 1536), (8224, 384, 1536),
-                    (14392, 384, 1536), (6168, 192, 768),
-                    (100, 768, 3072), (4776, 768, 3072), (6144, 768, 3072)):
+                    (14392, 384, 1536), (55320, 384, 1536),
+                    (18440, 384, 1536), (36880, 384, 1536), (6168, 192, 768),
+                    (100, 768, 3072), (4776, 768, 3072), (6144, 768, 3072),
+                    (8192, 768, 3072)):
         blocked = c == 768
         fwd = F.kernel_blocked_fwd if blocked else F.kernel_fwd
         bwd = F.kernel_blocked_bwd if blocked else F.kernel_bwd
@@ -396,11 +456,18 @@ RAGGED_FLASH_SHAPES = (("ragged", (2, 77, 3, True, 0.1)),
                        ("ragged_1000", (2, 1000, 3, True, 0.1)))
 # shapes held against the plain version but not timed: the ViT-S step of
 # SRPseudoLabel, MixMatch and ReMixMatch, whose forwards take 8 images at a
-# time, and DeFixMatch's one forward of 32
+# time, DeFixMatch's and CoMatch's one forward of 32, and SimMatch's on the
+# STL-10 YAML at 96 px (N 2305): its forward of 24, its eval's 16 and its
+# EMA teacher's 8
 CHECK_ONLY_FLASH_SHAPES = (("vit_srpseudolabel", (8, 257, 6, False, 0.0)),
-                           ("vit_defixmatch", (32, 257, 6, False, 0.0)))
-# timed beside the model shapes: CRMatch's one forward of 56 images
-EXTRA_TIMED_FLASH_SHAPES = (("vit_crmatch", (56, 257, 6, False, 0.0)),)
+                           ("vit_defixmatch", (32, 257, 6, False, 0.0)),
+                           ("vit_stl10_simmatch", (24, 2305, 6, False, 0.0)),
+                           ("vit_stl10_eval", (16, 2305, 6, False, 0.0)),
+                           ("vit_stl10_teacher", (8, 2305, 6, False, 0.0)))
+# timed beside the model shapes: CRMatch's one forward of 56 images and
+# CoMatch's of 16 texts on BERT-base
+EXTRA_TIMED_FLASH_SHAPES = (("vit_crmatch", (56, 257, 6, False, 0.0)),
+                            ("bert_comatch", (16, 512, 12, True, 0.1)))
 HASH_OPS = 19  # integer instructions a score: two lowbias32, counter, compare
 
 
@@ -634,6 +701,9 @@ PASSES = {
     "remixmatch": (7, 6),
     # one forward over [lb, w, s, rot x 4]
     "crmatch": (1, 1),
+    # one forward over [lb, w, s0, s1] / [lb, w, s], whatever use_cat says
+    # (SimMatch's EMA teacher adds one: ``launch_passes``)
+    "comatch": (1, 1), "simmatch": (1, 1),
 }
 
 
@@ -641,10 +711,48 @@ def passes_per_step(base: str, use_cat: bool):
     """(forwards, backwards) per train step of every layer (``PASSES``); the
     algorithms on ``ssl_forward`` forward the concatenated views once with
     ``use_cat`` (DeFixMatch's labeled part holds both labeled views), else
-    three times with the weak pass under no_grad."""
+    three times with the weak pass under no_grad. Read off each JAX loss:
+
+    ============================== ======== =========
+    algorithm                      forwards backwards
+    ============================== ======== =========
+    ssl_forward, ``use_cat``       1        1
+    ssl_forward, separate passes   3        2
+    pseudolabel                    2        2
+    pimodel, meanteacher           3        2
+    vat                            4        4
+    mixmatch                       5        3
+    remixmatch                     7        6
+    crmatch, comatch               1        1
+    simmatch                       1 (+1)   1
+    SemiReward, ``sr_reforward`` n 1 (1+n)  1 (2)
+    ============================== ======== =========
+
+    In brackets: SimMatch with its EMA teacher (a dataset outside
+    ``_EMA_BANK_DATASETS``; the teacher's forward has no backward) and
+    SemiReward's stage-2 steps with ``extra['sr_reforward']`` n > 1 (n - 1
+    re-forwards without gradient and the last one with it, whose backward
+    runs beside the base forward's); ``launch_passes`` adds them up."""
     if base in PASSES:
         return PASSES[base]
     return (1, 1) if use_cat else (3, 2)
+
+
+def launch_passes(cfg, alg, base: str, steps: int):
+    """(forwards, backwards) of every layer over ``steps`` train steps from
+    step 0: ``passes_per_step`` a step, plus SimMatch's EMA-teacher forward
+    a step, plus ``sr_reforward`` n > 1's n forwards and one backward a
+    stage-2 step (``ctx.step > start_timing``)."""
+    n_fwd, n_bwd = passes_per_step(base, cfg.use_cat)
+    fwd, bwd = n_fwd * steps, n_bwd * steps
+    if getattr(alg, "use_ema_teacher", False):
+        fwd += steps
+    n_ref = (int(cfg.extra.get("sr_reforward", 1))
+             if getattr(alg, "HAS_SR", False) else 1)
+    if n_ref > 1:
+        stage2 = max(0, steps - (cfg.start_timing + 1))
+        fwd, bwd = fwd + n_ref * stage2, bwd + stage2
+    return fwd, bwd
 
 
 def _algo_tensors(base: str, algo):
@@ -663,6 +771,12 @@ def _algo_tensors(base: str, algo):
         return {"p_model": algo.p_model.clone()}
     if base == "dash":  # rho_init from the warm-up's eval, rho at step 0
         return {"rho": algo.rho.clone()}
+    if base == "comatch":
+        return {"queue_feats": algo.queue_feats.clone(),
+                "da_p_model": algo.dist_align.p_model.clone()}
+    if base == "simmatch":
+        return {"mem_bank": algo.mem_bank.clone(),
+                "da_p_model": algo.dist_align.p_model.clone()}
     return {}
 
 
@@ -693,20 +807,23 @@ def _bn_probe(model, record):
 
 
 def _spies(trainer, base):
-    """Wrap the module functions the phase reads: MeanTeacher's EMA forward
-    (each call must get the state's EMA list) and VAT's perturbation (every
-    20th power-iteration gradient and the r_adv that the adversarial
-    forward took); returns the records and the undo."""
-    from semireward_tpu_torch.algorithms import pimodel, vat
+    """Wrap the module functions the phase reads: MeanTeacher's and
+    SimMatch's EMA forward (each call must get the state's EMA list),
+    VAT's perturbation (every 20th power-iteration gradient and the r_adv
+    that the adversarial forward took), CoMatch's memory smoothing (its
+    calls) and SemiReward's re-forwards (the last one's strong logits at
+    ``REFORWARD_PROBE``); returns the records and the undo."""
+    from semireward_tpu_torch.algorithms import comatch, pimodel, vat
 
-    rec, undo = {"ema_forwards": 0, "grad_d": [], "r_adv": []}, []
-    if base == "meanteacher":
+    rec, undo = {"ema_forwards": 0, "grad_d": [], "r_adv": [],
+                 "smoothing": 0, "reforward_s": {}}, []
+    if base in ("meanteacher", "simmatch"):
         orig_ema = pimodel.ema_forward
 
-        def ema_forward(model, ema, x, generator=None):
+        def ema_forward(model, ema, x, generator=None, **kw):
             assert ema is trainer.state.ema, "the teacher is not the EMA"
             rec["ema_forwards"] += 1
-            return orig_ema(model, ema, x, generator)
+            return orig_ema(model, ema, x, generator, **kw)
 
         pimodel.ema_forward = ema_forward
         undo.append(lambda: setattr(pimodel, "ema_forward", orig_ema))
@@ -725,19 +842,45 @@ def _spies(trainer, base):
         vat.adversarial_perturbation = adversarial_perturbation
         undo.append(lambda: setattr(vat, "adversarial_perturbation",
                                     orig_perturb))
+    if base == "comatch":
+        orig_smooth = comatch.memory_smoothing
+
+        def memory_smoothing(*a):
+            rec["smoothing"] += 1
+            return orig_smooth(*a)
+
+        comatch.memory_smoothing = memory_smoothing
+        undo.append(lambda: setattr(comatch, "memory_smoothing",
+                                    orig_smooth))
+    if hasattr(trainer.alg, "_reforwards"):
+        orig_ref = trainer.alg._reforwards
+
+        def reforwards(ctx, *a):
+            st, mask, f = orig_ref(ctx, *a)
+            if ctx.step in REFORWARD_PROBE:
+                rec["reforward_s"][ctx.step] = f.logits_x_ulb_s.detach(
+                    ).clone()
+            return st, mask, f
+
+        trainer.alg._reforwards = reforwards
+        undo.append(lambda: trainer.alg.__dict__.pop("_reforwards"))
     return rec, lambda: [u() for u in undo]
 
 
 def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
-                main_kernels):
+                main_kernels, cfg_extra=None):
     """Train ``steps`` steps through ``Trainer.train`` with every count set
     to 0 just before and read just after; checks the launch counts exactly
-    (per step, the step's forwards and backwards of every layer on a
-    kernel, ``passes_per_step``; one forward per eval batch; Dash's warm-up
-    steps and eval), that the path's kernels launched, losses, the
-    SemiReward stage-2 reward filter and rewarder update, the algorithm's
-    own state, its wrapper's heads, the BatchNorm running statistics where
-    the net has them, and the eval."""
+    (the forwards and backwards of every layer on a kernel,
+    ``launch_passes``; one forward per eval batch; Dash's warm-up steps
+    and eval), that the path's kernels launched, losses, the SemiReward
+    reward filter and rewarder updates in both stages (and the
+    ``sr_reforward`` and ``sr_per_sample`` modes' own checks), the
+    algorithm's own state (CoMatch's queue, SimMatch's bank, their
+    distribution-alignment rings), its wrapper's heads, the BatchNorm
+    running statistics where the net has them, and the eval. ``cfg_extra``
+    goes into the config's ``extra`` (``sr_reforward``: the JAX loss reads
+    it there)."""
     from semireward_tpu_torch.core.trainer import Trainer
     from semireward_tpu_torch.models.batchnorm import BatchNorm
     from semireward_tpu_torch.profile_step import synthetic_config
@@ -747,11 +890,14 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                                        "start_timing": START_TIMING,
                                        "N_k": N_K, "save_dir": save_dir,
                                        **overrides})
+    cfg.extra.update(cfg_extra or {})
     trainer = Trainer(cfg)
     model = trainer.model
     sr = getattr(trainer.alg, "HAS_SR", False)
     base = (trainer.alg.base if sr else trainer.alg).NAME
     n_fwd, n_bwd = passes_per_step(base, cfg.use_cat)
+    n_ref = int(cfg.extra.get("sr_reforward", 1)) if sr else 1
+    teacher = getattr(trainer.alg, "use_ema_teacher", False)
     n_wu = (int(cfg.extra.get("num_wu_iter", cfg.num_wu_iter))
             if trainer.alg.NEEDS_WARMUP else 0)
     # fused MLP layers by the kernel their width takes (K1 or K3)
@@ -769,7 +915,8 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     print(f"train {name}: {cfg.algorithm} {cfg.net} {type(model).__name__} "
           f"batch={cfg.batch_size}+{cfg.ulb_batch_size} use_cat={cfg.use_cat} "
           f"steps={steps} warm-up steps={n_wu} forwards/backwards a "
-          f"step={n_fwd}/{n_bwd} fused MLP layers K1={fused['full']} "
+          f"step={n_fwd}/{n_bwd} (EMA teacher {teacher}, sr_reforward "
+          f"{n_ref}) fused MLP layers K1={fused['full']} "
           f"K3={fused['blocked']} flash layers={n_flash} BatchNorm={has_bn}")
     state0 = _algo_tensors(base, trainer.state.algo)
     heads0 = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -778,9 +925,20 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     last, evals = {}, []
     loss_fn = trainer.alg.loss
 
+    seen_idx, base_s = [], {}
+
     def loss_spy(ctx):
         out = loss_fn(ctx)
         last["mask"], last["unsup_weight"] = out.mask, out.unsup_weight
+        if base == "simmatch":
+            seen_idx.append(ctx.batch["idx_lb"])
+            last["idx_lb"], last["y_lb"] = ctx.batch["idx_lb"], \
+                ctx.batch["y_lb"]
+        if cfg.sr_per_sample:
+            last["feats_w"] = out.fwd.feats_x_ulb_w.detach()
+            last["pl"] = out.pseudo_label.detach()
+        if n_ref > 1 and ctx.step in REFORWARD_PROBE:
+            base_s[ctx.step] = out.fwd.logits_x_ulb_s.detach().clone()
         return out
 
     trainer.alg.loss = loss_spy
@@ -797,8 +955,9 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
 
     def step_hook(step, metrics):
         history.append((step, metrics))
-        # ctx.step = step - 1; the rewarder trains in stage 2 at ctx.step 20
-        if sr and step in (20, 21):
+        # ctx.step = step - 1; the rewarder trains in stage 1 at ctx.step 5
+        # and in stage 2 at ctx.step 20
+        if sr and step in (5, 6, 20, 21):
             rewarder_snaps[step] = [p.detach().clone() for p in
                                     trainer.state.sr.rewarder.parameters()]
         if has_bn and step == BN_PROBE_STEP - 1:
@@ -832,8 +991,9 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     assert (n_test > 0) == any(k.startswith("test/") for k in results)
     # Dash: its warm-up steps (labeled forward and backward) and the eval
     # that sets rho_init
-    fwd_calls = n_fwd * steps + n_eval + n_test + (n_wu + n_eval) * bool(n_wu)
-    bwd_calls = n_bwd * steps + n_wu
+    fwd_steps, bwd_steps = launch_passes(cfg, trainer.alg, base, steps)
+    fwd_calls = fwd_steps + n_eval + n_test + (n_wu + n_eval) * bool(n_wu)
+    bwd_calls = bwd_steps + n_wu
     want = {"fused_mlp_fwd": fused["full"] * fwd_calls,
             "fused_mlp_bwd": fused["full"] * bwd_calls,
             "fused_mlp_blocked_fwd": fused["blocked"] * fwd_calls,
@@ -856,9 +1016,10 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
             else:
                 assert keep == 1.0, (step, keep)
     if sr:
-        assert any(not torch.equal(a, b) for a, b in
-                   zip(rewarder_snaps[20], rewarder_snaps[21])), \
-            "the stage-2 rewarder update did not move the rewarder"
+        for a, b, stage in ((5, 6, 1), (20, 21, 2)):
+            assert any(not torch.equal(p, q) for p, q in
+                       zip(rewarder_snaps[a], rewarder_snaps[b])), \
+                f"the stage-{stage} rewarder update did not move the rewarder"
     # a masked term that no sample passes gives no gradient, and a wrong
     # value of it would pass unseen
     masks = {k: max(float(m[k]) for _, m in history)
@@ -898,6 +1059,36 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     if base == "meanteacher":
         assert spied["ema_forwards"] == steps, spied
         extra["ema_teacher_forwards"] = spied["ema_forwards"]
+    if base == "simmatch":
+        assert spied["ema_forwards"] == (steps if teacher else 0), spied
+        extra["ema_teacher_forwards"] = spied["ema_forwards"]
+    if base in ("comatch", "simmatch"):
+        extra.update(_co_sim_checks(trainer, cfg, base, steps, history,
+                                    state0, seen_idx, last, spied))
+    if n_ref > 1:
+        got = spied["reforward_s"]
+        assert sorted(got) == sorted(base_s) == list(REFORWARD_PROBE), (
+            sorted(got), sorted(base_s))
+        for t in REFORWARD_PROBE:
+            assert torch.equal(got[t], base_s[t]), (
+                f"the last re-forward's strong logits differ from the base "
+                f"forward's at step {t}")
+        keep = [float(m["sr_keep_ratio"]) for step, m in history
+                if step - 1 > START_TIMING]
+        assert min(keep) < 1.0, keep
+        extra.update(reforwards=n_ref, stage2_keep_min=min(keep),
+                     last_reforward_bit_equal_at=list(REFORWARD_PROBE))
+    if cfg.sr_per_sample:
+        # the last batch's weak features, all scored with the first one's
+        # pseudo-label: the per-sample rewarder tells them apart
+        feats = last["feats_w"]
+        pl = last["pl"].argmax(-1) if last["pl"].is_floating_point() \
+            else last["pl"]
+        with torch.no_grad():
+            r = trainer.state.sr.rewarder(feats, pl[:1].expand(len(pl)))
+        spread = float(r.max() - r.min())
+        assert spread > 0.0, "two samples of one label took one reward"
+        extra["reward_spread_one_label"] = spread
     if base == "vat":
         r_adv = [r.flatten(1).norm(dim=1) for r in spied["r_adv"]]
         zero = [bool((g == 0).all()) for g in spied["grad_d"]]
@@ -929,6 +1120,7 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                       "net": cfg.net, "train_steps_per_sec": sps,
                       "measured_steps": sum(w["steps"] for w in windows),
                       "forwards_backwards_per_step": [n_fwd, n_bwd],
+                      "forwards_backwards_in_all": [fwd_steps, bwd_steps],
                       **extra, "eval_top1": results["eval/top-1-acc"],
                       "test_top1": results.get("test/top-1-acc"),
                       "checkpoint_writes": writes,
@@ -937,6 +1129,56 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     shutil.rmtree(save_dir)
     torch.cuda.empty_cache()
     return launches
+
+
+def _co_sim_checks(trainer, cfg, base, steps, history, state0, seen_idx,
+                   last, spied):
+    """CoMatch's queue and SimMatch's bank after ``steps`` steps from the
+    start, and their distribution-alignment rings: pointers where the step
+    count puts them, the rows written, CoMatch's smoothing calls and
+    contrastive loss, SimMatch's bank columns and labels and its instance
+    loss by epoch. Returns what it read."""
+    st = trainer.state.algo
+    da = st.dist_align
+    L = da.p_model.shape[0]
+    rows = int((da.p_model.sum(1) > 0).sum())
+    assert int(da.p_model_ptr) == steps % L and rows == min(steps, L), (
+        int(da.p_model_ptr), rows)
+    out = {"dist_align_ptr": int(da.p_model_ptr),
+           "dist_align_rows_written": rows}
+    per_epoch = max(cfg.num_train_iter // max(cfg.epoch, 1), 1)
+    if base == "comatch":
+        size = trainer.alg.queue_size
+        n_ins = cfg.batch_size + cfg.ulb_batch_size
+        written = int((st.queue_feats.abs().sum(1) > 0).sum())
+        assert int(st.queue_ptr) == (steps * n_ins) % size, int(st.queue_ptr)
+        assert written == min(steps * n_ins, size), written
+        contrast = [float(m["contrast_loss"]) for _, m in history]
+        assert all(c != 0.0 for c in contrast), contrast
+        want = sum(1 for t in range(steps)
+                   if t // per_epoch > 0 and t > cfg.queue_batch)
+        assert spied["smoothing"] == want, (spied["smoothing"], want)
+        if steps > cfg.queue_batch + per_epoch:
+            assert want > 0
+        out.update(queue_size=size, queue_ptr=int(st.queue_ptr),
+                   queue_rows_written=written, smoothing_steps=want,
+                   contrast_loss_min_max=[min(contrast), max(contrast)])
+    else:
+        seen = torch.unique(torch.cat(seen_idx))
+        moved = (st.mem_bank[:, seen] != state0["mem_bank"][:, seen]).any(0)
+        assert bool(moved.all()), int((~moved).sum())
+        idx, y = last["idx_lb"], last["y_lb"]
+        alone = (idx[:, None] == idx[None, :]).sum(1) == 1
+        assert torch.equal(st.labels_bank[idx[alone]], y[alone].long())
+        # history's step is ctx.step + 1
+        first = [float(m["in_loss"]) for t, m in history if t <= per_epoch]
+        after = [float(m["in_loss"]) for t, m in history if t > per_epoch]
+        assert all(v == 0.0 for v in first) and after and min(after) > 0, (
+            first, after)
+        out.update(bank_columns=int(st.mem_bank.shape[1]),
+                   bank_columns_seen_moved=int(seen.numel()),
+                   in_loss_after_first_epoch_min=min(after))
+    return out
 
 
 def _checkpoint_writes(trainer):
@@ -1135,6 +1377,22 @@ def main() -> int:
     phases += [train_phase(f"vit_{a}", USB_YAML[a], USB_OVERRIDES.get(a, {}),
                            USB_STEPS, USB_LOG_EVERY, F, A, k1 + k2)
                for a in USB_ALGOS]
+    # CoMatch and SimMatch: ViT-S through K1 and K2, BERT-base and
+    # HuBERT-base through K2 and K3
+    for name, rel, steps, per_epoch in CO_SIM_PHASES:
+        path = os.path.join(HERE, rel)
+        phases.append(train_phase(
+            name, path, {"p_cutoff": 0.0,
+                         "epoch": _num_train_iter(path) // per_epoch},
+            steps, 20, F, A, k2 + (k1 if name.startswith("vit") else k3)))
+    # SemiReward's reference-equivalent arm and per-sample mode, at
+    # p_cutoff 0: FlexMatch's selected_label moves within the short phases
+    phases.append(train_phase("vit_srflexmatch_reforward", HEADLINE_YAML,
+                              {"p_cutoff": 0.0}, REFORWARD_STEPS, 10, F, A,
+                              k1 + k2, cfg_extra={"sr_reforward": REFORWARD}))
+    phases.append(train_phase("vit_srflexmatch_per_sample", HEADLINE_YAML,
+                              {"sr_per_sample": True, "p_cutoff": 0.0},
+                              PER_SAMPLE_STEPS, 20, F, A, k1 + k2))
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
 
     where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),

@@ -2,9 +2,8 @@
 ``semireward_tpu/algorithms/common.py`` that the ported algorithms use).
 
 State updates are functional (they return new tensors) and stay on the
-device: no step reads a value back to the host. The queue form of
-distribution alignment (``dist_align_queue``) and ``concat_all_gather``
-wait for CoMatch and SimMatch.
+device: no step reads a value back to the host. ``concat_all_gather``,
+which no algorithm of the JAX package calls, waits for the mesh.
 """
 from __future__ import annotations
 
@@ -315,6 +314,70 @@ def dist_align_ema(state: DistAlignEMAState, probs_x_ulb,
     new = replace(state, p_target=p_target.detach(), p_model=p_model,
                   initialized=torch.ones_like(state.initialized))
     aligned = probs_x_ulb * (p_target + 1e-6) / (p_model + 1e-6)
+    return new, aligned / aligned.sum(-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Distribution alignment, queue form (CoMatch, SimMatch)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DistAlignQueueState:
+    p_target: torch.Tensor      # [L, C]
+    p_model: torch.Tensor       # [L, C]
+    p_model_ptr: torch.Tensor   # int64 scalar
+    p_target_ptr: torch.Tensor  # int64 scalar, -1: a fixed target
+
+
+def dist_align_queue_init(num_classes: int, queue_length: int = 128,
+                          p_target_type: str = "uniform",
+                          p_target: Optional[torch.Tensor] = None,
+                          device=None) -> DistAlignQueueState:
+    """Rings of ``queue_length`` rows. ``p_target_type``: ``uniform`` (a
+    fixed uniform target), ``model`` (the target tracks the labeled
+    batches' mean probabilities, from zeros) or any other name with
+    ``p_target`` (that fixed distribution)."""
+    if p_target_type == "uniform":
+        tgt = torch.full((queue_length, num_classes), 1.0 / num_classes,
+                         device=device)
+        tptr = -1
+    elif p_target_type == "model":
+        tgt = torch.zeros(queue_length, num_classes, device=device)
+        tptr = 0
+    else:
+        tgt = p_target.reshape(1, -1).float().to(device).repeat(
+            queue_length, 1)
+        tptr = -1
+    return DistAlignQueueState(
+        p_target=tgt,
+        p_model=torch.zeros(queue_length, num_classes, device=device),
+        p_model_ptr=torch.zeros((), dtype=torch.long, device=device),
+        p_target_ptr=torch.full((), tptr, dtype=torch.long, device=device))
+
+
+def dist_align_queue(state: DistAlignQueueState, probs_x_ulb,
+                     probs_x_lb=None
+                     ) -> Tuple[DistAlignQueueState, torch.Tensor]:
+    """Write this batch's mean unlabeled probabilities at ``p_model_ptr``
+    (and, with ``probs_x_lb`` and a tracking target, the labeled ones at
+    ``p_target_ptr``), advance the pointers round the ring, then scale
+    ``probs_x_ulb`` by the ratio of the rings' means, renormalized. The
+    pointers stay on the device."""
+    L = state.p_model.shape[0]
+    row = probs_x_ulb.detach().mean(0, keepdim=True)
+    p_model = state.p_model.index_copy(0, state.p_model_ptr.reshape(1), row)
+    p_model_ptr = (state.p_model_ptr + 1) % L
+    p_target, p_target_ptr = state.p_target, state.p_target_ptr
+    if probs_x_lb is not None:
+        track = p_target_ptr >= 0
+        upd = p_target.index_copy(0, p_target_ptr.clamp(min=0).reshape(1),
+                                  probs_x_lb.detach().mean(0, keepdim=True))
+        p_target = torch.where(track, upd, p_target)
+        p_target_ptr = torch.where(track, (p_target_ptr + 1) % L,
+                                   p_target_ptr)
+    new = DistAlignQueueState(p_target, p_model, p_model_ptr, p_target_ptr)
+    aligned = (probs_x_ulb * (p_target.mean(0) + 1e-6)
+               / (p_model.mean(0) + 1e-6))
     return new, aligned / aligned.sum(-1, keepdim=True)
 
 

@@ -19,12 +19,14 @@ from semireward_tpu_torch.models.batchnorm import frozen_bn
 from semireward_tpu_torch.registry import ALGORITHMS
 
 
-def ema_forward(model, ema: List[torch.Tensor], x, generator=None):
-    """``model``'s training forward with the EMA shadow in place of its
-    parameters (the live buffers, as in the JAX package)."""
+def ema_forward(model, ema: List[torch.Tensor], x, generator=None,
+                train: bool = True):
+    """``model``'s forward (training mode by default) with the EMA shadow
+    in place of its parameters (the live buffers, as in the JAX
+    package)."""
     names = [n for n, _ in model.named_parameters()]
     return functional_call(model, dict(zip(names, ema)), (x,),
-                           {"train": True, "generator": generator})
+                           {"train": train, "generator": generator})
 
 
 class _UnlabeledConsistency(Algorithm):

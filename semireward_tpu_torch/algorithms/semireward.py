@@ -7,6 +7,10 @@ base algorithm; ``srpseudolabel``, ``srfixmatch``, ``srflexmatch``,
 - The ``Rewarder`` keeps the reference's batch-dim "cross-attention": one
   softmax over the ``[2B, 128]`` concat of projected features and label
   embeddings, summed to a single vector added to every label embedding.
+  With ``sr_per_sample`` (the JAX package's opt-in, beyond the reference)
+  the softmax runs over each sample's own (feature, label) pair instead,
+  and the rewarder trains in both stages on the labeled batch twice, with
+  the true labels and with labels drawn uniformly (``draw_candidates``).
 - Two stages keyed on ``start_timing``, with the JAX package's two
   conditions as written: the loss applies the reward filter
   (``mask2 = reward >= mean``) for ``step > start_timing``; ``sr_update``
@@ -21,8 +25,15 @@ base algorithm; ``srpseudolabel``, ``srfixmatch``, ``srflexmatch``,
   target, so the repeats run in closed form (``common.ema_repeat``: a few
   launches, however many repeats). SoftMatch re-applies only its weighting,
   not the distribution alignment, on the raw weak probabilities.
-
-Not ported yet (ROADMAP): ``sr_reforward > 1`` and ``sr_per_sample``.
+- ``extra['sr_reforward'] = n > 1`` (the JAX bench's reference-equivalent
+  arm; the JAX loss reads ``extra`` only, not the config field of that
+  name) runs the reference's redundant stage-2 work: ``n - 1`` re-forwards
+  of the whole batch without gradient, each remasked once and scored by
+  the rewarder, then one last re-forward that the loss differentiates.
+  Each re-forward replays the generator from before the base forward, so
+  all draw its dropout and drop-path masks, as JAX's share one key, and
+  the last one's logits equal the base forward's. BatchNorm's running
+  statistics stay where the base forward left them.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from semireward_tpu_torch.algorithms.base import Algorithm, LossOut, StepCtx
 from semireward_tpu_torch.core.losses import consistency_loss
 from semireward_tpu_torch.core.optim import build_adam
 from semireward_tpu_torch.core.train_state import SRState
+from semireward_tpu_torch.models.batchnorm import frozen_bn
 from semireward_tpu_torch.models.initializers import init_module_
 from semireward_tpu_torch.registry import ALGORITHMS
 
@@ -79,12 +91,15 @@ class Generator(nn.Module):
 
 
 class Rewarder(nn.Module):
-    """Pseudo-label reward model, the reference's faithful form."""
+    """Pseudo-label reward model: the reference's faithful form, or with
+    ``per_sample`` a softmax over each sample's own (feature, label) pair;
+    the same parameters either way."""
 
     def __init__(self, label_dim: int, label_embedding_dim: int = 128,
-                 feature_dim: int = 384):
+                 feature_dim: int = 384, per_sample: bool = False):
         super().__init__()
         self.label_dim = label_dim
+        self.per_sample = per_sample
         self.feature_fc = nn.Linear(feature_dim, 128)
         self.feature_norm = nn.LayerNorm(128, eps=1e-5)
         self.label_embedding = nn.Embedding(label_dim, label_embedding_dim)
@@ -99,9 +114,14 @@ class Rewarder(nn.Module):
         labels = label_indices.long().clamp(0, self.label_dim - 1)
         f = self.feature_norm(self.feature_fc(features.float()))
         emb = self.label_norm(self.label_embedding(labels))
-        cat = torch.cat([f, emb], dim=0)                          # [2B, 128]
-        w = F.softmax(self.cross_attention_fc(cat), dim=0)        # [2B, 1]
-        h = (w * cat).sum(0, keepdim=True) + emb                  # [B, 128]
+        if self.per_sample:
+            pair = torch.stack([f, emb], dim=1)                   # [B, 2, 128]
+            w = F.softmax(self.cross_attention_fc(pair), dim=1)   # [B, 2, 1]
+            h = (w * pair).sum(1) + emb                           # [B, 128]
+        else:
+            cat = torch.cat([f, emb], dim=0)                      # [2B, 128]
+            w = F.softmax(self.cross_attention_fc(cat), dim=0)    # [2B, 1]
+            h = (w * cat).sum(0, keepdim=True) + emb              # [B, 128]
         h = self.mlp_fc2(F.relu(self.mlp_fc1(h)))
         h = F.relu(self.ffn_fc1(h))
         return torch.sigmoid(self.ffn_fc2(h))                     # [B, 1]
@@ -117,14 +137,10 @@ _REMASK_BASES = ("pseudolabel", "fixmatch", "flexmatch", "freematch",
 
 
 def _check_sr_mode(cfg):
-    if cfg.sr_per_sample:
-        raise NotImplementedError(
-            "sr_per_sample is not ported yet (ROADMAP: sr_reforward / "
-            "sr_per_sample)")
-    if int(cfg.extra.get("sr_reforward", 1)) > 1:
-        raise NotImplementedError(
-            "sr_reforward > 1 is not ported yet (ROADMAP: sr_reforward / "
-            "sr_per_sample)")
+    if cfg.sr_per_sample and cfg.is_regression:
+        raise ValueError(
+            "sr_per_sample trains on one-hot class agreement; regression "
+            "tasks keep the faithful (reference) rewarder mode")
 
 
 def _build(module_cls, device, generator, *args):
@@ -136,7 +152,8 @@ def _build(module_cls, device, generator, *args):
 def init_sr_state(cfg, device=None, generator=None) -> SRState:
     _check_sr_mode(cfg)
     rewarder = _build(Rewarder, device, generator,
-                      label_dim(cfg.num_classes), 128, cfg.feature_dim)
+                      label_dim(cfg.num_classes), 128, cfg.feature_dim,
+                      cfg.sr_per_sample)
     gen = _build(Generator, device, generator, cfg.feature_dim)
     ema = ([p.detach().clone() for p in rewarder.parameters()]
            if cfg.sr_ema else None)
@@ -152,6 +169,13 @@ def score_pseudo_labels(sr_state: SRState, feats, labels):
     reward = sr_state.rewarder(feats, labels)
     keep = (reward >= reward.mean()).squeeze(-1).float()
     return reward, keep
+
+
+def draw_candidates(y_lb, num_classes: int, generator=None):
+    """``sr_per_sample``'s negative candidates: a label drawn uniformly
+    from the classes for each labeled sample."""
+    return torch.randint(0, num_classes, y_lb.shape, generator=generator,
+                         device=y_lb.device)
 
 
 def sr_decay(step: int, num_train_iter: int, max_sampling_time: int = 8) -> int:
@@ -183,18 +207,17 @@ class SemiRewardWrapper(Algorithm):
     def init_sr(self, generator=None) -> SRState:
         return init_sr_state(self.cfg, self.device, generator)
 
-    def _remask(self, algo_state, probs_w, idx_ulb, step: int):
+    def _remask(self, algo_state, probs_w, idx_ulb, n: int = 1):
         """The base algorithm's masking hook, re-applied as the reference's
         data generator does: once for the stateless hooks and FlexMatch's,
-        ``sr_decay(step)`` times on the same ``probs_w`` for FreeMatch's
-        and SoftMatch's (the last state and mask kept)."""
+        ``n`` times on the same ``probs_w`` for FreeMatch's and SoftMatch's
+        (the last state and mask kept)."""
         cfg = self.cfg
         name = self.base.NAME
         if name == "flexmatch":
             return C.flex_mask(algo_state, probs_w, idx_ulb, cfg.p_cutoff,
                                cfg.thresh_warmup)
         if name in ("freematch", "softmatch"):
-            n = sr_decay(step, cfg.num_train_iter, cfg.sr_max_sampling)
             if name == "freematch":
                 return C.free_mask(algo_state, probs_w, momentum=cfg.ema_p,
                                    use_quantile=cfg.use_quantile,
@@ -209,8 +232,49 @@ class SemiRewardWrapper(Algorithm):
     def _int_labels(pl):
         return pl if not pl.is_floating_point() else pl.argmax(-1)
 
+    def _reforwards(self, ctx: StepCtx, replay, algo_state, probs_w,
+                    pl_int) -> Tuple[Any, torch.Tensor, C.ForwardOut]:
+        """``sr_reforward`` n > 1: the base remask once on the base
+        forward's weak probabilities, then ``n - 1`` re-forwards without
+        gradient, each remasked once and scored, then the last re-forward,
+        differentiated. Returns the state and mask of the last remask and
+        the last re-forward. Each re-forward starts from the generator
+        state ``replay`` (taken before the base forward) and runs with
+        BatchNorm frozen. The JAX package perturbs the loop's inputs by
+        ``1 + i * 1e-45`` and the last one's by ``eps * 1e-45`` only so
+        that XLA cannot hoist or drop the forwards; eager PyTorch does
+        neither, and the batch goes in as it is. That is the same function:
+        ``1 + i * 1e-45 == 1`` in float32, and ``x + eps * 1e-45`` differs
+        from ``x`` only where ``x == 0``, by a float32 denormal that the
+        bf16 patch embedding rounds away (token ids get an exact 0)."""
+        cfg, b, idx_ulb = self.cfg, ctx.batch, ctx.batch.get("idx_ulb")
+        n_ref = int(cfg.extra.get("sr_reforward", 1))
+        gen = ctx.generator
+
+        def reforward():
+            if gen is not None:
+                gen.set_state(replay)
+            with frozen_bn(ctx.model):
+                return C.ssl_forward(ctx.model, b["x_lb"], b["x_ulb_w"],
+                                     b["x_ulb_s"], gen, train=True,
+                                     use_cat=cfg.use_cat)
+
+        algo_state, mask = self._remask(algo_state, probs_w, idx_ulb)
+        with torch.no_grad():
+            for _ in range(n_ref - 1):
+                f = reforward()
+                algo_state, mask = self._remask(
+                    algo_state, C.compute_prob(f.logits_x_ulb_w), idx_ulb)
+                # the reference scores every iteration; nothing reads it
+                ctx.sr_state.rewarder(f.feats_x_ulb_w, pl_int)
+        return algo_state, mask, reforward()
+
     def loss(self, ctx: StepCtx) -> LossOut:
         cfg = self.cfg
+        reforward = (ctx.step > cfg.start_timing
+                     and int(cfg.extra.get("sr_reforward", 1)) > 1)
+        replay = (ctx.generator.get_state()
+                  if reforward and ctx.generator is not None else None)
         base_out = self.base.loss(ctx)
         if ctx.step <= cfg.start_timing:
             ones = torch.ones((), device=base_out.total_loss.device)
@@ -219,15 +283,22 @@ class SemiRewardWrapper(Algorithm):
         fwd = base_out.fwd
         probs_w = C.compute_prob(fwd.logits_x_ulb_w.detach())
         pl = base_out.pseudo_label
-        algo_state, mask_dg = self._remask(base_out.new_algo_state, probs_w,
-                                           ctx.batch.get("idx_ulb"), ctx.step)
+        pl_int = self._int_labels(pl)
+        if reforward:
+            algo_state, mask_dg, f = self._reforwards(
+                ctx, replay, base_out.new_algo_state, probs_w, pl_int)
+            logits_s, feats_w = f.logits_x_ulb_s, f.feats_x_ulb_w
+        else:
+            algo_state, mask_dg = self._remask(
+                base_out.new_algo_state, probs_w, ctx.batch.get("idx_ulb"),
+                sr_decay(ctx.step, cfg.num_train_iter, cfg.sr_max_sampling))
+            logits_s, feats_w = fwd.logits_x_ulb_s, fwd.feats_x_ulb_w
         with torch.no_grad():
-            reward = ctx.sr_state.rewarder(fwd.feats_x_ulb_w.detach(),
-                                           self._int_labels(pl))
+            reward = ctx.sr_state.rewarder(feats_w.detach(), pl_int)
         mask2 = (reward >= reward.mean()).squeeze(-1).float()
         # PseudoLabel has no strong view: its logits_x_ulb_s are the ulb
         # logits of its second forward
-        unsup = consistency_loss(fwd.logits_x_ulb_s, pl, "ce", mask=mask_dg,
+        unsup = consistency_loss(logits_s, pl, "ce", mask=mask_dg,
                                  mask2=mask2)
         total = (base_out.total_loss
                  + base_out.unsup_weight * (unsup - base_out.unsup_loss))
@@ -252,6 +323,22 @@ class SemiRewardWrapper(Algorithm):
         g = sr.generator(feats)
         return g.to(torch.int32).clamp(0, ldim - 1).squeeze(-1).long()
 
+    def _train_per_sample(self, sr: SRState, feats_lb, y_lb,
+                          generator) -> None:
+        """``sr_per_sample``'s rewarder step: the labeled batch twice, with
+        candidates ``[y_lb, drawn]`` and targets their agreement with
+        ``y_lb`` (1, or 0.5 for another class); no ``reward -> 1`` term."""
+        n_cls = self.cfg.num_classes
+        cands = torch.cat([y_lb, draw_candidates(y_lb, n_cls, generator)])
+        target = cosine_similarity_n(_one_hot(cands, n_cls),
+                                     _one_hot(torch.cat([y_lb, y_lb]), n_cls))
+        feats2 = torch.cat([feats_lb, feats_lb])
+        params = list(sr.rewarder.parameters())
+        with torch.enable_grad():
+            loss = torch.mean((sr.rewarder(feats2, cands) - target) ** 2)
+            grads = torch.autograd.grad(loss, params)
+        sr.rewarder_opt.step(grads)
+
     @torch.no_grad()
     def sr_update(self, sr: SRState, out: LossOut, batch, step: int,
                   generator=None) -> Dict[str, torch.Tensor]:
@@ -263,20 +350,27 @@ class SemiRewardWrapper(Algorithm):
         pl_int = self._int_labels(out.pseudo_label).long()
         y_lb = batch["y_lb"].long()
         if step > 0 and step < cfg.start_timing:
-            glab = self._gen_labels(sr, feats_lb)
-            target = cosine_similarity_n(
-                _one_hot(glab.clamp(0, n_cls - 1), n_cls),
-                _one_hot(y_lb.reshape(glab.shape).clamp(0, n_cls - 1), n_cls))
-            self._train_rewarder(sr, feats_lb, glab, target)
+            if cfg.sr_per_sample:
+                self._train_per_sample(sr, feats_lb, y_lb, generator)
+            else:
+                glab = self._gen_labels(sr, feats_lb)
+                target = cosine_similarity_n(
+                    _one_hot(glab.clamp(0, n_cls - 1), n_cls),
+                    _one_hot(y_lb.reshape(glab.shape).clamp(0, n_cls - 1),
+                             n_cls))
+                self._train_rewarder(sr, feats_lb, glab, target)
         elif step > 0:
             reward_mean = sr.rewarder(feats_u, pl_int).mean()
             new_max = torch.maximum(sr.max_reward, reward_mean)
             if step % cfg.N_k == 0 and step > cfg.start_timing:
-                glab = self._gen_labels(sr, feats_u)
-                target = cosine_similarity_n(
-                    _one_hot(glab, n_cls),
-                    _one_hot(pl_int.clamp(0, n_cls - 1), n_cls))
-                self._train_rewarder(sr, feats_u, glab, target)
+                if cfg.sr_per_sample:
+                    self._train_per_sample(sr, feats_lb, y_lb, generator)
+                else:
+                    glab = self._gen_labels(sr, feats_u)
+                    target = cosine_similarity_n(
+                        _one_hot(glab, n_cls),
+                        _one_hot(pl_int.clamp(0, n_cls - 1), n_cls))
+                    self._train_rewarder(sr, feats_u, glab, target)
                 sr.max_reward = torch.full_like(new_max, -float("inf"))
             else:
                 sr.max_reward = new_max

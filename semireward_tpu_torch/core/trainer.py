@@ -24,7 +24,8 @@ the metric improved, ``model_best.ckpt`` under ``save_dir/save_name``
 the data has one, with the best checkpoint's weights. ``load`` resumes a
 run; ``use_pretrain`` grafts released weights onto the net before the EMA
 and the optimizer are built. An algorithm may put the net under a wrapper
-with heads of its own (ReMixMatch, CRMatch) before the state is built, and
+with heads of its own (ReMixMatch, CRMatch, CoMatch, SimMatch) before the
+state is built, and
 Dash trains a supervised warm-up (``warmup``) before its first step. What
 is not ported yet raises naming its ROADMAP item (``refuse_unported``).
 """
@@ -79,11 +80,9 @@ PREFETCH_DEPTH_DEFAULT = 0
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what this
     config asks of the port that it does not do yet, before any data is
-    loaded: CoMatch and SimMatch (no class yet); a form of the algorithm
-    that it does not have (``Algorithm.check_ported``); imbalanced SSL;
-    gradient checkpointing; the fast reverb; bio data."""
-    if cfg.algorithm in ("comatch", "simmatch"):
-        not_ported(cfg.algorithm, "CoMatch and SimMatch, section 1 item 9")
+    loaded: a form of the algorithm that it does not have
+    (``Algorithm.check_ported``); imbalanced SSL; gradient checkpointing;
+    the fast reverb; bio data."""
     ALGORITHMS.get(cfg.algorithm).check_ported(cfg)
     if cfg.imb_algorithm:
         not_ported("imbalanced SSL", "imb")
@@ -183,8 +182,9 @@ class Trainer:
                              f"width of {cfg.net}'s features")
             cfg.feature_dim = width
         self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
-        # heads of the algorithm's own (ReMixMatch, CRMatch) go on before
-        # the state is built, the backbone under ``backbone``
+        # heads of the algorithm's own (ReMixMatch, CRMatch, CoMatch,
+        # SimMatch) go on before the state is built, the backbone under
+        # ``backbone``
         self.model = self.alg.wrap_model(self.model, self.generator)
         if cfg.use_pretrain:
             # the released weights replace the init before the EMA shadow

@@ -141,6 +141,37 @@ def load_stl10(data_dir: str):
             images("unlabeled_X.bin"))
 
 
+def write_synthetic_stl10(data_dir: str, seed: int = 0,
+                          sizes=(("train", 500), ("test", 256),
+                                 ("unlabeled", 1024))) -> str:
+    """Write a seeded corpus in the STL-10 binary layout that
+    :func:`load_stl10` reads (``<data_dir>/stl10/stl10_binary/*.bin``: 96
+    px images, column-major CWH, labels 1-10) and return its folder. An
+    image of class ``c`` is ``c``'s prototype (8 x 8 colour blocks blown up
+    to 96 px) plus uniform noise of +-40; the train split cycles through the
+    classes, the others draw them. The marker ``_complete`` is written
+    last; a finished corpus is kept as it is."""
+    base = os.path.join(data_dir, "stl10", "stl10_binary")
+    if os.path.exists(os.path.join(base, "_complete")):
+        return base
+    os.makedirs(base, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    protos = np.repeat(np.repeat(rs.randint(0, 256, (10, 8, 8, 3)), 12,
+                                 axis=1), 12, axis=2)
+    for split, n in sizes:
+        y = (np.arange(n) % 10 if split == "train"
+             else rs.randint(0, 10, n))
+        x = np.clip(protos[y] + rs.randint(-40, 40, (n, 96, 96, 3)), 0,
+                    255).astype(np.uint8)
+        with open(os.path.join(base, f"{split}_X.bin"), "wb") as f:
+            f.write(np.ascontiguousarray(x.transpose(0, 3, 2, 1)).tobytes())
+        if split != "unlabeled":
+            with open(os.path.join(base, f"{split}_y.bin"), "wb") as f:
+                f.write((y + 1).astype(np.uint8).tobytes())
+    open(os.path.join(base, "_complete"), "w").close()
+    return base
+
+
 def load_eurosat(data_dir: str):
     """EuroSAT RGB, preprocessed to ``eurosat/eurosat.npz`` (train_x,
     train_y, test_x, test_y)."""

@@ -1,13 +1,16 @@
 """Where the time of the port's training step goes, on one CUDA card.
 
     python -m semireward_tpu_torch.profile_step [--config <yaml>]
-        [--set key=value ...] [--steps 20] [--warmup 30] [--out profile.json]
+        [--set key=value ...] [--extra key=value ...] [--steps 20]
+        [--warmup 30] [--out profile.json]
 
 Builds the port's Trainer on ``--config`` (default: the headline
 config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml) as
 :func:`synthetic_config` sets it up (synthetic data, random weights,
 start_timing 10 so the measured steps are in stage 2), with ``--set``
-overrides on top, runs ``--warmup`` steps, then traces ``--steps`` steps with
+overrides on top and ``--extra`` keys in its ``extra`` dict (``--extra
+sr_reforward=8``: SemiReward's reference-equivalent arm), runs ``--warmup``
+steps, then traces ``--steps`` steps with
 torch.profiler (CPU and CUDA). Prints one JSON object: wall time per step
 (under the profiler, and for the same steps run once before without it),
 device busy time per step (union of kernel intervals) and the idle share,
@@ -32,6 +35,7 @@ import time
 from collections import defaultdict
 
 import torch
+import yaml
 
 HEADLINE = "config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml"
 # the seeded corpora of data/nlp.py and data/audio.py:write_synthetic_corpus
@@ -40,6 +44,7 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build")
 SYNTH_TEXT = os.path.join(_BUILD, "synth_text")
 SYNTH_AUDIO = os.path.join(_BUILD, "synth_audio")
+SYNTH_STL10 = os.path.join(_BUILD, "synth_stl10")
 
 
 def synthetic_config(path: str, overrides=None):
@@ -48,7 +53,9 @@ def synthetic_config(path: str, overrides=None):
     10 and N_k 10 (stage 2 and the reward filter within a short run), and
     synthetic data: CIFAR-shaped images (``dataset synthetic``; 2048 train
     images, or twice the YAML's ``num_labels`` where that is more, so that
-    the classic_cv YAMLs' 10000 labels split) for an image net; for a text
+    the classic_cv YAMLs' 10000 labels split) for an image net, except on
+    an STL-10 YAML: there the seeded STL-10-layout corpus under
+    ``build/synth_stl10`` (96 px); for a text
     net the seeded aclImdb-layout corpus, written
     under ``build/synth_text`` on first use; for an audio net the seeded
     ESC-50-layout corpus under ``build/synth_audio``. ``overrides`` go on
@@ -60,6 +67,13 @@ def synthetic_config(path: str, overrides=None):
                  "N_k": 10, **(overrides or {})}
     cfg = config_lib.from_yaml(path, overrides)
     modality = modality_of(cfg.net)
+    if modality == "cv" and cfg.dataset == "stl10":
+        # the dataset's name picks algorithm branches (SimMatch's EMA
+        # teacher), so STL-10 keeps its name, its 96 px and its layout
+        from semireward_tpu_torch.data.datasets import write_synthetic_stl10
+        write_synthetic_stl10(SYNTH_STL10)
+        return config_lib.from_yaml(path, {"data_dir": SYNTH_STL10,
+                                           **overrides})
     if modality == "cv":
         return config_lib.from_yaml(path, {
             "dataset": "synthetic",
@@ -131,6 +145,10 @@ def main(argv=None):
     ap.add_argument("--config", default=HEADLINE)
     ap.add_argument("--set", action="append", default=[],
                     metavar="KEY=VALUE", help="config override (repeatable)")
+    ap.add_argument("--extra", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="a key of the config's extra dict, read as YAML "
+                         "(repeatable; sr_reforward is read there)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--out", default=None,
@@ -149,6 +167,8 @@ def main(argv=None):
         cfg = synthetic_config(args.config, {"num_log_iter": 10 ** 9,
                                              "save_dir": scratch,
                                              **overrides})
+        cfg.extra.update((k, yaml.safe_load(v)) for k, v in (
+            kv.split("=", 1) for kv in args.extra))
         trainer = Trainer(cfg)
         trainer.train(num_iters=args.warmup)
         torch.cuda.synchronize()

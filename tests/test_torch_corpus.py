@@ -5,7 +5,8 @@ ImageNet ones, which raise naming the ImageNet loader. Plus two-step CPU
 runs of the CLI on a usb_nlp ``srpseudolabel`` and a usb_audio
 ``srsoftmatch`` YAML at the shrunk sizes of the slices' CLI tests: token
 dicts and waveforms through PseudoLabel's separate forwards and SoftMatch's
-weighting."""
+weighting. And CoMatch's and SimMatch's YAMLs of every suite: each
+resolves, and one per modality builds a CPU Trainer at full size."""
 import glob
 import json
 import math
@@ -162,11 +163,7 @@ def test_usb_cv_yaml_builds_a_trainer_and_the_wrn_its_net(algo, tmp_path):
 REFUSED = {
     ("usb_nlp", "mixmatch"): "item 11", ("usb_nlp", "remixmatch"): "item 11",
     ("usb_nlp", "vat"): "item 11", ("usb_audio", "mixmatch"): "item 12",
-    ("usb_audio", "remixmatch"): "item 12", ("usb_audio", "vat"): "item 12",
-    ("usb_cv", "comatch"): "CoMatch and SimMatch",
-    ("usb_cv", "simmatch"): "CoMatch and SimMatch",
-    ("classic_cv", "comatch"): "CoMatch and SimMatch",
-    ("classic_cv", "simmatch"): "CoMatch and SimMatch"}
+    ("usb_audio", "remixmatch"): "item 12", ("usb_audio", "vat"): "item 12"}
 
 
 @pytest.mark.parametrize("suite,algo", sorted(REFUSED))
@@ -181,3 +178,104 @@ def test_what_this_slice_does_not_take_raises_naming_its_item(suite, algo,
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP: .*{REFUSED[suite, algo]}"):
             Trainer(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# CoMatch and SimMatch
+# ---------------------------------------------------------------------------
+
+CO_SIM_YAMLS = {"usb_cv": 24, "classic_cv": 30, "usb_nlp": 30,
+                "usb_audio": 27}
+CO_SIM_NETS = {"comatch": "ProjectionNet", "simmatch": "SimMatchNet"}
+
+
+@pytest.mark.parametrize("algo", sorted(CO_SIM_NETS))
+@pytest.mark.parametrize("suite", sorted(CO_SIM_YAMLS))
+def test_every_comatch_simmatch_yaml_resolves(suite, algo):
+    configs = _usb_configs(suite, algo)
+    assert len(configs) == CO_SIM_YAMLS[suite]
+    for path, cfg in configs:
+        NETS.get(cfg.net)
+        alg = ALGORITHMS.get(cfg.algorithm)(cfg, DATA_INFO,
+                                            torch.device("cpu"))
+        assert type(alg).__name__ == {"comatch": "CoMatch",
+                                      "simmatch": "SimMatch"}[algo], path
+        assert alg.NAME == cfg.algorithm == algo, path
+        modality = modality_of(cfg.net)
+        assert modality == {"usb_nlp": "nlp", "usb_audio": "audio"}.get(
+            suite, "cv"), path
+        if modality == "cv":
+            assert cfg.dataset in TD.CV_DATASETS, path
+
+
+def _co_sim_trainer_config(algo, modality, root):
+    """The algorithm's YAML of a modality at its full geometry on seeded
+    data: usb_cv CIFAR-100 (synthetic images), usb_nlp aclImdb and
+    usb_audio ESC-50 (small seeded corpora of their layouts)."""
+    from semireward_tpu_torch.data import audio, nlp
+
+    yaml, data_dir = {
+        "cv": (f"usb_cv/{algo}/{algo}_cifar100_200_0.yaml", None),
+        "nlp": (f"usb_nlp/{algo}/{algo}_aclImdb_100_0.yaml", "text"),
+        "audio": (f"usb_audio/{algo}/{algo}_esc50_250_0.yaml", "audio")}[
+            modality]
+    over = {"use_pretrain": False, "resume": False,
+            "save_dir": str(root / "out")}
+    if modality == "cv":
+        over.update(dataset="synthetic", synthetic_train=400,
+                    synthetic_test=16)
+    elif modality == "nlp":
+        nlp.write_synthetic_corpus(str(root / data_dir), "aclImdb", 2,
+                                   sizes=(("train", 24), ("dev", 4),
+                                          ("test", 2)))
+        over.update(data_dir=str(root / data_dir), num_labels=8)
+    else:
+        audio.write_synthetic_corpus(str(root / data_dir), "esc50",
+                                     num_classes=5,
+                                     sizes=(("train", 20), ("dev", 5),
+                                            ("test", 1)))
+        over.update(data_dir=str(root / data_dir), num_classes=5,
+                    num_labels=10)
+    return config_lib.from_yaml(os.path.join(USB_ROOT, yaml), over)
+
+
+@pytest.mark.parametrize("modality", ["cv", "nlp", "audio"])
+@pytest.mark.parametrize("algo", sorted(CO_SIM_NETS))
+def test_comatch_simmatch_yaml_builds_a_trainer(algo, modality, tmp_path,
+                                                monkeypatch):
+    """Each algorithm's YAML of each modality builds a CPU Trainer with
+    its wrapped net at full width and depth (ViT-S/2-32, BERT-base,
+    HuBERT-base), whose forward gives the head's normalized features; the
+    classic_cv YAML's WRN-28-2 under the wrapper too."""
+    from semireward_tpu_torch.core.trainer import Trainer
+
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    cfg = _co_sim_trainer_config(algo, modality, tmp_path)
+    tr = Trainer(cfg, device="cpu")
+    assert type(tr.model).__name__ == CO_SIM_NETS[algo]
+    assert tr.model.num_features == {"cv": 384}.get(modality, 768)
+    assert len(tr.state.ema) == len(list(tr.model.parameters()))
+    assert tr.alg.BATCH_KEYS == ALGORITHMS.get(algo).BATCH_KEYS
+    if algo == "simmatch":
+        assert tr.state.algo.mem_bank.shape == (128, tr.bundle.lb_dest_len)
+        assert not tr.alg.use_ema_teacher
+    else:
+        assert tr.state.algo.queue_feats.shape == (
+            128 * (cfg.uratio + 1) * cfg.batch_size, 128)
+    batch = tr.make_batch(next(tr._make_loader()), keys=("x_lb",))
+    with torch.no_grad():
+        out = tr.model(batch["x_lb"], train=False)
+    assert out["feat"].shape == (cfg.batch_size, 128)
+    assert torch.allclose(out["feat"].norm(dim=1),
+                          torch.ones(cfg.batch_size), atol=1e-5)
+    if modality == "cv":  # and the classic_cv WRN-28-2 under the wrapper
+        wcfg = config_lib.from_yaml(os.path.join(
+            USB_ROOT, "classic_cv", algo, f"{algo}_cifar100_10000_0.yaml"))
+        alg = ALGORITHMS.get(algo)(wcfg, DATA_INFO, torch.device("cpu"))
+        net = alg.wrap_model(NETS.get(wcfg.net)(num_classes=100,
+                                                dtype=torch.float32),
+                             torch.Generator().manual_seed(0))
+        out = net(torch.zeros(2, 32, 32, 3), train=False)
+        assert type(net).__name__ == CO_SIM_NETS[algo]
+        assert out["logits"].shape == (2, 100) and out["feat"].shape == (
+            2, 128)

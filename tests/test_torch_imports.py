@@ -27,6 +27,8 @@ import semireward_tpu_torch.algorithms.uda
 import semireward_tpu_torch.algorithms.dash
 import semireward_tpu_torch.algorithms.adamatch
 import semireward_tpu_torch.algorithms.crmatch
+import semireward_tpu_torch.algorithms.comatch
+import semireward_tpu_torch.algorithms.simmatch
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',

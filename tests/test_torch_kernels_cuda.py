@@ -86,13 +86,16 @@ def _check_kernels(dev, m, c, h, kernel, plan=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,c,h", [(100, 128, 256), (129, 192, 768),
                                    (6168, 384, 1536), (2056, 384, 1536),
-                                   (14392, 384, 1536), (8224, 384, 1536)])
+                                   (14392, 384, 1536), (8224, 384, 1536),
+                                   (55320, 384, 1536), (18440, 384, 1536)])
 def test_kernel_matches_plain_on_the_card(cuda_device, m, c, h):
     """K1 (F1 + F2; B1 + B2 + B3 + reduction) against the plain version on
     the plan the wrapper picks: a small ragged shape, ViT-Ti's width with
     one row past a 128-row tile, the ViT-S train shape (M 24*257),
     SRPseudoLabel's, MixMatch's and ReMixMatch's (forwards of 8*257 rows),
-    CRMatch's one forward of 56*257 rows and DeFixMatch's of 32*257."""
+    CRMatch's one forward of 56*257 rows, DeFixMatch's and CoMatch's of
+    32*257, and SimMatch's on the STL-10 YAML (96 px: N 2305), its
+    forward of 24*2305 rows and its EMA teacher's of 8*2305."""
     _check_kernels(cuda_device, m, c, h, "full")
 
 
@@ -116,12 +119,12 @@ def test_full_kernels_every_width_and_split_on_the_card(cuda_device, m, c, h,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [4776, 6144, 77, 1, 129])
+@pytest.mark.parametrize("m", [4776, 6144, 8192, 77, 1, 129])
 def test_blocked_kernels_match_plain_on_the_card(cuda_device, m):
     """K3 (F1 + F2; B1 + B2 + B3 + reduction) against the plain version at
-    the HuBERT-base train shape (M 24*199), the BERT-base one (M 12*512)
-    and small ragged M (129: one row past a 128-row tile), C 768, H 3072,
-    on the plan the wrapper picks."""
+    the HuBERT-base train shape (M 24*199), the BERT-base one (M 12*512),
+    CoMatch's on BERT-base (M 16*512) and small ragged M (129: one row
+    past a 128-row tile), C 768, H 3072, on the plan the wrapper picks."""
     _check_kernels(cuda_device, m, 768, 3072, "blocked")
 
 
@@ -367,6 +370,8 @@ def test_flash_kernels_match_plain_on_the_card(cuda_device, N, bias, rate):
     (32, 257, 6, False, 0.0),    # ViT-S, DeFixMatch's one forward
     (24, 199, 12, False, 0.1),   # HuBERT-base train
     (12, 512, 12, True, 0.1),    # BERT-base train
+    (16, 512, 12, True, 0.1),    # BERT-base, CoMatch's one forward
+    (24, 2305, 6, False, 0.0),   # ViT-S at 96 px, SimMatch on STL-10
     (12, 512, 12, True, 0.0),    # BERT-base eval (bias only)
 ])
 def test_flash_kernels_match_plain_at_the_model_shapes(cuda_device, B, N, H,

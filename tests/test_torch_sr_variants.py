@@ -22,6 +22,11 @@ port, held against the JAX package on the same inputs (numpy, seeded).
   trajectories on the 2-block ViT of ``test_torch_step.py`` with that
   file's tolerances (stage 1, the stage boundary, then the reward filter
   with the remask and an N_k rewarder update).
+- SemiReward's two other modes, three-step ``srflexmatch`` trajectories
+  on the same ViT and tolerances: ``sr_per_sample`` in stage 1 and in
+  stage 2 (JAX's negative candidates injected), and ``sr_reforward`` 3 in
+  stage 2; on the small WRN, one ``sr_reforward`` loss leaves the
+  BatchNorm running statistics where JAX's leaves them.
 """
 import jax
 import jax.numpy as jnp
@@ -32,6 +37,9 @@ import torch
 from _torch_port import assert_rel_close
 from semireward_tpu.algorithms import common as JC
 from semireward_tpu_torch.algorithms import common as TC
+from semireward_tpu_torch.algorithms import semireward as tsr
+from test_torch_step import EMB as EMB_STEP
+from test_torch_step import NC as NC_STEP
 from test_torch_step import run_three_sr_steps
 
 BU, NCU = 16, 10
@@ -238,3 +246,134 @@ def _check_variant(name):
                                   "srpseudolabel"])
 def test_three_sr_variant_steps_match_jax(name):
     run_three_sr_steps(name, _check_variant(name))
+
+
+# ---------------------------------------------------------------------------
+# sr_per_sample and sr_reforward
+# ---------------------------------------------------------------------------
+
+def _check_flex(step, tstate, jstate, tm, jm):
+    assert float(tm["util_ratio"]) == float(jm["util_ratio"]), step
+    np.testing.assert_array_equal(tstate.algo.selected_label.numpy(),
+                                  np.asarray(jstate.algo.selected_label))
+
+
+@pytest.mark.parametrize("start_timing,trained_at", [(3, (1, 2)), (1, (2,))])
+def test_three_per_sample_steps_match_jax(start_timing, trained_at,
+                                          monkeypatch):
+    """``sr_per_sample`` in stage 1 (start_timing 3: the rewarder trains at
+    steps 1 and 2) and in stage 2 (start_timing 1: the reward filter from
+    step 2, an N_k update there), with JAX's negative candidates (drawn
+    from the step's key folded with 7) injected into the port. Two Adam
+    steps of the rewarder in stage 1 leave one element of a 128-wide leaf
+    (``feature_norm.bias``, 2.4e-6 apart) past 1e-4 of its leaf's largest
+    magnitude: a near-zero gradient divided by its own magnitude, held to
+    the Adam bound like test_torch_step.py's 0.1%. Then the
+    per-sample rewarder gives two samples of one label different rewards,
+    which the faithful one cannot."""
+    drawn = {}
+    monkeypatch.setattr(tsr, "draw_candidates", lambda y, n, g=None: drawn[0])
+
+    def before(step, jstate, tbatch):
+        key = jax.random.fold_in(jax.random.fold_in(jstate.rng, step), 7)
+        drawn[0] = _t(np.asarray(jax.random.randint(
+            key, tbatch["y_lb"].shape, 0, NC_STEP))).long()
+
+    tstate, _ = run_three_sr_steps(
+        "srflexmatch", _check_flex, trained_at=trained_at,
+        over=dict(sr_per_sample=True, start_timing=start_timing),
+        before_step=before, rewarder_far=1)
+    rewarder = tstate.sr.rewarder
+    assert rewarder.per_sample
+    feats = torch.from_numpy(np.random.RandomState(9).randn(
+        4, EMB_STEP).astype(np.float32))
+    same = torch.zeros(4, dtype=torch.long)
+    with torch.no_grad():
+        r = rewarder(feats, same).squeeze(-1)
+        rewarder.per_sample = False
+        r_faithful = rewarder(feats, same).squeeze(-1)
+    assert float((r - r[0]).abs().max()) > 1e-6, r
+    assert torch.equal(r_faithful, r_faithful[:1].expand(4)), r_faithful
+
+
+def test_three_reforward_steps_match_jax(monkeypatch):
+    """``extra['sr_reforward'] = 3`` (the JAX bench's ref-equivalent arm):
+    step 2, in stage 2, re-forwards the batch three times (two without
+    gradient, each remasked and scored, and the last differentiated);
+    steps 0 and 1 take the plain path."""
+    calls = []
+    reforwards = tsr.SemiRewardWrapper._reforwards
+
+    def spy(self, ctx, *a):
+        out = reforwards(self, ctx, *a)
+        calls.append(ctx.step)
+        return out
+
+    monkeypatch.setattr(tsr.SemiRewardWrapper, "_reforwards", spy)
+    run_three_sr_steps("srflexmatch", _check_flex,
+                       extra={"sr_reforward": 3})
+    assert calls == [2]
+
+
+def test_reforwards_leave_the_batchnorm_statistics_on_the_wrn():
+    """One stage-2 SRFlexMatch loss with ``sr_reforward`` 3 on the small WRN
+    of ``test_torch_wrn.py``, the JAX loss jitted alone: the losses and
+    ratios within 1e-5, and the running statistics after it equal to the
+    JAX loss's new ``batch_stats`` (the base forward's: JAX discards the
+    re-forwards'), within 1e-5."""
+    from semireward_tpu.algorithms.base import StepCtx as JCtx
+    from semireward_tpu.config import get_config as jax_config
+    from semireward_tpu.models import wrn as jwrn
+    from semireward_tpu.registry import ALGORITHMS as JALGS
+    from semireward_tpu_torch.algorithms.base import StepCtx as TCtx
+    from semireward_tpu_torch.config import get_config as torch_config
+    from semireward_tpu_torch.convert import load_flax_params
+    from semireward_tpu_torch.models import wrn as twrn
+    from semireward_tpu_torch.registry import ALGORITHMS as TALGS
+    from test_torch_wrn import ARCH, BN_MOM, S, _perturb, _same_stats
+
+    cfg = dict(algorithm="srflexmatch", net="wrn_28_2", num_classes=NC_STEP,
+               img_size=S, batch_size=4, uratio=1, start_timing=1, N_k=1,
+               feature_dim=64, p_cutoff=0.3, compute_dtype="float32")
+    jcfg, tcfg = jax_config(**cfg), torch_config(**cfg)
+    jcfg.extra["sr_reforward"] = tcfg.extra["sr_reforward"] = 3
+    info = {"ulb_dest_len": 16, "lb_dest_len": 8}
+    jalg = JALGS.get("srflexmatch")(jcfg, info)
+    talg = TALGS.get("srflexmatch")(tcfg, info, torch.device("cpu"))
+    jnet = jwrn.wrn_28_2(NC_STEP, dtype=jnp.float32, bn_momentum=BN_MOM,
+                         **ARCH)
+    tnet = twrn.wrn_28_2(NC_STEP, dtype=torch.float32, bn_momentum=BN_MOM,
+                         **ARCH)
+    v = jax.jit(lambda k: jnet.init(k, jnp.zeros((2, S, S, 3)),
+                                    train=False))(jax.random.PRNGKey(0))
+    params = _perturb(v["params"])
+    load_flax_params(tnet, jax.device_get(params),
+                     jax.device_get(v["batch_stats"]))
+    jsr = jalg.init_sr(jax.random.PRNGKey(1))
+    tsr_state = talg.init_sr()
+    load_flax_params(tsr_state.rewarder,
+                     jax.device_get(jsr.rewarder_params))
+    rs = np.random.RandomState(21)
+    views = {k: rs.randn(4, S, S, 3).astype(np.float32)
+             for k in ("x_lb", "x_ulb_w", "x_ulb_s")}
+    y, idx = rs.randint(0, NC_STEP, 4), rs.choice(16, 4, replace=False)
+    jbatch = {**{k: jnp.asarray(a) for k, a in views.items()},
+              "y_lb": jnp.asarray(y), "idx_ulb": jnp.asarray(idx, jnp.int32)}
+    tbatch = {**{k: _t(a) for k, a in views.items()}, "y_lb": _t(y),
+              "idx_ulb": _t(idx)}
+
+    @jax.jit
+    def jloss(params, stats, batch):
+        out = jalg.loss(JCtx(jnet.apply, params, stats, batch,
+                             jalg.init_state(), jax.random.PRNGKey(5),
+                             jnp.asarray(2, jnp.int32), sr_state=jsr))
+        return out.metrics, out.new_batch_stats
+
+    jm, new_stats = jloss(params, v["batch_stats"], jbatch)
+    out = talg.loss(TCtx(tnet, tbatch, talg.init_state(), None, 2,
+                         sr_state=tsr_state))
+    _same_stats(tnet, new_stats, "reforward")
+    for k in ("sup_loss", "unsup_loss", "total_loss"):
+        assert_rel_close(out.metrics[k], np.asarray(jm[k]), 1e-5, k)
+    for k in ("util_ratio", "sr_keep_ratio"):
+        assert float(out.metrics[k]) == float(jm[k]), k

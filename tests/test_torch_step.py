@@ -64,7 +64,7 @@ def _perturb(tree, scale):
         tree)
 
 
-def _check_leaf(name, got, want, lr_bound):
+def _check_leaf(name, got, want, lr_bound, min_far=0):
     if name.endswith("attn.qkv.bias"):
         k = slice(EMB, 2 * EMB)
         assert np.abs(got[k] - want[k]).max() <= lr_bound, name
@@ -74,20 +74,28 @@ def _check_leaf(name, got, want, lr_bound):
         return
     diff = np.abs(got - want)
     far = diff > 1e-4 * np.abs(want).max() + 1e-12
-    assert far.mean() <= 1e-3, (name, int(far.sum()), diff.max())
+    assert far.sum() <= max(1e-3 * far.size, min_far), (name, int(far.sum()),
+                                                         diff.max())
     assert diff.max() <= lr_bound, (name, diff.max())
 
 
-def run_three_sr_steps(name, check_algo):
+def run_three_sr_steps(name, check_algo, over=None, extra=None,
+                       before_step=None, trained_at=(2,), rewarder_far=0):
     """Three ``name`` steps of both packages from the same weights on the
     same injected views (three drawn a step, the ones the algorithm
     consumes passed in); after each,
     the losses, the reward-filter ratio, every parameter, the EMA, the
     rewarder and max_reward are compared here, and
     ``check_algo(step, tstate, jstate, tm, jm)`` compares the algorithm's
-    own mask ratio and state."""
-    cfg = dict(CFG, algorithm=name)
+    own mask ratio and state. ``over`` and ``extra`` go on top of ``CFG``
+    and into both configs' ``extra``; ``before_step(step, jstate, tbatch)``
+    runs before each step; the rewarder must move at the steps
+    ``trained_at`` and only there, each of its leaves with up to
+    ``rewarder_far`` elements at the Adam bound where 0.1% is fewer."""
+    cfg = dict(CFG, algorithm=name, **(over or {}))
     jcfg, tcfg = jax_config(**cfg), torch_config(**cfg)
+    jcfg.extra.update(extra or {})
+    tcfg.extra.update(extra or {})
     jalg = JALGS.get(name)(jcfg, DATA_INFO)
     jmodel = jvit.vit_small_patch2_32(num_classes=NC, dtype=jnp.float32,
                                       **ARCH)
@@ -123,6 +131,8 @@ def run_three_sr_steps(name, check_algo):
                   "y_lb": torch.from_numpy(y), "idx_ulb": torch.from_numpy(idx)}
         rewarder_before = [p.detach().clone()
                            for p in tstate.sr.rewarder.parameters()]
+        if before_step is not None:
+            before_step(step, jstate, tbatch)
         jstate, jm = jstep(jstate, jbatch)
         tm = tstep(tstate, tbatch)
 
@@ -138,15 +148,16 @@ def run_three_sr_steps(name, check_algo):
             _check_leaf(n, e.numpy(), want_ema[n], bound)
         want_r = _flat(jstate.sr.rewarder_params)
         for n, p in tstate.sr.rewarder.named_parameters():
-            _check_leaf(n, p.detach().numpy(), want_r[n], bound)
+            _check_leaf(n, p.detach().numpy(), want_r[n], bound, rewarder_far)
         jmax, tmax = float(jstate.sr.max_reward), float(tstate.sr.max_reward)
         assert (jmax == tmax == -math.inf) or abs(jmax - tmax) < 1e-5
         moved = any(not torch.equal(a, b) for a, b in
                     zip(rewarder_before, tstate.sr.rewarder.parameters()))
-        assert moved == (step == 2), step  # N_k update once step > 1
-        if step == 2:
+        assert moved == (step in trained_at), step  # N_k: once step > 1
+        if step == 2 and step > cfg["start_timing"]:
             assert float(jm["sr_keep_ratio"]) < 1.0  # the filter is active
     assert tstate.step == 3 and int(jstate.step) == 3
+    return tstate, jstate
 
 
 def test_three_srflexmatch_steps_match_jax():
@@ -203,7 +214,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
                        save_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="imbalanced"):
         Trainer(cfg, device="cpu")
+    # the bench's ref-equivalent arm is ported
+    # (tests/test_torch_sr_variants.py)
     ref = torch_config(algorithm="srflexmatch")
-    ref.extra["sr_reforward"] = 3  # the bench's ref-equivalent arm
-    with pytest.raises(NotImplementedError, match="sr_reforward"):
-        TALGS.get("srflexmatch")(ref, DATA_INFO)
+    ref.extra["sr_reforward"] = 3
+    assert TALGS.get("srflexmatch")(ref, DATA_INFO).base.NAME == "flexmatch"
