@@ -119,6 +119,30 @@
      ``vit_srflexmatch_per_sample`` (``sr_per_sample``: the rewarder moves
      in stage 1 and stage 2, and scores two samples of one label
      differently);
+   - the ten imbalanced-SSL wrappers (``imb/``), each over FixMatch on
+     its ``config/classic_cv_imb/fixmatch_<name>/..._cifar10_lb1500_100_
+     ulb3000_100_0.yaml`` (``imb_<name>``: WRN-28-2, 64 + 128, SGD, the
+     YAML's imbalanced split of synthetic CIFAR-10-shaped images with
+     every class holding the head class's 1500 + 3000 rows), and
+     ReMixMatch under ABC and under DASO (``imb_remixmatch_abc``,
+     ``imb_remixmatch_daso``), ``IMB_STEPS`` steps each, ``IMB_PER_EPOCH``
+     steps an epoch (two epoch boundaries), ``p_cutoff`` 0 and the waits
+     of ``IMB_OVERRIDES`` cut; each phase checks what its wrapper does
+     (``_imb_checks``: SAW's and ADSH's state refit at the first epoch
+     end, DebiasPL's ``p_hat``, DARP's ``pseudo_orig`` rows and its
+     refinement, DASO's ring pointers against the labeled rows of each
+     class, CReST's alignment EMA, the eval head of ABC, TRAS and CoSSL
+     at every eval against the step JAX gives, TRAS's term off before its
+     epoch, CoSSL's teacher head moved by its warm start and its own SGD),
+     the wrappers' heads moved, and which forwards of a step move the
+     BatchNorm statistics (``bn_moved_pattern``); no kernel of the port
+     runs on the WRN. ``imb_crest_gens``: ``train_crest`` over
+     ``CREST_GENS`` generations of ``CREST_GEN_STEPS`` steps, the second
+     generation's labeled set larger than the first's. ``vit_abc``: ABC
+     over FixMatch on the headline ViT-S/2-32 (its auxiliary head reads
+     the features out of K1 and K2); ``vit_srdash``: SemiReward over Dash
+     through ``_make_sr_variant`` (Dash's warm-up through the wrapper),
+     both with exact K1 / K2 counts;
    every train phase writes its checkpoints (``latest_model.ckpt``,
    ``model_best.ckpt``) and ``metrics.jsonl`` into a temporary directory,
    prints each checkpoint's bytes and write seconds, and, where the data
@@ -156,6 +180,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -174,7 +199,7 @@ USB_ALGOS = ("pimodel", "meanteacher", "vat", "mixmatch", "remixmatch",
              "uda", "dash", "adamatch", "crmatch", "defixmatch")
 USB_YAML = {a: os.path.join(HERE, f"config/usb_cv/{a}/{a}_cifar100_200_0.yaml")
             for a in USB_ALGOS}
-USB_STEPS, USB_LOG_EVERY = 80, 20
+USB_STEPS, USB_LOG_EVERY = 60, 20
 # Dash: a short supervised warm-up (the default is 2048 steps). CRMatch,
 # UDA and DeFixMatch: no sample of random weights passes the YAMLs' cutoffs
 # (0.95, 0.8, 0.95) in 80 steps (H100 runs: util_ratio 0 in every window of
@@ -207,6 +232,39 @@ REFORWARD, REFORWARD_STEPS, PER_SAMPLE_STEPS = 8, 40, 100
 # the stage-2 steps (ctx.step) whose last re-forward is held bit for bit
 # against the base forward
 REFORWARD_PROBE = (20, 30)
+# the ten imbalanced-SSL wrappers, each over FixMatch on its classic_cv_imb
+# CIFAR-10 YAML (WRN-28-2, 64 + 128, SGD; the 1500 / 3000 head-class split
+# at ratio 100 on synthetic images), and ReMixMatch under ABC (its RotNet
+# inside ABC's head) and under DASO (whose pseudo-label hook ReMixMatch
+# never calls). ``epoch`` gives IMB_PER_EPOCH steps an epoch, so the run
+# crosses two epoch boundaries; the waits are cut so that each wrapper's
+# own path runs inside the phase: DARP refines from epoch 1, TRAS's head
+# and CoSSL's teacher switch on at epoch 1 (CoSSL's warm start at that
+# boundary; the corpus's cossl_warm_epoch 0 is never reached, the first
+# boundary being epoch 1), DASO mixes its prototypes from step 20; ema_m
+# 0.9 (the YAMLs' 0.999 leaves the EMA weights, which the epoch-end
+# forwards of SAW and ADSH read, at their random init for the whole
+# phase: no class-0 prediction, so ADSH's refit is a no-op)
+IMB_NAMES = ("saw", "debiaspl", "adsh", "abc", "tras", "darp", "daso",
+             "crest", "crest+", "cossl")
+IMB_STEPS, IMB_PER_EPOCH, IMB_EVAL_EVERY, IMB_LOG_EVERY = 80, 32, 24, 16
+IMB_OVERRIDES = {"darp_warmup_epochs": 0, "tras_warmup_epochs": 1,
+                 "daso_num_pretrain_iter": 20, "cossl_warm_epoch": 1,
+                 "cossl_tfe_warm_epoch": 1, "ema_m": 0.9}
+# CReST's generational driver: two generations of a few steps each
+CREST_GENS, CREST_GEN_STEPS = 2, 20
+# the wrappers' heads (each must move in training) and eval heads
+IMB_HEADS = {"abc": ("aux_classifier",), "tras": ("aux_classifier",),
+             "cossl": ("teacher_classifier",)}
+USB_FIX_YAML = os.path.join(HERE, "config/usb_cv/fixmatch/"
+                            "fixmatch_cifar100_200_0.yaml")
+
+
+def imb_yaml(base: str, name: str) -> str:
+    return os.path.join(HERE, f"config/classic_cv_imb/{base}_{name}/{base}_"
+                        f"{name}_cifar10_lb1500_100_ulb3000_100_0.yaml")
+
+
 WRN_FIX_YAML, WRN_PL_YAML = (os.path.join(
     HERE, f"config/SemiReward/classic_cv/{a}/{a}_cifar100_10000_0.yaml")
     for a in ("fixmatch", "pseudolabel"))
@@ -227,7 +285,9 @@ PEAK_BYTES = 3.35e12
 TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 1200, 10, 10, 100
 BERT_STEPS, BERT_LOG_EVERY = 700, 100
 AUDIO_STEPS, AUDIO_LOG_EVERY = 1000, 100
-FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 400, 200, 200, 200
+# the other variants' checks (state moved, the rewarder's two stages, the
+# BatchNorm probe, weights at two log boundaries) all fall within these
+FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 200, 100, 100, 100
 # the step whose forwards read the BatchNorm statistics before and after
 BN_PROBE_STEP = 5
 # vit_resume: A's first eval (and checkpoint) at step 40, in stage 2 after
@@ -867,6 +927,26 @@ def _spies(trainer, base):
     return rec, lambda: [u() for u in undo]
 
 
+def bn_moved_pattern(cfg, alg, base: str, n_fwd: int):
+    """Which forwards of one step move the BatchNorm running statistics,
+    in order: the lb (or concatenated) pass; PseudoLabel's unlabeled pass
+    does not; ReMixMatch's first mixed chunk alone does (the weak, labeled
+    with ``keep_fwd``, s0, the other chunks and the rotated view run
+    frozen); an imb wrapper's EMA forwards before the step (DASO's labeled
+    features, CoSSL's two TFE streams) run in eval mode and do not."""
+    if base == "pseudolabel":
+        pattern = [True, False]
+    elif base == "remixmatch":
+        chunks = (cfg.batch_size + 3 * cfg.ulb_batch_size) // cfg.batch_size
+        pattern = ([False] * (1 + bool(alg.base.keep_fwd) + 1) + [True]
+                   + [False] * (chunks - 1) + [False] * bool(
+                       cfg.rot_loss_ratio > 0))
+    else:
+        pattern = [True] * n_fwd
+    pre = {"daso": 1, "cossl": 2}.get(getattr(alg, "NAME", ""), 0)
+    return [False] * pre + pattern
+
+
 def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                 main_kernels, cfg_extra=None):
     """Train ``steps`` steps through ``Trainer.train`` with every count set
@@ -882,6 +962,7 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     goes into the config's ``extra`` (``sr_reforward``: the JAX loss reads
     it there)."""
     from semireward_tpu_torch.core.trainer import Trainer
+    from semireward_tpu_torch.imb.base import ImbAlgorithm
     from semireward_tpu_torch.models.batchnorm import BatchNorm
     from semireward_tpu_torch.profile_step import synthetic_config
 
@@ -894,12 +975,15 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     trainer = Trainer(cfg)
     model = trainer.model
     sr = getattr(trainer.alg, "HAS_SR", False)
-    base = (trainer.alg.base if sr else trainer.alg).NAME
+    imb = trainer.alg.NAME if isinstance(trainer.alg, ImbAlgorithm) else None
+    base = (trainer.alg.base if sr or imb else trainer.alg).NAME
     n_fwd, n_bwd = passes_per_step(base, cfg.use_cat)
+    if getattr(trainer.alg.base if imb else trainer.alg, "keep_fwd", False):
+        n_fwd, n_bwd = n_fwd + 1, n_bwd + 1  # ReMixMatch's labeled forward
     n_ref = int(cfg.extra.get("sr_reforward", 1)) if sr else 1
     teacher = getattr(trainer.alg, "use_ema_teacher", False)
     n_wu = (int(cfg.extra.get("num_wu_iter", cfg.num_wu_iter))
-            if trainer.alg.NEEDS_WARMUP else 0)
+            if trainer.needs_warmup else 0)
     # fused MLP layers by the kernel their width takes (K1 or K3)
     fused = {"full": 0, "blocked": 0}
     for m in model.modules():
@@ -918,9 +1002,14 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
           f"step={n_fwd}/{n_bwd} (EMA teacher {teacher}, sr_reforward "
           f"{n_ref}) fused MLP layers K1={fused['full']} "
           f"K3={fused['blocked']} flash layers={n_flash} BatchNorm={has_bn}")
-    state0 = _algo_tensors(base, trainer.state.algo)
+    def base_state():
+        return trainer.state.algo[0] if imb else trainer.state.algo
+
+    state0 = _algo_tensors(base, base_state())
+    heads = HEADS.get(base, ()) + IMB_HEADS.get(imb, ())
     heads0 = {n: p.detach().clone() for n, p in model.named_parameters()
-              if n.startswith(HEADS.get(base, ()))}
+              if n.split(".")[-2:-1] and n.split(".")[-2] in heads}
+    imb_rec = {"snaps": {}, "y_lb": [], "idx_ulb": [], "eval_keys": []}
     history, rewarder_snaps, first_select, bn_moved = [], {}, [], []
     last, evals = {}, []
     loss_fn = trainer.alg.loss
@@ -930,6 +1019,9 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     def loss_spy(ctx):
         out = loss_fn(ctx)
         last["mask"], last["unsup_weight"] = out.mask, out.unsup_weight
+        if imb:
+            imb_rec["y_lb"].append(ctx.batch["y_lb"])
+            imb_rec["idx_ulb"].append(ctx.batch["idx_ulb"])
         if base == "simmatch":
             seen_idx.append(ctx.batch["idx_lb"])
             last["idx_lb"], last["y_lb"] = ctx.batch["idx_lb"], \
@@ -950,6 +1042,30 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         return m
 
     trainer.evaluate = eval_spy
+    logits_fn = trainer._logits
+
+    def logits_spy(x, weights=None, out_key="logits"):
+        imb_rec["eval_keys"].append((trainer.state.step, out_key))
+        return logits_fn(x, weights, out_key)
+
+    trainer._logits = logits_spy
+    if imb == "adsh":
+        # the logits each refit reads, and s before and after it
+        from semireward_tpu_torch.imb import adsh as adsh_mod
+        orig_refit = adsh_mod.refit_thresholds
+        imb_rec["refits"] = []
+
+        def refit_spy(logits, s, tau_1):
+            new = orig_refit(logits, s, tau_1)
+            imb_rec["refits"].append((logits, s.copy(),
+                                      new.astype(np.float32)))
+            return new
+
+        adsh_mod.refit_thresholds = refit_spy
+        undo_refit = [lambda: setattr(adsh_mod, "refit_thresholds",
+                                      orig_refit)]
+    else:
+        undo_refit = []
     spied, unspy = _spies(trainer, base)
     weights_range, undo = [], []
 
@@ -964,6 +1080,11 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
             undo.append(_bn_probe(model, bn_moved))
         if has_bn and step == BN_PROBE_STEP:
             undo.pop()()
+        # the wrapper's state at the first epoch boundary: before its hook
+        # (step_hook runs before it) and one step after
+        if imb and step in (IMB_PER_EPOCH - 1, IMB_PER_EPOCH,
+                            IMB_PER_EPOCH + 1):
+            imb_rec["snaps"][step] = _imb_tensors(trainer)
         # read at the log boundaries, where the trainer syncs anyway
         if step % log_every == 0:
             if base == "softmatch":
@@ -980,6 +1101,8 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         results = trainer.train(num_iters=steps, step_hook=step_hook)
     finally:
         unspy()
+        for u in undo_refit:
+            u()
     torch.cuda.synchronize()
     launches = {**F.launches, **A.launches}
 
@@ -1026,7 +1149,7 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
              for k in ("util_ratio", "util_ratio_lb") if k in history[0][1]}
     if not sr:
         assert all(v > 0.0 for v in masks.values()), masks
-    state = _algo_tensors(base, trainer.state.algo)
+    state = _algo_tensors(base, base_state())
     moved = {k: int((state[k] != v).sum()) for k, v in state0.items()}
     for k, n in moved.items():
         assert n > 0, f"{base}'s {k} never moved"
@@ -1101,10 +1224,11 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         assert all(abs(float(r.min()) - cfg.vat_eps) < 1e-3 * cfg.vat_eps
                    and abs(float(r.max()) - cfg.vat_eps) < 1e-3 * cfg.vat_eps
                    for r in r_adv), r_adv
+    if imb:
+        extra.update(_imb_checks(trainer, cfg, imb, steps, history,
+                                 imb_rec))
     if has_bn:
-        # the lb (or concatenated) pass moves the statistics; PseudoLabel's
-        # unlabeled pass runs with them frozen
-        want_bn = [True, False] if base == "pseudolabel" else [True] * n_fwd
+        want_bn = bn_moved_pattern(cfg, trainer.alg, base, n_fwd)
         assert bn_moved == want_bn, (bn_moved, want_bn)
         extra["bn_stats_moved_by_forward"] = bn_moved
     for k, v in results.items():
@@ -1179,6 +1303,154 @@ def _co_sim_checks(trainer, cfg, base, steps, history, state0, seen_idx,
                    bank_columns_seen_moved=int(seen.numel()),
                    in_loss_after_first_epoch_min=min(after))
     return out
+
+
+def _imb_tensors(trainer):
+    """The wrapper's state (``algo.1.*``) and its heads, cloned."""
+    from semireward_tpu_torch.core.train_state import _flatten
+
+    out = {}
+    _flatten("algo", trainer.state.algo[1], out)
+    out = {k: v.detach().clone() for k, v in out.items()}
+    for n, p in trainer.model.named_parameters():
+        if n.split(".")[-2:-1] and n.split(".")[-2] in (
+                "aux_classifier", "teacher_classifier"):
+            out[n] = p.detach().clone()
+    return out
+
+
+def _imb_checks(trainer, cfg, name, steps, history, rec):
+    """What each imbalanced-SSL wrapper does, read off the run (``history``'s
+    step is ctx.step + 1; the first epoch boundary's hook runs after the
+    step ``IMB_PER_EPOCH``): SAW's and ADSH's state refit at the boundary,
+    DebiasPL's ``p_hat`` moved, DARP's ``pseudo_orig`` rows written and the
+    refinement run, DASO's ring pointers advanced by the labeled rows of
+    each class, CReST's alignment EMA moved, the eval head of ABC, TRAS and
+    CoSSL by step, TRAS's and CoSSL's terms off before their epoch and on
+    after, CoSSL's teacher head moved by its warm start and by its own
+    SGD. Returns what it read."""
+    alg, st = trainer.alg, trainer.state.algo[1]
+    snaps = rec["snaps"]
+    e = IMB_PER_EPOCH
+    before, after = snaps[e], snaps[e + 1]
+    changed = sorted(k for k in before if not torch.equal(before[k],
+                                                          after[k]))
+    out = {"imb": name, "changed_at_first_epoch_end": changed}
+    metric = {"abc": "abc_loss", "tras": "tras_loss", "daso": "assign_loss",
+              "cossl": "tea_loss"}.get(name)
+    if metric:
+        vals = [float(m[metric]) for _, m in history]
+        out[f"{metric}_min_max"] = [min(vals), max(vals)]
+    if name == "saw":
+        assert "algo.x_ulb_weights" in changed, changed
+    if name == "adsh":
+        # each refit against the rule on the logits it read; s moves where
+        # class 0 (the head class) is among the predictions
+        from semireward_tpu_torch.imb.adsh import refit_thresholds
+        assert rec["refits"], "ADSH never refit"
+        for logits, s0, s1 in rec["refits"]:
+            want = refit_thresholds(logits, s0, alg.tau_1).astype(np.float32)
+            assert np.array_equal(s1, want), (s1, want)
+        class0 = [int((lg.argmax(-1) == 0).sum()) for lg, _, _ in
+                  rec["refits"]]
+        assert max(class0) > 0, class0
+        assert all(not np.array_equal(a, b) for (_, a, b), c in
+                   zip(rec["refits"], class0) if c), rec["refits"]
+        out.update(adsh_s=st["adsh_s"].tolist(), refits=len(class0),
+                   class0_predictions_at_refits=class0)
+    if name == "debiaspl":
+        uniform = torch.full_like(st["p_hat"], 1.0 / cfg.num_classes)
+        assert not torch.equal(st["p_hat"], uniform)
+        out["p_hat"] = st["p_hat"].tolist()
+    if name == "darp":
+        seen = torch.unique(torch.cat(rec["idx_ulb"]))
+        u = 1.0 / cfg.num_classes
+        written = (st.pseudo_orig[seen] != u).any(1)
+        assert bool(written.all()), int((~written).sum())
+        refined = bool((st.pseudo_refine != u).any())
+        assert refined, "DARP never refined past its warm-up"
+        out.update(pseudo_orig_rows_written=int(seen.numel()),
+                   pseudo_refined=refined)
+    if name == "daso":
+        y = torch.cat(rec["y_lb"]).long()
+        total = torch.bincount(y, minlength=cfg.num_classes)
+        L = st.bank.shape[1]
+        assert torch.equal(st.bank_ptr.long(), total % L), (
+            st.bank_ptr.tolist(), total.tolist())
+        assert torch.equal(st.bank_cnt.long(), total.clamp(max=L))
+        vals = [float(m["assign_loss"]) for _, m in history]
+        assert min(vals) > 0, vals
+        out.update(bank_ptr=st.bank_ptr.tolist(),
+                   labeled_rows_by_class=total.tolist())
+    if name in ("crest", "crest+"):
+        assert bool(st.initialized) and bool((st.p_model > 0).all())
+        out["p_model"] = st.p_model.tolist()
+    keys = rec["eval_keys"]
+    want = {"abc": lambda t: "logits_aux",
+            "tras": lambda t: ("logits" if t // e < alg.warmup_epochs
+                               else "logits_aux"),
+            "cossl": lambda t: ("logits_tfe" if t // e >= alg.warm_epoch
+                                else "logits")}.get(name, lambda t: "logits")
+    assert keys and all(k == want(t) for t, k in keys), keys
+    if name in ("tras", "cossl"):
+        assert len({k for _, k in keys}) == 2, keys  # evals on both sides
+        switch = e * (alg.warmup_epochs if name == "tras" else alg.warm_epoch)
+        term = [float(m[metric]) for t, m in history]
+        if name == "tras":  # the term is 0 until its epoch
+            assert all(v == 0.0 for v in term[:switch]), term[:switch]
+            assert min(term[switch:]) > 0, term[switch:]
+        mom = "algo.tfe_momentum.kernel"
+        if name == "cossl":
+            head = [k for k in before if k.endswith("teacher_classifier"
+                                                    ".weight")][0]
+            assert head in changed, changed  # the warm start
+            assert not bool(before[mom].any()) and bool(after[mom].any())
+            assert bool(st["tfe_momentum"]["kernel"].any())
+        out.update(eval_head_switch_step=switch,
+                   eval_keys=sorted(set(keys)))
+    return out
+
+
+def crest_phase(F, A):
+    """CReST's generational driver (``imb.crest.train_crest``) over
+    FixMatch on its classic_cv_imb CIFAR-10 YAML: ``CREST_GENS``
+    generations of ``CREST_GEN_STEPS`` steps, each from scratch; the second
+    generation's labeled set holds the first's plus pseudo-labeled rows.
+    No kernel runs on the WRN (counts read and returned)."""
+    from semireward_tpu_torch.imb.crest import train_crest
+    from semireward_tpu_torch.profile_step import synthetic_config
+
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_crest_")
+    cfg = synthetic_config(imb_yaml("fixmatch", "crest+"), {
+        "num_log_iter": 10, "save_dir": save_dir,
+        "num_eval_iter": CREST_GEN_STEPS, "crest_num_gens": CREST_GENS})
+    sizes = []
+    F.reset_launches()
+    A.reset_launches()
+    t0 = time.time()
+    best, trainer = train_crest(
+        cfg, num_iters=CREST_GEN_STEPS,
+        on_generation=lambda gen, tr: sizes.append(
+            (len(tr.bundle.train_lb), tr.alg.cur_dist_align_t)))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {**F.launches, **A.launches}
+    assert all(v == 0 for v in launches.values()), launches
+    assert len(sizes) == CREST_GENS and sizes[1][0] > sizes[0][0], sizes
+    assert sizes[0][1] == 1.0 and sizes[1][1] == 0.5, sizes
+    for gen, results in best.items():
+        assert all(math.isfinite(v) for v in results.values()), (gen, results)
+    print(json.dumps({"phase": "imb_crest_gens", "algorithm": "fixmatch",
+                      "imb_algorithm": "crest+", "net": cfg.net,
+                      "generations": CREST_GENS, "steps_each": CREST_GEN_STEPS,
+                      "labeled_rows_and_dist_align_t_by_generation": sizes,
+                      "eval_top1_by_generation": {
+                          g: r["eval/top-1-acc"] for g, r in best.items()},
+                      "seconds": seconds, "card": card_line()}))
+    del trainer
+    shutil.rmtree(save_dir)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _checkpoint_writes(trainer):
@@ -1393,6 +1665,35 @@ def main() -> int:
     phases.append(train_phase("vit_srflexmatch_per_sample", HEADLINE_YAML,
                               {"sr_per_sample": True, "p_cutoff": 0.0},
                               PER_SAMPLE_STEPS, 20, F, A, k1 + k2))
+    # the imbalanced-SSL wrappers on WRN-28-2 (no kernel of the port runs)
+    imb_over = {**IMB_OVERRIDES, "num_eval_iter": IMB_EVAL_EVERY,
+                "p_cutoff": 0.0,
+                "epoch": _num_train_iter(imb_yaml("fixmatch", "saw"))
+                // IMB_PER_EPOCH}
+    for imb in IMB_NAMES:
+        phases.append(train_phase(f"imb_{imb}", imb_yaml("fixmatch", imb),
+                                  imb_over, IMB_STEPS, IMB_LOG_EVERY, F, A,
+                                  ()))
+    for imb in ("abc", "daso"):
+        phases.append(train_phase(f"imb_remixmatch_{imb}",
+                                  imb_yaml("remixmatch", imb), imb_over,
+                                  IMB_STEPS, IMB_LOG_EVERY, F, A, ()))
+    phases.append(crest_phase(F, A))
+    # the wrapper code under K1 and K2: ABC over FixMatch on the headline
+    # ViT-S/2-32 (its head reads the features out of K1 and K2), and
+    # SemiReward over Dash (registered through _make_sr_variant; Dash's
+    # warm-up reached through the wrapper)
+    phases.append(train_phase("vit_abc", USB_FIX_YAML, {
+        "imb_algorithm": "abc", "p_cutoff": 0.0,
+        "epoch": _num_train_iter(USB_FIX_YAML) // 40}, USB_STEPS,
+        USB_LOG_EVERY, F, A, k1 + k2))
+    from semireward_tpu_torch.algorithms.semireward import _make_sr_variant
+    from semireward_tpu_torch.registry import ALGORITHMS
+    if "srdash" not in ALGORITHMS:
+        _make_sr_variant("srdash", "dash")
+    phases.append(train_phase("vit_srdash", USB_YAML["dash"], {
+        "algorithm": "srdash", "num_wu_iter": 20}, USB_STEPS,
+        USB_LOG_EVERY, F, A, k1 + k2))
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
 
     where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),

@@ -68,6 +68,27 @@ def ssl_forward(model, x_lb, x_ulb_w, x_ulb_s, generator=None,
     return ForwardOut(l_lb, l_w, l_s, f_lb, f_w, f_s)
 
 
+def write_last(dst, dim: int, idx, src):
+    """``dst.index_copy(dim, idx, src)`` where an index that repeats keeps
+    its last row, on every device (CUDA leaves the winner of a repeated
+    ``index_copy`` or ``scatter`` undefined; the CPU and the JAX package's
+    ``.at[].set`` keep the last). Each index's last position comes from an
+    order-free ``scatter_reduce(amax)``; every other row is sent to a
+    spare slot past the end, which is dropped, so no index is written
+    twice. ``idx`` may name that spare slot (``dst.shape[dim]``) for a row
+    that is not to be written."""
+    n = dst.shape[dim]
+    idx = idx.long()
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full((n + 1,), -1, dtype=torch.long,
+                      device=idx.device).scatter_reduce(0, idx, pos, "amax")
+    tgt = torch.where(last[idx] == pos, idx, torch.full_like(idx, n))
+    spare = list(dst.shape)
+    spare[dim] = 1
+    ext = torch.cat([dst, dst.new_zeros(spare)], dim)
+    return ext.index_copy(dim, tgt, src.to(dst.dtype)).narrow(dim, 0, n)
+
+
 def compute_prob(logits):
     return F.softmax(logits.float(), dim=-1)
 
@@ -106,11 +127,10 @@ def flex_mask(state: FlexState, probs, idx_ulb, p_cutoff: float,
     mask = (max_probs >= p_cutoff * (acc / (2.0 - acc))).to(probs.dtype)
     select = max_probs >= p_cutoff
 
-    # unselected rows write to a spare slot past the end (JAX's mode="drop")
+    # unselected rows write to a spare slot past the end (JAX's mode="drop");
+    # an index drawn twice keeps its last selected row
     upd_idx = torch.where(select, idx_ulb.long(), torch.full_like(max_idx, n))
-    ext = torch.cat([state.selected_label,
-                     state.selected_label.new_full((1,), -1)])
-    selected = ext.scatter(0, upd_idx, max_idx)[:n]
+    selected = write_last(state.selected_label, 0, upd_idx, max_idx)
 
     counts = torch.zeros(num_classes + 1, dtype=torch.long,
                          device=selected.device).scatter_add_(

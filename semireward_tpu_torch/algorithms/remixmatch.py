@@ -6,7 +6,11 @@ updates the BatchNorm running statistics); the pre-mix CE (``u1``) of the
 raw s0 view against the target; and the 4-way rotation head
 (``models/wrappers.py:RotNet``) on the rotated s0 view. Every other forward
 runs with BatchNorm frozen. The JAX loss's forwards of the labeled and s1
-views feed no loss and are not run."""
+views feed no loss and are not run, unless ``keep_fwd`` is set (an
+imbalanced-SSL wrapper that reads the forward: ABC, DARP, DASO): then the
+labeled view's forward runs too (BatchNorm frozen, with its gradient) and
+the loss returns the JAX package's ``fwd`` (labeled, weak and s0 logits
+and features)."""
 from __future__ import annotations
 
 import torch
@@ -30,6 +34,8 @@ class ReMixMatch(Algorithm):
     BATCH_KEYS = ("x_lb", "y_lb", "x_ulb_w", "x_ulb_s_0", "x_ulb_s_1",
                   "x_ulb_s_0_rot", "rot_v")
     check_ported = classmethod(check_input_mixup)
+    # set by an imbalanced-SSL wrapper that reads the forward's outputs
+    keep_fwd = False
 
     @property
     def use_rot(self) -> bool:
@@ -56,6 +62,8 @@ class ReMixMatch(Algorithm):
                     ctx.algo_state, self.compute_prob(outs_w["logits"]),
                     momentum=0.999)
                 target = sharpen(prob, cfg.T)
+            if self.keep_fwd:
+                outs_lb = model(b["x_lb"], train=True, generator=gen)
             outs_s0 = model(b["x_ulb_s_0"], train=True, generator=gen)
 
         inputs = torch.cat([b["x_lb"], b["x_ulb_s_0"], b["x_ulb_s_1"],
@@ -80,7 +88,12 @@ class ReMixMatch(Algorithm):
             rot_loss = self.ce_loss(out_rot["logits_rot"], b["rot_v"],
                                     reduction="mean")
             extra = extra + cfg.rot_loss_ratio * rot_loss
-        return self.pack(sup_loss=sup_loss, unsup_loss=unsup_loss, fwd=None,
+        fwd = None
+        if self.keep_fwd:
+            fwd = C.ForwardOut(outs_lb["logits"], outs_w["logits"],
+                               outs_s0["logits"], outs_lb["feat"],
+                               outs_w["feat"], outs_s0["feat"])
+        return self.pack(sup_loss=sup_loss, unsup_loss=unsup_loss, fwd=fwd,
                          new_algo_state=da_state, warmup=warm,
                          extra_loss=extra,
                          metrics={"u1_loss": u1_loss, "rot_loss": rot_loss})

@@ -2,7 +2,11 @@
 
 One wrapper, :class:`SemiRewardWrapper`, composes the reward model with a
 base algorithm; ``srpseudolabel``, ``srfixmatch``, ``srflexmatch``,
-``srfreematch`` and ``srsoftmatch`` are registered here.
+``srfreematch`` and ``srsoftmatch`` are registered here, and
+``_make_sr_variant`` registers it over any other registered algorithm
+(a base that returns its forward and pseudo-labels). The base's warm-up
+(Dash's) runs through the wrapper: the trainer reads ``base.NEEDS_WARMUP``
+and ``set_rho_init`` passes to the base.
 
 - The ``Rewarder`` keeps the reference's batch-dim "cross-attention": one
   softmax over the ``[2B, 128]`` concat of projected features and label
@@ -131,11 +135,6 @@ SR_DEFAULTS = {"start_timing": 20000, "feature_dim": 384, "sr_lr": 0.0005,
                "N_k": 10, "sr_ema": True, "sr_ema_m": 0.999}
 
 
-# the base algorithms whose masking hook the wrapper knows how to re-apply
-_REMASK_BASES = ("pseudolabel", "fixmatch", "flexmatch", "freematch",
-                 "softmatch")
-
-
 def _check_sr_mode(cfg):
     if cfg.sr_per_sample and cfg.is_regression:
         raise ValueError(
@@ -194,15 +193,16 @@ class SemiRewardWrapper(Algorithm):
         super().__init__(cfg, data_info, device)
         _check_sr_mode(cfg)
         self.base = self.BASE_CLS(cfg, data_info, device)
-        if self.base.NAME not in _REMASK_BASES:
-            raise NotImplementedError(
-                f"SemiReward over {self.base.NAME} is not ported yet "
-                f"(ROADMAP: the other algorithms)")
         self.BATCH_KEYS = tuple(dict.fromkeys(self.base.BATCH_KEYS
                                               + ("idx_ulb",)))
 
     def init_state(self):
         return self.base.init_state()
+
+    def set_rho_init(self, algo_state, rho_init: float):
+        """The base's warm-up result (Dash's ``rho_init``) into the base's
+        state, which is this wrapper's."""
+        return self.base.set_rho_init(algo_state, rho_init)
 
     def init_sr(self, generator=None) -> SRState:
         return init_sr_state(self.cfg, self.device, generator)
@@ -211,7 +211,9 @@ class SemiRewardWrapper(Algorithm):
         """The base algorithm's masking hook, re-applied as the reference's
         data generator does: once for the stateless hooks and FlexMatch's,
         ``n`` times on the same ``probs_w`` for FreeMatch's and SoftMatch's
-        (the last state and mask kept)."""
+        (the last state and mask kept). Any other base: its own
+        ``remask(algo_state, probs_w, idx_ulb)`` where it defines one, else
+        the fixed-threshold mask."""
         cfg = self.cfg
         name = self.base.NAME
         if name == "flexmatch":
@@ -226,6 +228,9 @@ class SemiRewardWrapper(Algorithm):
                 algo_state.gaussian, probs_w, n_sigma=cfg.n_sigma,
                 momentum=cfg.ema_p, per_class=cfg.per_class, repeat=n)
             return algo_state._replace(gaussian=g), mask
+        custom = getattr(self.base, "remask", None)
+        if name not in ("fixmatch", "defixmatch", "pseudolabel") and custom:
+            return custom(algo_state, probs_w, idx_ulb)
         return algo_state, C.fixed_threshold_mask(probs_w, cfg.p_cutoff)
 
     @staticmethod
@@ -388,6 +393,9 @@ class SemiRewardWrapper(Algorithm):
 
 
 def _make_sr_variant(name: str, base_name: str):
+    """Register ``name``: SemiReward over the registered algorithm
+    ``base_name`` (any: a user's own included, as
+    ``examples/custom_algorithm.py`` wraps ``mymatch``)."""
     base_cls = ALGORITHMS.get(base_name)
 
     class _SR(SemiRewardWrapper):

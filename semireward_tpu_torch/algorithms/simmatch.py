@@ -5,7 +5,10 @@ with distribution alignment over a queue and the ``SimMatchNet`` head.
 
 One forward of ``[x_lb, x_ulb_w, x_ulb_s]`` (whatever ``use_cat`` says, as
 in the JAX package). The bank's labels spread each sample's similarities
-over the classes with an index-add, which accumulates repeated labels.
+over the classes with a product against their one-hot labels (a fixed
+summation order on every device), and an index drawn twice in one batch
+writes the bank with its last row, as the JAX package's ``.at[].set``
+does on the CPU (``common.write_last``).
 The first epoch has no instance loss and no smoothing (a Python branch on
 the host's step count). On the datasets outside ``_EMA_BANK_DATASETS`` the
 labeled bank entries come from the EMA weights (a forward of ``x_lb`` in
@@ -41,10 +44,11 @@ class SimMatchState:
 
 
 def class_similarity(teacher_prob, labels_bank, num_classes: int):
-    """``agg[i, c] = sum_{k: labels_bank[k] = c} teacher_prob[i, k]``."""
-    agg = torch.zeros(teacher_prob.shape[0], num_classes,
-                      dtype=teacher_prob.dtype, device=teacher_prob.device)
-    return agg.index_add_(1, labels_bank, teacher_prob)
+    """``agg[i, c] = sum_{k: labels_bank[k] = c} teacher_prob[i, k]``, as
+    the product with the bank's one-hot labels: one fixed summation order
+    on every run (a float ``index_add_`` on CUDA adds in no fixed order)."""
+    onehot = F.one_hot(labels_bank.long(), num_classes).to(teacher_prob.dtype)
+    return teacher_prob @ onehot
 
 
 @ALGORITHMS.register("simmatch")
@@ -126,9 +130,10 @@ class SimMatch(Algorithm):
         if not self.use_ema_teacher:
             mixed = self.EMA_BANK * bank[:, idx] + (1 - self.EMA_BANK) * k
             k = mixed / torch.linalg.vector_norm(mixed, dim=0, keepdim=True)
+        # an index drawn twice in the batch keeps its last row
         new_state = SimMatchState(
-            mem_bank=bank.index_copy(1, idx, k),
-            labels_bank=st.labels_bank.index_copy(0, idx, b["y_lb"].long()),
+            mem_bank=C.write_last(bank, 1, idx, k),
+            labels_bank=C.write_last(st.labels_bank, 0, idx, b["y_lb"]),
             dist_align=da_state)
         fwd = C.ForwardOut(logits_lb, logits_w, logits_s, feats_lb, feats_w,
                            feats_s)

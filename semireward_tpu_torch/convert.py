@@ -13,7 +13,11 @@ JAX needed at run time).
   ``layer.3``; raw params (BERT's ``position_embeddings``) keep their name.
 
 Works for the ViT, the BERT and HuBERT/wav2vec2 classifiers, the WideResNets
-and the SemiReward ``Rewarder``/``Generator``.
+and the SemiReward ``Rewarder``/``Generator``, and for the algorithms' net
+wrappers, nested too: ``{'backbone': {'backbone': ..., 'rot_classifier':
+...}, 'aux_classifier': ...}`` (ABC over ReMixMatch) maps onto
+``backbone.backbone.*``, ``backbone.rot_classifier.*`` and
+``aux_classifier.*``, CoSSL's head onto ``teacher_classifier.*``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The training step (port of ``semireward_tpu/core/step.py``).
 
-One call: algorithm loss -> backward -> optimizer step (in place) -> EMA of
-the weights -> SemiReward rewarder update -> step + 1. The step count is a
+One call: algorithm loss -> backward -> optimizer step (in place) -> the
+algorithm's ``post_param_update`` where it has one -> EMA of the weights ->
+SemiReward rewarder update -> step + 1. The step count is a
 host int; the only host/device traffic is the batch going in.
 """
 from __future__ import annotations
@@ -43,6 +44,7 @@ def make_train_step(cfg, alg: Algorithm) -> Callable:
         raise NotImplementedError("bf16_grads is not ported yet "
                                   "(ROADMAP: port A/Bs)")
     has_sr = getattr(alg, "HAS_SR", False)
+    post_update = getattr(alg, "post_param_update", None)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
@@ -54,11 +56,18 @@ def make_train_step(cfg, alg: Algorithm) -> Callable:
         # parameters outside the graph (a frozen feature extractor) get a
         # zero gradient, as optax gives them: Adam's moments still decay
         # and AdamW's weight decay still shrinks them
-        state.opt.step(torch.autograd.grad(out.total_loss, params,
-                                           allow_unused=True,
-                                           materialize_grads=True))
-        tree_ema(state.ema, params, cfg.ema_m)
+        grads = torch.autograd.grad(out.total_loss, params, allow_unused=True,
+                                    materialize_grads=True)
+        state.opt.step(grads)
         state.algo = out.new_algo_state
+        if post_update is not None:
+            # a second optimizer over the same (unclipped) gradients, after
+            # the main one and before the EMA (CoSSL's teacher head)
+            names = [n for n, _ in state.model.named_parameters()]
+            state.algo = post_update(dict(zip(names, params)),
+                                     dict(zip(names, grads)), state.algo,
+                                     state.step)
+        tree_ema(state.ema, params, cfg.ema_m)
         metrics = {k: v.detach() for k, v in out.metrics.items()}
         if has_sr:
             metrics.update(alg.sr_update(state.sr, out, batch, state.step,

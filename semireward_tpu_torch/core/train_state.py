@@ -118,7 +118,10 @@ def _fresh(like: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 
 def _children(obj):
     """(name, child) pairs of an algorithm-state node: dataclass fields,
-    NamedTuple fields or tuple indices."""
+    NamedTuple fields, dict keys or tuple indices (an imbalanced-SSL
+    wrapper's ``(base_state, imb_state)`` is ``algo.0.*`` / ``algo.1.*``)."""
+    if isinstance(obj, dict):
+        return list(obj.items())
     if dataclasses.is_dataclass(obj):
         return [(f.name, getattr(obj, f.name))
                 for f in dataclasses.fields(obj)]
@@ -145,6 +148,8 @@ def _rebuild(prefix: str, obj, src: Mapping[str, torch.Tensor]):
         return _fresh(obj, src[prefix])
     new = {name: _rebuild(f"{prefix}.{name}", child, src)
            for name, child in _children(obj)}
+    if isinstance(obj, dict):
+        return new
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **new)
     if hasattr(obj, "_fields"):

@@ -26,8 +26,15 @@ run; ``use_pretrain`` grafts released weights onto the net before the EMA
 and the optimizer are built. An algorithm may put the net under a wrapper
 with heads of its own (ReMixMatch, CRMatch, CoMatch, SimMatch) before the
 state is built, and
-Dash trains a supervised warm-up (``warmup``) before its first step. What
-is not ported yet raises naming its ROADMAP item (``refuse_unported``).
+Dash trains a supervised warm-up (``warmup``) before its first step, also
+under a wrapper (SemiReward or imbalanced SSL: the trainer reads the
+base's ``NEEDS_WARMUP``). With ``imb_algorithm`` the algorithm is that
+wrapper over ``algorithm`` (``imb/``; ``alg_factory`` builds any other),
+and the trainer runs its hooks: ``on_epoch_end(trainer, state)`` at every
+epoch boundary (``step % (num_train_iter // epoch) == 0``), the eval head
+``eval_out_key(step)`` / ``EVAL_OUT_KEY``, and the step's
+``post_param_update``. What is not ported yet raises naming its ROADMAP
+item (``refuse_unported``).
 """
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ from semireward_tpu_torch.data.loader import (PrefetchLoader, SSLLoader,
 from semireward_tpu_torch.data.modality import (AudioSSLLoader,
                                                 GenericBundle, NLPSSLLoader,
                                                 modality_of)
-from semireward_tpu_torch.registry import ALGORITHMS, NETS
+from semireward_tpu_torch.registry import ALGORITHMS, IMB_ALGORITHMS, NETS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -81,11 +88,16 @@ def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what this
     config asks of the port that it does not do yet, before any data is
     loaded: a form of the algorithm that it does not have
-    (``Algorithm.check_ported``); imbalanced SSL; gradient checkpointing;
-    the fast reverb; bio data."""
+    (``Algorithm.check_ported``); ``resnet50`` (the classic_cv_imb
+    ImageNet-127 runs); gradient checkpointing; the fast reverb; bio
+    data."""
     ALGORITHMS.get(cfg.algorithm).check_ported(cfg)
     if cfg.imb_algorithm:
-        not_ported("imbalanced SSL", "imb")
+        from semireward_tpu_torch import imb as _imb  # noqa: F401
+        IMB_ALGORITHMS.get(cfg.imb_algorithm)
+    if cfg.net == "resnet50":
+        not_ported(f"resnet50 and the {cfg.dataset} data", "section 1 "
+                   "items 5 (the JPEG-folder datasets) and 6 (resnet50)")
     if cfg.gradient_checkpointing:
         not_ported("gradient checkpointing", "remat")
     if (modality_of(cfg.net) == "audio"
@@ -116,7 +128,8 @@ class Trainer:
     Runs on CUDA unless ``device='cpu'``."""
 
     def __init__(self, cfg: Config, bundle: Optional[SSLDataBundle] = None,
-                 device=None, logger: Optional[logging.Logger] = None):
+                 device=None, logger: Optional[logging.Logger] = None,
+                 alg_factory: Optional[Callable] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.logger = logger or logging.getLogger(
@@ -181,10 +194,20 @@ class Trainer:
             self.logger.info(f"feature_dim {cfg.feature_dim} -> {width}, the "
                              f"width of {cfg.net}'s features")
             cfg.feature_dim = width
-        self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info, self.device)
+        data_info["num_features"] = width
+        if alg_factory is not None:
+            self.alg = alg_factory(cfg, data_info, self.device)
+        elif cfg.imb_algorithm:
+            from semireward_tpu_torch.imb import get_imb_algorithm
+            self.alg = get_imb_algorithm(cfg.imb_algorithm)(
+                cfg, data_info, self.device,
+                base_cls=ALGORITHMS.get(cfg.algorithm))
+        else:
+            self.alg = ALGORITHMS.get(cfg.algorithm)(cfg, data_info,
+                                                     self.device)
         # heads of the algorithm's own (ReMixMatch, CRMatch, CoMatch,
-        # SimMatch) go on before the state is built, the backbone under
-        # ``backbone``
+        # SimMatch, ABC / TRAS, CoSSL) go on before the state is built,
+        # the backbone under ``backbone``
         self.model = self.alg.wrap_model(self.model, self.generator)
         if cfg.use_pretrain:
             # the released weights replace the init before the EMA shadow
@@ -222,6 +245,23 @@ class Trainer:
         self.log_history = []  # one dict per log boundary
         self.ckpt_writes = []  # {path, bytes, seconds} per checkpoint file
         self._save_dir = os.path.join(cfg.save_dir, cfg.save_name)
+        self._iters_per_epoch = (cfg.num_train_iter // cfg.epoch
+                                 if cfg.epoch > 0 else 0)
+
+    @property
+    def needs_warmup(self) -> bool:
+        """A supervised pre-stage before the first step: the algorithm's,
+        or its base's under a wrapper."""
+        return bool(self.alg.NEEDS_WARMUP or getattr(
+            getattr(self.alg, "base", None), "NEEDS_WARMUP", False))
+
+    def eval_out_key(self) -> str:
+        """The head that ``evaluate`` scores at the current step: the
+        algorithm's ``eval_out_key(step)`` or ``EVAL_OUT_KEY``, else
+        ``logits``."""
+        if hasattr(self.alg, "eval_out_key"):
+            return self.alg.eval_out_key(int(self.state.step))
+        return getattr(self.alg, "EVAL_OUT_KEY", "logits")
 
     # ------------------------------------------------------------------
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -240,8 +280,14 @@ class Trainer:
                  "train_ulb": self.bundle.train_ulb},
                 self.collator, cfg.batch_size, cfg.ulb_batch_size,
                 self.alg.BATCH_KEYS, seed=seed)
+        # CoSSL's class-balanced labeled and extra unlabeled streams
+        tfe = bool(getattr(self.alg, "EXTRA_STREAMS", ()))
         return SSLLoader(self.bundle, cfg.batch_size, cfg.ulb_batch_size,
-                         seed=seed, sampler=cfg.train_sampler)
+                         seed=seed, sampler=cfg.train_sampler,
+                         tfe_streams=tfe,
+                         tfe_ulb_batch_size=int(cfg.extra.get(
+                             "cossl_tfe_u_ratio", 1)) * cfg.batch_size
+                         if tfe else 0)
 
     def make_batch(self, raw: Dict[str, np.ndarray],
                    keys: Optional[Sequence[str]] = None
@@ -274,7 +320,16 @@ class Trainer:
                  if k.startswith("x_")],
                 self.generator,
                 weak_ulb_s=getattr(self.alg, "WEAK_ULB_S", False))
-        for k in ("y_lb", "idx_lb", "idx_ulb"):
+            if "x_tfe_lb" in raw:
+                # CoSSL's streams: strong views unless cossl_tfe_augment
+                # says weak
+                from semireward_tpu_torch.imb.cossl import tfe_view
+                strong = self.cfg.extra.get("cossl_tfe_augment",
+                                            "strong") == "strong"
+                for k in ("x_tfe_lb", "x_tfe_ulb"):
+                    batch[k] = tfe_view(self._to_device(raw[k]),
+                                        self.aug_spec, strong, self.generator)
+        for k in ("y_lb", "idx_lb", "idx_ulb", "y_tfe_lb"):
             if k in raw:
                 batch[k] = self._to_device(raw[k].astype(np.int64))
         return batch
@@ -305,7 +360,7 @@ class Trainer:
         sees each step's device metrics (no host sync)."""
         cfg = self.cfg
         num_iters = num_iters or cfg.num_train_iter
-        if self.alg.NEEDS_WARMUP:
+        if self.needs_warmup:
             if self.state.step == 0:
                 self.warmup()
             # the warm-up's steps stay in the optimizer's count (and in a
@@ -354,6 +409,14 @@ class Trainer:
                              step_now)
                     prefetch_acc = 0.0
                     t0, window_start = time.time(), step_now
+                # the host's work at an epoch boundary (SAW's and ADSH's
+                # refits, CoSSL's warm start)
+                if (self._iters_per_epoch
+                        and step_now % self._iters_per_epoch == 0
+                        and hasattr(self.alg, "on_epoch_end")):
+                    new_state = self.alg.on_epoch_end(self, self.state)
+                    if new_state is not None:
+                        self.state = new_state
                 if step_now % cfg.num_eval_iter == 0 or step_now == num_iters:
                     eval_m = self.evaluate()
                     key = "top-1-acc" if not cfg.is_regression else "mse"
@@ -469,12 +532,13 @@ class Trainer:
         return dict(zip(names, self.state.ema))
 
     @torch.no_grad()
-    def _logits(self, x, weights: Optional[Dict[str, torch.Tensor]] = None
-                ) -> np.ndarray:
+    def _logits(self, x, weights: Optional[Dict[str, torch.Tensor]] = None,
+                out_key: str = "logits") -> np.ndarray:
         """Logits of ``weights`` (default: the EMA weights, or the live ones
         with ``eval_use_ema`` off; the live buffers) for an image batch, a
         token dict or a waveform batch (no normalization for tokens and
-        waveforms)."""
+        waveforms), from the head ``out_key`` (``logits`` where the net has
+        no such head)."""
         if weights is None:
             weights = self._eval_weights()
         if isinstance(x, dict):
@@ -485,7 +549,7 @@ class Trainer:
             xs = normalize(self._to_device(x), self.aug_spec.mean,
                            self.aug_spec.std)
         out = functional_call(self.model, weights, (xs,), {"train": False})
-        return out["logits"].float().cpu().numpy()
+        return out.get(out_key, out["logits"]).float().cpu().numpy()
 
     def _eval_batches(self, ds):
         """Fixed-shape eval batches with a validity mask; NLP texts are
@@ -513,14 +577,15 @@ class Trainer:
                  ) -> Dict[str, float]:
         """Metrics of the EMA weights (or ``weights``, see ``_logits``) on
         the eval split, or on the test split where ``split='test'`` and the
-        data has one."""
+        data has one, from the head that ``eval_out_key`` names."""
         ds = getattr(self.bundle, "test", None) if split == "test" else None
         if weights is None:
             weights = self._eval_weights()
+        out_key = self.eval_out_key()
         preds, trues, logits_all = [], [], []
         for b in self._eval_batches(ds if ds is not None
                                     else self.bundle.eval):
-            logits = self._logits(b["x"], weights)[b["mask"]]
+            logits = self._logits(b["x"], weights, out_key)[b["mask"]]
             preds.append(logits.argmax(-1))
             trues.append(b["y"][b["mask"]])
             logits_all.append(logits)

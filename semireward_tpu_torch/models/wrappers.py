@@ -3,7 +3,10 @@
 
 RotNet (ReMixMatch's 4-way rotation head), ProjectionNet (CoMatch) and
 SimMatchNet (an l2-normalized projection head), CRMatchNet (rotation head
-and the feature-level consistency head). Each keeps the net under the
+and the feature-level consistency head), AuxHeadNet (the ABC / TRAS
+auxiliary head) and CoSSLNet (CoSSL's teacher head); the last two pass
+other keywords (``use_rot``) on to the net they wrap, which may itself be
+a wrapper (ABC over ReMixMatch: ``backbone.backbone.<name>``). Each keeps the net under the
 attribute ``backbone``, so its parameters are named ``backbone.<name>`` as
 the flax tree's are ``{'backbone': ...}``, and ``convert.load_flax_params``
 maps one onto the other. Each head is a float32 ``nn.Linear`` over the
@@ -123,3 +126,45 @@ class CRMatchNet(_Wrapper):
         if use_rot:
             out["logits_rot"] = self.rot_classifier(feat)
         return out
+
+
+class AuxHeadNet(_Wrapper):
+    """ABC and TRAS: an auxiliary linear head over the features,
+    ``logits_aux`` on every full call; ``aux(feat)`` applies it alone."""
+
+    def __init__(self, backbone: nn.Module, num_classes: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(backbone)
+        self.aux_classifier = _dense(backbone.num_features, num_classes,
+                                     backbone, generator)
+
+    def forward(self, x, train: bool = True, only_fc: bool = False,
+                only_feat: bool = False, generator=None, **kw):
+        if only_fc or only_feat:
+            return self._passthrough(x, train, only_fc, only_feat, generator)
+        out = self.backbone(x, train=train, generator=generator, **kw)
+        return {**out, "logits_aux": self.aux_classifier(out["feat"])}
+
+    def aux(self, feat):
+        return self.aux_classifier(feat)
+
+
+class CoSSLNet(_Wrapper):
+    """CoSSL: the tail-feature-enhanced teacher head, ``logits_tfe`` on
+    every full call; ``teacher(feat)`` applies it alone."""
+
+    def __init__(self, backbone: nn.Module, num_classes: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(backbone)
+        self.teacher_classifier = _dense(backbone.num_features, num_classes,
+                                         backbone, generator)
+
+    def forward(self, x, train: bool = True, only_fc: bool = False,
+                only_feat: bool = False, generator=None, **kw):
+        if only_fc or only_feat:
+            return self._passthrough(x, train, only_fc, only_feat, generator)
+        out = self.backbone(x, train=train, generator=generator, **kw)
+        return {**out, "logits_tfe": self.teacher_classifier(out["feat"])}
+
+    def teacher(self, feat):
+        return self.teacher_classifier(feat)

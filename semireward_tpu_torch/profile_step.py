@@ -53,7 +53,9 @@ def synthetic_config(path: str, overrides=None):
     10 and N_k 10 (stage 2 and the reward filter within a short run), and
     synthetic data: CIFAR-shaped images (``dataset synthetic``; 2048 train
     images, or twice the YAML's ``num_labels`` where that is more, so that
-    the classic_cv YAMLs' 10000 labels split) for an image net, except on
+    the classic_cv YAMLs' 10000 labels split, or on a classic_cv_imb YAML
+    ``num_classes * (num_labels + ulb_num_labels)``, so that every class
+    holds the head class's counts) for an image net, except on
     an STL-10 YAML: there the seeded STL-10-layout corpus under
     ``build/synth_stl10`` (96 px); for a text
     net the seeded aclImdb-layout corpus, written
@@ -75,9 +77,14 @@ def synthetic_config(path: str, overrides=None):
         return config_lib.from_yaml(path, {"data_dir": SYNTH_STL10,
                                            **overrides})
     if modality == "cv":
+        n = max(2048, 2 * cfg.num_labels)
+        if cfg.ulb_num_labels:
+            # an imbalanced split names its head class's labeled and
+            # unlabeled counts: every class holds both
+            n = max(n, cfg.num_classes * (cfg.num_labels
+                                          + int(cfg.ulb_num_labels)))
         return config_lib.from_yaml(path, {
-            "dataset": "synthetic",
-            "synthetic_train": max(2048, 2 * cfg.num_labels), **overrides})
+            "dataset": "synthetic", "synthetic_train": n, **overrides})
     if modality == "nlp":
         from semireward_tpu_torch.data.nlp import write_synthetic_corpus
         root = SYNTH_TEXT

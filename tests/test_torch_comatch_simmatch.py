@@ -614,3 +614,91 @@ def test_simmatch_batchnorm_on_the_wrn_with_the_ema_teacher():
         assert_rel_close(out.metrics[k], np.asarray(jmetrics[k]), 1e-5, k)
     assert float(out.metrics["in_loss"]) > 0
     _compare_state(4, out.new_algo_state, jnew)
+
+
+def test_repeated_indices_keep_the_last_write_as_jax():
+    """64 rows drawn from 40 (the ``classic_cv`` SimMatch CIFAR-10-40
+    YAML's batch): the bank writes (``common.write_last``) and FlexMatch's
+    ``selected_label`` keep the last row of a repeated index, bit-equal to
+    the JAX package's ``.at[].set``; ``class_similarity`` (a product with
+    the one-hot labels) within 1e-6 of JAX's ``.at[].add``; one SimMatch
+    loss on the WRN with those rows gives JAX's labels bank exactly and its
+    memory bank within 1e-5."""
+    from semireward_tpu.algorithms.base import StepCtx as JCtx
+    from semireward_tpu_torch.algorithms.base import StepCtx as TCtx
+
+    K, n = 40, 64
+    rs = np.random.RandomState(21)
+    idx = rs.randint(0, K, n)
+    assert len(np.unique(idx)) < n
+    bank = rs.randn(16, K).astype(np.float32)
+    cols = rs.randn(16, n).astype(np.float32)
+    labels = rs.randint(0, NC, K)
+    y = rs.randint(0, NC, n)
+    want = jnp.asarray(bank).at[:, jnp.asarray(idx)].set(jnp.asarray(cols))
+    got = TC.write_last(_t(bank), 1, _t(idx), _t(cols))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = jnp.asarray(labels).at[jnp.asarray(idx)].set(jnp.asarray(y))
+    got = TC.write_last(_t(labels).long(), 0, _t(idx), _t(y))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the last row of each index, read off the batch
+    last = {int(i): j for j, i in enumerate(idx)}
+    assert all(int(got[i]) == y[j] for i, j in last.items())
+
+    tp = _probs(22, n=BU, c=K)
+    want = jnp.zeros((BU, NC)).at[:, jnp.asarray(labels)].add(jnp.asarray(tp))
+    got = tsim.class_similarity(_t(tp), _t(labels).long(), NC)
+    assert_rel_close(got, np.asarray(want), 1e-6, "class_similarity")
+
+    probs = _probs(23, n=n, c=NC, scale=4.0)
+    sel0 = rs.randint(-1, NC, K)
+    acc0 = rs.rand(NC).astype(np.float32) * 0.5
+    jst, jmask = JC.flex_mask(
+        JC.FlexState(jnp.asarray(sel0, jnp.int32), jnp.asarray(acc0)),
+        jnp.asarray(probs), jnp.asarray(idx, jnp.int32), 0.7, True)
+    tst, tmask = TC.flex_mask(TC.FlexState(_t(sel0).long(), _t(acc0)),
+                              _t(probs), _t(idx), 0.7, True)
+    np.testing.assert_array_equal(tst.selected_label.numpy(),
+                                  np.asarray(jst.selected_label))
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    np.testing.assert_array_equal(tst.classwise_acc.numpy(),
+                                  np.asarray(jst.classwise_acc))
+    repeated = [i for i in np.unique(idx) if (idx == i).sum() > 1
+                and (probs[idx == i].max(-1) >= 0.7).sum() > 1]
+    assert repeated, "no index selected twice"
+
+    # one SimMatch loss at 64 labeled rows drawn from a bank of 40
+    info = {"ulb_dest_len": 16, "lb_dest_len": K}
+    cfg = dict(BASE, algorithm="simmatch", net="wrn_28_2", num_classes=NC,
+               img_size=S, batch_size=n)
+    jalg = JALGS.get("simmatch")(jax_config(**cfg), info)
+    talg = TALGS.get("simmatch")(torch_config(**cfg), info,
+                                 torch.device("cpu"))
+    jm = jalg.wrap_model(jwrn.wrn_28_2(NC, dtype=jnp.float32,
+                                       bn_momentum=BN_MOM, **WRN_ARCH))
+    tm = talg.wrap_model(twrn.wrn_28_2(NC, dtype=torch.float32,
+                                       bn_momentum=BN_MOM, **WRN_ARCH),
+                         torch.Generator().manual_seed(0))
+    v = jax.jit(lambda k: jm.init(k, jnp.zeros((2, S, S, 3)), train=False))(
+        jax.random.PRNGKey(0))
+    params = _perturb(v["params"], 0.05)
+    load_flax_params(tm, jax.device_get(params),
+                     jax.device_get(v["batch_stats"]))
+    jst, tst = jalg.init_state(), talg.init_state()
+    _carry(tst, jst)
+    views = {k: rs.randn(n if k == "x_lb" else B, S, S, 3).astype(np.float32)
+             for k in ("x_lb", "x_ulb_w", "x_ulb_s")}
+    jb = {**_to(views, jnp.asarray), "y_lb": jnp.asarray(y),
+          "idx_lb": jnp.asarray(idx, jnp.int32)}
+    tb = {**_to(views, _t), "y_lb": _t(y), "idx_lb": _t(idx)}
+    jout = jax.jit(lambda p, b: jalg.loss(JCtx(
+        jm.apply, p, v["batch_stats"], b, jst, jax.random.PRNGKey(5),
+        jnp.asarray(3, jnp.int32), ema_params=p)))(params, jb)
+    tout = talg.loss(TCtx(tm, tb, tst, None, 3, ema=[
+        p.detach().clone() for p in tm.parameters()]))
+    np.testing.assert_array_equal(
+        tout.new_algo_state.labels_bank.numpy(),
+        np.asarray(jout.new_algo_state.labels_bank))
+    assert_rel_close(tout.new_algo_state.mem_bank,
+                     np.asarray(jout.new_algo_state.mem_bank), 1e-5,
+                     "mem_bank")

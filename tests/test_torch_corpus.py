@@ -279,3 +279,84 @@ def test_comatch_simmatch_yaml_builds_a_trainer(algo, modality, tmp_path,
         assert type(net).__name__ == CO_SIM_NETS[algo]
         assert out["logits"].shape == (2, 100) and out["feat"].shape == (
             2, 128)
+
+
+# ---------------------------------------------------------------------------
+# the imbalanced-SSL YAMLs (config/classic_cv_imb)
+# ---------------------------------------------------------------------------
+
+IMB_ROOT = os.path.join(USB_ROOT, "classic_cv_imb")
+IMB_NAMES = ("abc", "adsh", "cossl", "crest", "crest+", "darp", "daso",
+             "debiaspl", "saw", "tras")
+IMB_HEAD = {"abc": ("AuxHeadNet", "logits_aux"),
+            "tras": ("AuxHeadNet", "logits_aux"),
+            "cossl": ("CoSSLNet", "logits_tfe")}
+# YAMLs naming each wrapper on wrn_28_2 (CIFAR-10, CIFAR-100, STL-10)
+IMB_WRN_YAMLS = {"abc": 66, "adsh": 33, "cossl": 66, "crest": 66,
+                 "crest+": 66, "darp": 66, "daso": 66, "debiaspl": 66,
+                 "saw": 66, "tras": 33}
+
+
+def _imb_configs():
+    return [(p, config_lib.from_yaml(p)) for p in sorted(
+        glob.glob(os.path.join(IMB_ROOT, "*", "*.yaml")))]
+
+
+@pytest.mark.parametrize("name", IMB_NAMES)
+def test_every_imb_yaml_on_the_wrn_builds_its_wrapper(name):
+    """Each classic_cv_imb YAML naming ``name`` on wrn_28_2: the trainer's
+    refusals pass, the wrapper builds over its base, and the wrapped
+    WRN-28-2 (one a base and class count) gives the head the wrapper
+    evaluates."""
+    from semireward_tpu_torch import imb
+    from semireward_tpu_torch.core.trainer import refuse_unported
+
+    nets, n = {}, 0
+    for path, cfg in _imb_configs():
+        if cfg.imb_algorithm != name or cfg.net != "wrn_28_2":
+            continue
+        refuse_unported(cfg)
+        info = dict(DATA_INFO, lb_class_dist=np.linspace(
+            1.0, 0.01, cfg.num_classes) / np.linspace(
+            1.0, 0.01, cfg.num_classes).sum(), num_features=128)
+        alg = imb.get_imb_algorithm(name)(cfg, info, torch.device("cpu"),
+                                          base_cls=ALGORITHMS.get(
+                                              cfg.algorithm))
+        assert alg.base.NAME == cfg.algorithm, path
+        assert cfg.dataset in TD.CV_DATASETS, path
+        key = (cfg.algorithm, cfg.num_classes)
+        if key not in nets:
+            net = alg.wrap_model(NETS.get(cfg.net)(
+                num_classes=cfg.num_classes, dtype=torch.float32),
+                torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                out = net(torch.zeros(2, 32, 32, 3), train=False)
+            wrapper, head = IMB_HEAD.get(name, (
+                "RotNet" if cfg.algorithm == "remixmatch" else "WideResNet",
+                "logits"))
+            assert type(net).__name__ == wrapper, path
+            assert out[head].shape == (2, cfg.num_classes), path
+            nets[key] = net
+        n += 1
+    assert n == IMB_WRN_YAMLS[name]
+
+
+def test_imb_yaml_counts_and_the_resnet50_refusal(tmp_path):
+    """594 of the 702 classic_cv_imb YAMLs that name a wrapper are on
+    wrn_28_2; the other 108, and the 18 plain ones, run resnet50 on
+    imagenet127 and raise naming ROADMAP items 5 and 6."""
+    from semireward_tpu_torch.core.trainer import Trainer
+
+    configs = _imb_configs()
+    named = [c for _, c in configs if c.imb_algorithm]
+    assert len(configs) == 819 and len(named) == 702
+    assert sum(c.net == "wrn_28_2" for c in named) == sum(
+        IMB_WRN_YAMLS.values()) == 594
+    resnet = [(p, c) for p, c in configs if c.net == "resnet50"]
+    assert len(resnet) == 126
+    assert all(c.dataset == "imagenet127" for _, c in resnet)
+    for path, cfg in resnet:
+        cfg.save_dir = str(tmp_path)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP: section 1 items 5 .* and 6"):
+            Trainer(cfg, device="cpu")

@@ -29,6 +29,17 @@ import semireward_tpu_torch.algorithms.adamatch
 import semireward_tpu_torch.algorithms.crmatch
 import semireward_tpu_torch.algorithms.comatch
 import semireward_tpu_torch.algorithms.simmatch
+import semireward_tpu_torch.imb
+import semireward_tpu_torch.imb.base
+import semireward_tpu_torch.imb.saw
+import semireward_tpu_torch.imb.debiaspl
+import semireward_tpu_torch.imb.adsh
+import semireward_tpu_torch.imb.abc
+import semireward_tpu_torch.imb.tras
+import semireward_tpu_torch.imb.darp
+import semireward_tpu_torch.imb.daso
+import semireward_tpu_torch.imb.crest
+import semireward_tpu_torch.imb.cossl
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',

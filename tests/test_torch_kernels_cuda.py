@@ -4,6 +4,7 @@ card. Imports no JAX, so it runs on a CUDA machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
 Without a card every test here skips."""
+import dataclasses
 import math
 
 import numpy as np
@@ -535,3 +536,131 @@ def test_headline_trainer_resumes_bit_equal_on_the_card(cuda_device,
         tr._step(tr.state, tr.make_batch(raw), tr.generator)
     torch.cuda.synchronize()
     same(a.state, b.state)
+
+
+# ---------------------------------------------------------------------------
+# writes at a repeated index keep the last row on the card
+# ---------------------------------------------------------------------------
+
+def _repeated(dev, seed=0, k=40, n=64, c=10):
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, k, (n,), generator=g)
+    assert len(idx.unique()) < n
+    return (idx.to(dev), torch.randn(16, k, generator=g).to(dev),
+            torch.randn(16, n, generator=g).to(dev),
+            torch.randint(0, c, (n,), generator=g).to(dev),
+            torch.randint(0, c, (k,), generator=g).to(dev),
+            torch.softmax(4 * torch.randn(n, c, generator=g), -1).to(dev))
+
+
+@pytest.mark.cuda
+def test_repeated_index_writes_give_the_same_bits_on_the_card(cuda_device):
+    """64 rows drawn from 40 (SimMatch's CIFAR-10-40 batch): the bank and
+    label writes (``common.write_last``) and FlexMatch's
+    ``selected_label`` give the same bits in two runs and the CPU's bits;
+    ``class_similarity`` gives the same bits twice and is within 1e-6 of
+    the CPU's. Then one SimMatch loss on a narrow WRN at those rows, twice
+    with one seed: the banks bit-equal, the labels bank the CPU's and the
+    memory bank within 1e-3 of the CPU's (float32 convolutions)."""
+    from semireward_tpu_torch.algorithms import common as C
+    from semireward_tpu_torch.algorithms import simmatch as SM
+
+    def run(dev):
+        idx, bank, cols, y, labels, probs = _repeated(dev)
+        st = C.FlexState(torch.full((40,), -1, dtype=torch.long, device=dev),
+                         torch.zeros(10, device=dev))
+        flex, mask = C.flex_mask(st, probs, idx, 0.5, True)
+        tp = torch.softmax(torch.randn(12, 40, generator=torch.Generator(
+            ).manual_seed(1)), -1).to(dev)
+        return {"bank": C.write_last(bank, 1, idx, cols),
+                "labels": C.write_last(labels, 0, idx, y),
+                "selected": flex.selected_label, "mask": mask,
+                "acc": flex.classwise_acc,
+                "agg": SM.class_similarity(tp, labels, 10)}
+
+    a, b, cpu = run(cuda_device), run(cuda_device), run("cpu")
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        if k != "agg":
+            assert torch.equal(a[k].cpu(), cpu[k]), k
+    _close(a["agg"].cpu().numpy(), cpu["agg"].numpy(), 1e-6)
+
+    from semireward_tpu_torch.algorithms.base import StepCtx
+    from semireward_tpu_torch.config import get_config
+    from semireward_tpu_torch.models import wrn
+
+    idx, *_ = _repeated("cpu")
+    cfg = get_config(algorithm="simmatch", net="wrn_28_2", num_classes=10,
+                     batch_size=64, uratio=1, num_train_iter=10, epoch=10,
+                     img_size=16, compute_dtype="float32", proj_size=16,
+                     da_len=2, p_cutoff=0.3)
+    info = {"ulb_dest_len": 64, "lb_dest_len": 40}
+    g = torch.Generator().manual_seed(3)
+    x = {k: torch.randn(64, 16, 16, 3, generator=g)
+         for k in ("x_lb", "x_ulb_w", "x_ulb_s")}
+    y = torch.randint(0, 10, (64,), generator=g)
+
+    def to(obj, dev):
+        """A state of dataclasses of tensors on ``dev``."""
+        if isinstance(obj, torch.Tensor):
+            return obj.to(dev)
+        return dataclasses.replace(obj, **{
+            f.name: to(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj)})
+
+    # the bank drawn once, on the CPU: the card's generator draws others
+    state0 = SM.SimMatch(cfg, info, torch.device("cpu")).init_state()
+
+    def loss(dev):
+        alg = SM.SimMatch(cfg, info, torch.device(dev))
+        model = alg.wrap_model(wrn.wrn_28_2(
+            10, dtype=torch.float32, depth=10, widen_factor=1,
+            generator=torch.Generator().manual_seed(0)),
+            torch.Generator().manual_seed(0)).to(dev)
+        batch = {**{k: v.to(dev) for k, v in x.items()}, "y_lb": y.to(dev),
+                 "idx_lb": idx.to(dev)}
+        out = alg.loss(StepCtx(model, batch, to(state0, dev), None, 3))
+        return out.new_algo_state
+
+    # float32 convolutions (cuDNN takes TF32 by default), so that the bank
+    # can be held to the CPU's
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        s1, s2 = loss(cuda_device), loss(cuda_device)
+    sc = loss("cpu")
+    assert torch.equal(s1.mem_bank, s2.mem_bank)
+    assert torch.equal(s1.labels_bank, s2.labels_bank)
+    assert torch.equal(s1.labels_bank.cpu(), sc.labels_bank)
+    _close(s1.mem_bank.cpu().numpy(), sc.mem_bank.numpy(), 1e-3)
+
+
+@pytest.mark.cuda
+def test_darp_and_daso_repeated_writes_give_the_same_bits(cuda_device):
+    """DARP's ``pseudo_orig`` written at ``idx_ulb`` with repeats and
+    DASO's queue written by a batch with more rows of a class than the
+    ring holds: the same bits twice on the card, and the CPU's."""
+    from semireward_tpu_torch.algorithms import common as C
+    from semireward_tpu_torch.imb.daso import DASOState, enqueue
+
+    def run(dev):
+        idx, _, _, _, _, probs = _repeated(dev, seed=4, k=40, n=64)
+        orig = torch.full((40, 10), 0.1, device=dev)
+        g = torch.Generator().manual_seed(5)
+        y = torch.tensor([0] * 7 + [1, 2, 1], device=dev)
+        feats = torch.randn(10, 8, generator=g).to(dev)
+
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        st = DASOState(bank=z(3, 3, 8), bank_ptr=z(3, dtype=torch.int32),
+                       bank_cnt=z(3, dtype=torch.int32), prototypes=z(3, 8),
+                       pl_counts_acc=z(3), pl_dist=z(3), probs_sim=z(4, 3))
+        st = enqueue(enqueue(st, feats, y), feats.flip(0), y.flip(0))
+        return {"pseudo_orig": C.write_last(orig, 0, idx, probs),
+                "bank": st.bank, "ptr": st.bank_ptr, "cnt": st.bank_cnt,
+                "protos": st.prototypes}
+
+    a, b, cpu = run(cuda_device), run(cuda_device), run("cpu")
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        assert torch.equal(a[k].cpu(), cpu[k]), k
+    assert a["ptr"].tolist() == [(14 % 3), 4 % 3, 2 % 3]

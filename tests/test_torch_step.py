@@ -21,6 +21,7 @@ that bound, and no output depends on them.
 Also: a 2-step run of the port's Trainer on synthetic data on the CPU.
 """
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -208,11 +209,17 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     from semireward_tpu_torch.core.trainer import Trainer
 
     # resume and use_pretrain are ported (tests/test_torch_checkpoint.py,
-    # tests/test_torch_pretrained.py); imbalanced SSL is not
-    cfg = torch_config(algorithm="srflexmatch", net="vit_small_patch2_32",
-                       dataset="synthetic", imb_algorithm="abc",
-                       save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="imbalanced"):
+    # tests/test_torch_pretrained.py), imbalanced SSL too
+    # (tests/test_torch_imb.py); its ImageNet-127 runs on resnet50 are not
+    from semireward_tpu_torch import config as config_lib
+
+    cfg = config_lib.from_yaml(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "config/classic_cv_imb/fixmatch_abc/"
+        "fixmatch_abc_imagenet127_lb128101_286_ulbNone_286_0.yaml"),
+        {"save_dir": str(tmp_path)})
+    assert cfg.imb_algorithm == "abc" and cfg.net == "resnet50"
+    with pytest.raises(NotImplementedError, match="items 5 .* and 6"):
         Trainer(cfg, device="cpu")
     # the bench's ref-equivalent arm is ported
     # (tests/test_torch_sr_variants.py)
