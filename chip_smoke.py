@@ -22,7 +22,8 @@
    - K3, the hidden-blocked fused MLP (forward: two wgmma GEMMs; backward:
      three and a fixed-order reduction), at the HuBERT-base train shape
      (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M 12*512 = 6144),
-     CoMatch's on BERT-base (M 16*512 = 8192) and a small ragged M, the
+     CoMatch's on BERT-base (M 16*512 = 8192), ViT-B/16's at 224 px (M
+     768*197 = 151296; its breakdown by GEMM too) and a small ragged M, the
      backward bit-equal across two launches, with
      each timed row's TFLOP/s and share of its bound and the tile plan;
    - K2, flash attention (forward; dq + dk/dv, all three wgmma + TMA
@@ -33,7 +34,8 @@
      x 12 heads, N 199, dropout 0.1, no bias), CoMatch's on BERT-base (16 x
      12 heads, N 512, bias, dropout 0.1; timed), SimMatch's on STL-10 (24,
      16 and 8 x 6 heads, N 2305), ViT-S's (24 x 6 heads, N 257,
-     no bias; also B 8, 32 and 56, the last timed: CRMatch's) and small
+     no bias; also B 8, 32 and 56, the last timed: CRMatch's), ViT-B/16's
+     at 224 px (768 x 12 heads, N 197; timed, and its time by kernel) and small
      ragged shapes (N 1, 77, 130, 1000): the forward's keep
      bits equal to pack_keep_bits(attention_keep_mask), the backward
      bit-equal across two launches; the dropout stream read out of the
@@ -143,6 +145,33 @@
      the features out of K1 and K2); ``vit_srdash``: SemiReward over Dash
      through ``_make_sr_variant`` (Dash's warm-up through the wrapper),
      both with exact K1 / K2 counts;
+   - ``vit_b16_remat``: SRFlexMatch on the imagenet_stretch YAML
+     (``VITB_YAML``: ViT-B/16 at 224 px, ``gradient_checkpointing``, 256 +
+     256 images, ``use_cat``: 768 a forward, AdamW with layer decay 0.75)
+     on seeded synthetic images of its 1000 classes (``VITB_OVERRIDES``),
+     through K3 (M 151296) and K2 (B 768, N 197, H 12), each checkpointed
+     block's K3f and K2f counted once more per backward; then the step's
+     gradients with every block checkpointed against the same step
+     unchecked, on one batch with the same drop-path masks, bit for bit,
+     and peak device memory and steps/s with checkpointing on and off in
+     turns (``vitb_remat_checks``);
+   - ``resnet50_fixmatch`` and ``resnet50_abc``: ResNet-50 on the
+     classic_cv_imb ImageNet-127 YAMLs (``RESNET_YAML``: 112 px, 127
+     classes, 256 + 512, SGD) on a seeded synthetic split at the YAMLs'
+     ratio 286 (``RESNET_OVERRIDES``): losses finite, the BatchNorm
+     statistics moved by the train pass and left by an eval
+     (``resnet_checks``), ABC's ``aux_classifier`` moved and its eval head;
+     then ``profile_step.py`` on the FixMatch YAML (device busy and idle
+     share); no kernel of the port runs on the ResNet;
+   - ``golden``: the golden-learning checks (``validation.py``) at seed 0
+     with the JAX test tier's settings and bounds (``GOLDEN_*``), on the
+     card from a CPU generator (``run_golden``'s default: the draws of the
+     same run on the CPU, as a JAX key gives every backend one stream):
+     FlexMatch's gain over its labeled-only run at 1000 iterations,
+     SemiReward under 40% uniform pseudo-label noise at 500, SAW over
+     FixMatch at ratio 10 at 400 (its gain printed, not held); it runs
+     no kernel of the port and comes after the ``kernels`` line, and a
+     failed bound ends the run there, before the ``ok`` line;
    every train phase writes its checkpoints (``latest_model.ckpt``,
    ``model_best.ckpt``) and ``metrics.jsonl`` into a temporary directory,
    prints each checkpoint's bytes and write seconds, and, where the data
@@ -162,7 +191,8 @@
    A's top-1 at ``best_it``; ``metrics.jsonl`` holds the JAX package's
    keys; K1f / K2f launches counted exactly (one forward per eval batch of
    the four evals, the CLI's included);
-6. prints one ``kernels`` JSON line and, last, the ``ok`` JSON line.
+6. prints one ``kernels`` JSON line, runs the ``golden`` checks and, last,
+   prints the ``ok`` JSON line.
 
 Any failed check raises, so the exit code is not 0 and the ``ok`` line is
 not printed. Needs one CUDA card; fails without one.
@@ -199,7 +229,7 @@ USB_ALGOS = ("pimodel", "meanteacher", "vat", "mixmatch", "remixmatch",
              "uda", "dash", "adamatch", "crmatch", "defixmatch")
 USB_YAML = {a: os.path.join(HERE, f"config/usb_cv/{a}/{a}_cifar100_200_0.yaml")
             for a in USB_ALGOS}
-USB_STEPS, USB_LOG_EVERY = 60, 20
+USB_STEPS, USB_LOG_EVERY = 40, 20
 # Dash: a short supervised warm-up (the default is 2048 steps). CRMatch,
 # UDA and DeFixMatch: no sample of random weights passes the YAMLs' cutoffs
 # (0.95, 0.8, 0.95) in 80 steps (H100 runs: util_ratio 0 in every window of
@@ -265,6 +295,40 @@ def imb_yaml(base: str, name: str) -> str:
                         f"{name}_cifar10_lb1500_100_ulb3000_100_0.yaml")
 
 
+# ViT-B/16 at 224 px with gradient checkpointing (SRFlexMatch, 256 + 256,
+# use_cat: 768 images a forward, K3 at M 768 * 197 = 151296, K2 at B 768,
+# N 197, H 12) on seeded synthetic images of the YAML's 1000 classes. Cut:
+# the labels (100,000 -> 2,000) and the images (1.28M JPEGs -> 4,096
+# synthetic train and 256 eval images); the YAML's 4-way FSDP mesh runs as
+# one card; p_cutoff 0, so that FlexMatch's selected_label moves within the
+# short phase
+VITB_YAML = os.path.join(HERE, "config/SemiReward/imagenet_stretch/"
+                         "flexmatch/flexmatch_imagenet_100000_0.yaml")
+VITB_OVERRIDES = {"num_labels": 2000, "synthetic_train": 4096,
+                  "p_cutoff": 0.0}
+VITB_STEPS, VITB_AB_STEPS = 30, 4
+# ResNet-50 on the classic_cv_imb ImageNet-127 YAMLs (112 px, 127 classes,
+# 256 + 512, SGD, the split at ratio 286) on seeded synthetic images. Cut:
+# the head class's labels (the YAML's 128,101 -> 286, so that the tail
+# class keeps 1) and unlabeled rows (the YAML's None, which the imbalanced
+# split cannot take -> 572), and the images (1.28M JPEGs -> 16,384, about
+# 129 a class: the 18 head classes give every row they hold to the labeled
+# set, 5,147 labeled and 3,078 unlabeled rows in all); p_cutoff 0
+# (FixMatch's mask at 0.95 stays 0 from random weights in a short run);
+# IMB_PER_EPOCH steps an epoch
+RESNET_YAML = {a: os.path.join(
+    HERE, f"config/classic_cv_imb/{a}/{a}_imagenet127_lb128101_286_ulbNone_"
+    f"286_0.yaml") for a in ("fixmatch", "fixmatch_abc")}
+RESNET_OVERRIDES = {"num_labels": 286, "ulb_num_labels": 572,
+                    "synthetic_train": 16384, "p_cutoff": 0.0,
+                    "num_eval_iter": 24}
+RESNET_STEPS = 40
+# the golden-learning checks at the JAX test tier's settings and bounds
+# (tests/test_golden_learning.py): FlexMatch's gain over labeled-only at
+# 1000 iterations, SemiReward under 40% uniform noise at 500 (start_timing
+# 120), SAW over FixMatch at ratio 10 at 400
+GOLDEN_SSL_MARGIN, GOLDEN_SR_SLACK = 0.10, 0.02
+GOLDEN_KEEP_RANGE, GOLDEN_SAW_MIN = (0.02, 0.95), 0.85
 WRN_FIX_YAML, WRN_PL_YAML = (os.path.join(
     HERE, f"config/SemiReward/classic_cv/{a}/{a}_cifar100_10000_0.yaml")
     for a in ("fixmatch", "pseudolabel"))
@@ -281,13 +345,15 @@ PEAK_BYTES = 3.35e12
 # run: 11 entries changed at step 500, 686 at step 750). HuBERT-base on the
 # synthetic ESC-50 corpus first passed it by step 300 with the unfused
 # attention and by step 500 with flash attention (H100 runs: 584 entries
-# changed by step 1500, 22 by step 600), so its phase runs twice that.
+# changed by step 1500, 22 by step 600). BERT and HuBERT ran 700 and 1000
+# steps until the ViT-B/16, ResNet-50 and golden phases came: 600 and 700
+# keep 100 steps past those first selections.
 TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 1200, 10, 10, 100
-BERT_STEPS, BERT_LOG_EVERY = 700, 100
-AUDIO_STEPS, AUDIO_LOG_EVERY = 1000, 100
+BERT_STEPS, BERT_LOG_EVERY = 600, 100
+AUDIO_STEPS, AUDIO_LOG_EVERY = 700, 100
 # the other variants' checks (state moved, the rewarder's two stages, the
 # BatchNorm probe, weights at two log boundaries) all fall within these
-FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 200, 100, 100, 100
+FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 100, 100, 100, 100
 # the step whose forwards read the BatchNorm statistics before and after
 BN_PROBE_STEP = 5
 # vit_resume: A's first eval (and checkpoint) at step 40, in stage 2 after
@@ -378,7 +444,8 @@ def fused_mlp_phase(F):
     2056), DeFixMatch and CoMatch (M 32 * 257 = 8224), CRMatch (M 56 * 257
     = 14392), SimMatch on STL-10 (M 24 * 2305 = 55320, its teacher's 18440
     and its eval's 36880) and ViT-Ti shapes and K3 at the BERT-base one
-    and CoMatch's on it (M 16 * 512 = 8192) are printed beside them."""
+    and CoMatch's on it (M 16 * 512 = 8192) and ViT-B/16's at 224 px (M 768
+    * 197 = 151296) are printed beside them."""
     dev = torch.device("cuda")
     results = {}
     for m, c, h in ((100, 128, 256), (6168, 384, 1536), (4112, 384, 1536),
@@ -386,7 +453,7 @@ def fused_mlp_phase(F):
                     (14392, 384, 1536), (55320, 384, 1536),
                     (18440, 384, 1536), (36880, 384, 1536), (6168, 192, 768),
                     (100, 768, 3072), (4776, 768, 3072), (6144, 768, 3072),
-                    (8192, 768, 3072)):
+                    (8192, 768, 3072), (151296, 768, 3072)):
         blocked = c == 768
         fwd = F.kernel_blocked_fwd if blocked else F.kernel_fwd
         bwd = F.kernel_blocked_bwd if blocked else F.kernel_bwd
@@ -524,10 +591,11 @@ CHECK_ONLY_FLASH_SHAPES = (("vit_srpseudolabel", (8, 257, 6, False, 0.0)),
                            ("vit_stl10_simmatch", (24, 2305, 6, False, 0.0)),
                            ("vit_stl10_eval", (16, 2305, 6, False, 0.0)),
                            ("vit_stl10_teacher", (8, 2305, 6, False, 0.0)))
-# timed beside the model shapes: CRMatch's one forward of 56 images and
-# CoMatch's of 16 texts on BERT-base
+# timed beside the model shapes: CRMatch's one forward of 56 images,
+# CoMatch's of 16 texts on BERT-base and ViT-B/16's of 768 images at 224 px
 EXTRA_TIMED_FLASH_SHAPES = (("vit_crmatch", (56, 257, 6, False, 0.0)),
-                            ("bert_comatch", (16, 512, 12, True, 0.1)))
+                            ("bert_comatch", (16, 512, 12, True, 0.1)),
+                            ("vit_b16_224", (768, 197, 12, False, 0.0)))
 HASH_OPS = 19  # integer instructions a score: two lowbias32, counter, compare
 
 
@@ -947,20 +1015,39 @@ def bn_moved_pattern(cfg, alg, base: str, n_fwd: int):
     return [False] * pre + pattern
 
 
+def kernel_layers(module, F):
+    """(fused MLP layers by the kernel their width takes, K1 ``full`` or K3
+    ``blocked``; flash attention layers) inside ``module``."""
+    fused = {"full": 0, "blocked": 0}
+    for m in module.modules():
+        if getattr(m, "use_fused", False):
+            fc1 = next(c for c in m.children()
+                       if isinstance(c, torch.nn.Linear)
+                       and c.out_features > c.in_features)
+            fused[F.route(fc1.in_features, fc1.out_features, "cuda")] += 1
+    n_flash = sum(bool(getattr(m, "use_flash", False))
+                  for m in module.modules()
+                  if not getattr(m, "attn_drop", 0.0))
+    return fused, n_flash
+
+
 def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
-                main_kernels, cfg_extra=None):
+                main_kernels, cfg_extra=None, after=None):
     """Train ``steps`` steps through ``Trainer.train`` with every count set
     to 0 just before and read just after; checks the launch counts exactly
     (the forwards and backwards of every layer on a kernel,
     ``launch_passes``; one forward per eval batch; Dash's warm-up steps
-    and eval), that the path's kernels launched, losses, the SemiReward
+    and eval; under gradient checkpointing each checkpointed block's
+    forward once more per backward), that the path's kernels launched,
+    losses, the SemiReward
     reward filter and rewarder updates in both stages (and the
     ``sr_reforward`` and ``sr_per_sample`` modes' own checks), the
     algorithm's own state (CoMatch's queue, SimMatch's bank, their
     distribution-alignment rings), its wrapper's heads, the BatchNorm
     running statistics where the net has them, and the eval. ``cfg_extra``
     goes into the config's ``extra`` (``sr_reforward``: the JAX loss reads
-    it there)."""
+    it there). ``after(trainer)`` runs the phase's own checks on the
+    trained run after the counts are read, and returns what it read."""
     from semireward_tpu_torch.core.trainer import Trainer
     from semireward_tpu_torch.imb.base import ImbAlgorithm
     from semireward_tpu_torch.models.batchnorm import BatchNorm
@@ -984,24 +1071,24 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     teacher = getattr(trainer.alg, "use_ema_teacher", False)
     n_wu = (int(cfg.extra.get("num_wu_iter", cfg.num_wu_iter))
             if trainer.needs_warmup else 0)
-    # fused MLP layers by the kernel their width takes (K1 or K3)
-    fused = {"full": 0, "blocked": 0}
+    fused, n_flash = kernel_layers(model, F)
+    # the kernel layers inside checkpointed blocks: their forward runs
+    # again in each backward
+    remat_fused, remat_flash = {"full": 0, "blocked": 0}, 0
     for m in model.modules():
-        if getattr(m, "use_fused", False):
-            fc1 = next(c for c in m.children()
-                       if isinstance(c, torch.nn.Linear)
-                       and c.out_features > c.in_features)
-            fused[F.route(fc1.in_features, fc1.out_features, "cuda")] += 1
-    n_flash = sum(bool(getattr(m, "use_flash", False))
-                  for m in model.modules()
-                  if not getattr(m, "attn_drop", 0.0))
+        if getattr(m, "remat", False):
+            f, n = kernel_layers(m, F)
+            remat_fused = {k: remat_fused[k] + f[k] for k in f}
+            remat_flash += n
     has_bn = any(isinstance(m, BatchNorm) for m in model.modules())
     print(f"train {name}: {cfg.algorithm} {cfg.net} {type(model).__name__} "
           f"batch={cfg.batch_size}+{cfg.ulb_batch_size} use_cat={cfg.use_cat} "
           f"steps={steps} warm-up steps={n_wu} forwards/backwards a "
           f"step={n_fwd}/{n_bwd} (EMA teacher {teacher}, sr_reforward "
           f"{n_ref}) fused MLP layers K1={fused['full']} "
-          f"K3={fused['blocked']} flash layers={n_flash} BatchNorm={has_bn}")
+          f"K3={fused['blocked']} flash layers={n_flash} BatchNorm={has_bn} "
+          f"checkpointed K1/K3/flash layers {remat_fused['full']}/"
+          f"{remat_fused['blocked']}/{remat_flash}")
     def base_state():
         return trainer.state.algo[0] if imb else trainer.state.algo
 
@@ -1117,11 +1204,14 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     fwd_steps, bwd_steps = launch_passes(cfg, trainer.alg, base, steps)
     fwd_calls = fwd_steps + n_eval + n_test + (n_wu + n_eval) * bool(n_wu)
     bwd_calls = bwd_steps + n_wu
-    want = {"fused_mlp_fwd": fused["full"] * fwd_calls,
+    want = {"fused_mlp_fwd": (fused["full"] * fwd_calls
+                              + remat_fused["full"] * bwd_calls),
             "fused_mlp_bwd": fused["full"] * bwd_calls,
-            "fused_mlp_blocked_fwd": fused["blocked"] * fwd_calls,
+            "fused_mlp_blocked_fwd": (fused["blocked"] * fwd_calls
+                                      + remat_fused["blocked"] * bwd_calls),
             "fused_mlp_blocked_bwd": fused["blocked"] * bwd_calls,
-            "flash_attention_fwd": n_flash * fwd_calls,
+            "flash_attention_fwd": (n_flash * fwd_calls
+                                    + remat_flash * bwd_calls),
             "flash_attention_bwd": n_flash * bwd_calls}
     print(f"  launches {launches} (expected {want})")
     assert launches == want, (launches, want)
@@ -1233,6 +1323,8 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         extra["bn_stats_moved_by_forward"] = bn_moved
     for k, v in results.items():
         assert math.isfinite(v), (k, v)
+    if after is not None:
+        extra.update(after(trainer))
     windows = trainer.log_history[1:]  # after the first (warm-up) window
     sps = sum(w["steps"] for w in windows) / sum(w["seconds"] for w in windows)
     print(f"  losses finite over {len(history)} steps; "
@@ -1453,6 +1545,146 @@ def crest_phase(F, A):
     return launches
 
 
+def _remat_grads(trainer, batch, g0, remat: bool):
+    """The gradients of the train step's loss at the trainer's state on
+    ``batch``, every ViT block checkpointed or not, the generator at
+    ``g0`` (the same drop-path masks either way); convs in cuDNN's
+    deterministic algorithms."""
+    from semireward_tpu_torch.algorithms.base import StepCtx
+
+    st, model = trainer.state, trainer.model
+    for blk in model.blocks:
+        blk.remat = remat
+    trainer.generator.set_state(g0)
+    ctx = StepCtx(model=model, batch=batch, algo_state=st.algo,
+                  generator=trainer.generator, step=st.step, sr_state=st.sr,
+                  ema=st.ema)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False):
+        out = trainer.alg.loss(ctx)
+        grads = torch.autograd.grad(out.total_loss,
+                                    list(model.parameters()),
+                                    allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    return grads
+
+
+def vitb_remat_checks(trainer):
+    """On the trained ViT-B/16 run: the step's gradients with every block
+    checkpointed against the same step unchecked, on one batch with the
+    same drop-path masks (bit for bit: every kernel on the path gives the
+    same bits every launch); then peak device memory and steps/s of the
+    train step with checkpointing on and off, in turns (on, off, off, on),
+    ``VITB_AB_STEPS`` steps each."""
+    loader = trainer._make_loader(seed=trainer.cfg.seed + 7)
+    batch = trainer.make_batch(next(loader))
+    g0 = trainer.generator.get_state()
+    on = _remat_grads(trainer, batch, g0, True)
+    off = _remat_grads(trainer, batch, g0, False)
+    differ = [n for (n, _), a, b in zip(trainer.model.named_parameters(),
+                                         on, off) if not torch.equal(a, b)]
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(on, off))
+    print(json.dumps({"vit_b16_remat_grads": {
+        "leaves": len(on), "leaves_that_differ": differ[:20],
+        "max_abs_diff": worst, "tolerance": 0.0,
+        "grad_abs_max": max(float(g.abs().max()) for g in on)}}))
+    assert not differ, f"remat on / off gradients differ in {differ[:20]}"
+    del on, off
+    ab = {True: [], False: []}
+    for remat in (True, False, False, True):
+        for blk in trainer.model.blocks:
+            blk.remat = remat
+        raws = [next(loader) for _ in range(VITB_AB_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for raw in raws:
+            trainer._step(trainer.state, trainer.make_batch(raw),
+                          trainer.generator)
+        torch.cuda.synchronize()
+        ab[remat].append({"steps_per_sec": VITB_AB_STEPS
+                          / (time.perf_counter() - t0),
+                          "peak_bytes": torch.cuda.max_memory_allocated()})
+    for blk in trainer.model.blocks:
+        blk.remat = True
+    out = {"remat_on": ab[True], "remat_off": ab[False],
+           "grads_bit_equal": True}
+    print(json.dumps({"vit_b16_remat_ab": out, "card": card_line()}))
+    return out
+
+
+def resnet_checks(trainer):
+    """An eval leaves every BatchNorm's running statistics where the train
+    steps put them."""
+    from semireward_tpu_torch.models.batchnorm import BatchNorm
+
+    bns = [m for m in trainer.model.modules() if isinstance(m, BatchNorm)]
+    before = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    trainer.evaluate()
+    torch.cuda.synchronize()
+    assert all(torch.equal(m.running_mean, a) and torch.equal(m.running_var, b)
+               for m, (a, b) in zip(bns, before)), "an eval moved BatchNorm"
+    return {"batchnorms": len(bns), "eval_left_bn_stats": True}
+
+
+def golden_phase(F, A):
+    """The golden-learning checks on the card at seed 0 from a CPU
+    generator (``validation.run_golden``), at the JAX test tier's settings,
+    held to its bounds (``GOLDEN_*``): FlexMatch beats its labeled-only
+    run by ``GOLDEN_SSL_MARGIN``; SemiReward under 40% uniform
+    pseudo-label noise loses at most ``GOLDEN_SR_SLACK`` against the noisy
+    FlexMatch, its count-weighted keep rate inside ``GOLDEN_KEEP_RANGE``;
+    SAW over FixMatch reaches a balanced accuracy above ``GOLDEN_SAW_MIN``
+    (its gain over FixMatch is printed, not held). The WRN runs no kernel
+    of the port (counts read and returned)."""
+    from semireward_tpu_torch import validation as V
+
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_golden_")
+    F.reset_launches()
+    A.reset_launches()
+    t0 = time.time()
+    ssl = V.ssl_gain("flexmatch", iters=1000, save_dir=save_dir)
+    sr = V.sr_noise_experiment(noise_frac=0.4, iters=500, start_timing=120,
+                               save_dir=save_dir)
+    saw = V.imb_gain("saw", gamma=10.0, iters=400, save_dir=save_dir)
+    torch.cuda.synchronize()
+    launches = {**F.launches, **A.launches}
+    rates, counts = sr["per_label_keep_rate"], sr["per_label_count"]
+    keep = sum(r * c for r, c in zip(rates, counts)) / max(sum(counts), 1)
+    checks = {
+        "ssl": ssl["ssl_acc"] >= ssl["supervised_acc"] + GOLDEN_SSL_MARGIN,
+        "sr": (sr["sr_noisy_flexmatch_acc"]
+               >= sr["noisy_flexmatch_acc"] - GOLDEN_SR_SLACK),
+        "keep": GOLDEN_KEEP_RANGE[0] < keep < GOLDEN_KEEP_RANGE[1],
+        "saw": saw["imb_balanced_acc"] > GOLDEN_SAW_MIN}
+    print(json.dumps({"phase": "golden", "seed": 0, "rng_device": "cpu",
+                      "ssl_gain": ssl,
+                      "sr_noise": {k: sr[k] for k in (
+                          "noisy_flexmatch_acc", "sr_noisy_flexmatch_acc",
+                          "sr_gain", "per_label_keep_rate",
+                          "per_label_count")},
+                      "keep_rate_count_weighted": keep, "imb_saw": saw,
+                      "checks": checks, "seconds": time.time() - t0,
+                      "card": card_line()}, default=float))
+    assert all(v == 0 for v in launches.values()), launches
+    assert all(checks.values()), checks
+    shutil.rmtree(save_dir)
+    return launches
+
+
+def resnet_profile():
+    """``profile_step.py`` on the ResNet-50 FixMatch YAML at the phase's
+    cuts: device busy and idle share of the step."""
+    from semireward_tpu_torch import profile_step
+
+    sets = [f"{k}={v}" for k, v in RESNET_OVERRIDES.items()]
+    r = profile_step.main(["--config", RESNET_YAML["fixmatch"], "--warmup",
+                           "10", "--steps", "10"]
+                          + [a for kv in sets for a in ("--set", kv)])
+    assert r["device_busy_ms_per_step"] > 0, r
+
+
 def _checkpoint_writes(trainer):
     """Each checkpoint file the trainer wrote: name, bytes, seconds."""
     return [{"file": os.path.basename(w["path"]), "bytes": w["bytes"],
@@ -1577,6 +1809,27 @@ def resume_phase(F, A):
     return launches
 
 
+def new_phases(F, A):
+    """ViT-B/16 at 224 px with gradient checkpointing (K2 + K3), ResNet-50
+    FixMatch and FixMatch + ABC on the ImageNet-127 YAMLs; returns each
+    phase's launches."""
+    k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
+    k2 = ("flash_attention_fwd", "flash_attention_bwd")
+    out = [train_phase("vit_b16_remat", VITB_YAML, VITB_OVERRIDES,
+                       VITB_STEPS, 10, F, A, k2 + k3,
+                       after=vitb_remat_checks)]
+    per_epoch = {"epoch": _num_train_iter(RESNET_YAML["fixmatch"])
+                 // IMB_PER_EPOCH}
+    for name, key in (("resnet50_fixmatch", "fixmatch"),
+                      ("resnet50_abc", "fixmatch_abc")):
+        out.append(train_phase(name, RESNET_YAML[key],
+                               {**RESNET_OVERRIDES, **per_epoch},
+                               RESNET_STEPS, 10, F, A, (),
+                               after=resnet_checks))
+    resnet_profile()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1615,12 +1868,14 @@ def main() -> int:
     # K1's and K3's time by GEMM, one JSON line each
     print(json.dumps({"k1_breakdown": k3_profile.breakdown(6168, 384, 1536),
                       "card": card}))
-    for m in (4776, 6144):
+    for m in (4776, 6144, 151296):
         print(json.dumps({"k3_breakdown": k3_profile.breakdown(m),
                           "card": card}))
     kernels.update(flash_phase(A, k3_profile.FLASH_SHAPES))
     # K2's time by kernel, launches and host time a call at the train shapes
-    for name, shape in k3_profile.FLASH_SHAPES.items():
+    # and ViT-B/16's at 224 px
+    for name, shape in (*k3_profile.FLASH_SHAPES.items(),
+                        ("vit_b16_224", (768, 197, 12, False, 0.0))):
         print(json.dumps({"k2_breakdown": k3_profile.flash_breakdown(*shape),
                           "shape": name, "card": card}))
     k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
@@ -1633,8 +1888,8 @@ def main() -> int:
                     k2 + k3),
         train_phase("audio", AUDIO_YAML, {}, AUDIO_STEPS, AUDIO_LOG_EVERY, F,
                     A, k2 + k3),
-        train_phase("vit_srfreematch", FREE_YAML, {}, FREE_STEPS, LOG_EVERY,
-                    F, A, k1 + k2),
+        train_phase("vit_srfreematch", FREE_YAML, {}, FREE_STEPS, 50, F, A,
+                    k1 + k2),
         train_phase("vit_srsoftmatch", SOFT_YAML, {}, SOFT_STEPS, 50, F, A,
                     k1 + k2),
         train_phase("vit_srpseudolabel", PL_YAML, {}, PL_STEPS, 50, F, A,
@@ -1694,6 +1949,7 @@ def main() -> int:
     phases.append(train_phase("vit_srdash", USB_YAML["dash"], {
         "algorithm": "srdash", "num_wu_iter": 20}, USB_STEPS,
         USB_LOG_EVERY, F, A, k1 + k2))
+    phases += new_phases(F, A)
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
 
     where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),
@@ -1714,7 +1970,12 @@ def main() -> int:
     for k in line:
         assert k["launches"] > 0, f"{k['name']} never launched on the path"
     print(card)
-    print(json.dumps({"kernels": line}))
+    print(json.dumps({"kernels": line}), flush=True)
+    # the golden checks run no kernel of the port (their launches are held
+    # at 0), so the kernels line stands before them; a failed bound still
+    # ends the run before the ok line
+    golden_phase(F, A)
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

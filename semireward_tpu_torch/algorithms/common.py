@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.batchnorm import frozen_bn
 
 
@@ -428,12 +429,12 @@ def draw_mixup(n: int, alpha: float, is_bias: bool = False,
     float32 scalar, and a permutation of the ``n`` rows."""
     if alpha > 0:
         conc = torch.full((2,), float(alpha), device=device)
-        lam = torch._sample_dirichlet(conc, generator=generator)[0]
+        lam = rng.dirichlet(conc, generator)[0]
     else:
         lam = torch.ones((), device=device)
     if is_bias:
         lam = torch.maximum(lam, 1 - lam)
-    return lam, torch.randperm(n, generator=generator, device=device)
+    return lam, rng.randperm(n, generator=generator, device=device)
 
 
 def mixup_one_target(x, y, lam, index):

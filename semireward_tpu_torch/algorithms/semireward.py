@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.algorithms import common as C
 from semireward_tpu_torch.algorithms.base import Algorithm, LossOut, StepCtx
 from semireward_tpu_torch.core.losses import consistency_loss
@@ -173,8 +174,8 @@ def score_pseudo_labels(sr_state: SRState, feats, labels):
 def draw_candidates(y_lb, num_classes: int, generator=None):
     """``sr_per_sample``'s negative candidates: a label drawn uniformly
     from the classes for each labeled sample."""
-    return torch.randint(0, num_classes, y_lb.shape, generator=generator,
-                         device=y_lb.device)
+    return rng.randint(0, num_classes, y_lb.shape, generator=generator,
+                       device=y_lb.device)
 
 
 def sr_decay(step: int, num_train_iter: int, max_sampling_time: int = 8) -> int:

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.algorithms import common as C
 from semireward_tpu_torch.algorithms import pimodel
 from semireward_tpu_torch.algorithms.base import Algorithm, LossOut, StepCtx
@@ -68,11 +69,12 @@ class SimMatch(Algorithm):
         return SimMatchNet(model, self.cfg.proj_size, generator)
 
     def init_state(self):
-        """The bank: columns of a normal draw from a generator seeded with
-        ``seed + 11``, each scaled to unit norm."""
+        """The bank: columns of a normal draw from a CPU generator seeded
+        with ``seed + 11`` (one bank on every device), each scaled to unit
+        norm."""
         cfg, dev = self.cfg, self.device
-        g = torch.Generator(device=dev or "cpu").manual_seed(cfg.seed + 11)
-        bank = torch.randn(cfg.proj_size, self.K, generator=g, device=dev)
+        g = torch.Generator().manual_seed(cfg.seed + 11)
+        bank = rng.randn(cfg.proj_size, self.K, generator=g, device=dev)
         return SimMatchState(
             mem_bank=bank / torch.linalg.vector_norm(bank, dim=0,
                                                      keepdim=True),

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.algorithms import common as C
 from semireward_tpu_torch.algorithms.base import (Algorithm, LossOut,
                                                   StepCtx, not_ported,
@@ -46,7 +47,7 @@ def entropy_loss(ul_y):
 def draw_probe(x, generator=None):
     """The power iteration's start: ``XI * l2_normalize(N(0, 1))`` of
     ``x``'s shape, in float32."""
-    d = torch.randn(x.shape, generator=generator, device=x.device)
+    d = rng.randn(x.shape, generator=generator, device=x.device)
     return XI * l2_normalize(d)
 
 

@@ -10,10 +10,10 @@ JAX needed at run time).
 - ``batch_stats`` ``mean`` / ``var`` -> the BatchNorm's ``running_mean`` /
   ``running_var`` buffers.
 - flax's ``blocks3`` / ``layer3`` module names -> torch's ``blocks.3`` /
-  ``layer.3``; raw params (BERT's ``position_embeddings``) keep their name.
+  ``layer.3``, ResNet-50's ``layer2_1`` -> ``layer2.1``; raw params (BERT's ``position_embeddings``) keep their name.
 
-Works for the ViT, the BERT and HuBERT/wav2vec2 classifiers, the WideResNets
-and the SemiReward ``Rewarder``/``Generator``, and for the algorithms' net
+Works for the ViT, the BERT and HuBERT/wav2vec2 classifiers, the WideResNets,
+ResNet-50 and the SemiReward ``Rewarder``/``Generator``, and for the algorithms' net
 wrappers, nested too: ``{'backbone': {'backbone': ..., 'rot_classifier':
 ...}, 'aux_classifier': ...}`` (ABC over ReMixMatch) maps onto
 ``backbone.backbone.*``, ``backbone.rot_classifier.*`` and
@@ -27,12 +27,12 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_BLOCK = re.compile(r"^(blocks|layer)(\d+)$")
+_BLOCK = re.compile(r"^(blocks|layer|layer\d+_)(\d+)$")
 
 
 def _name(part: str) -> str:
     m = _BLOCK.match(part)
-    return f"{m.group(1)}.{m.group(2)}" if m else part
+    return f"{m.group(1).rstrip('_')}.{m.group(2)}" if m else part
 
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}

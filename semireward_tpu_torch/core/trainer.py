@@ -88,18 +88,12 @@ def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what this
     config asks of the port that it does not do yet, before any data is
     loaded: a form of the algorithm that it does not have
-    (``Algorithm.check_ported``); ``resnet50`` (the classic_cv_imb
-    ImageNet-127 runs); gradient checkpointing; the fast reverb; bio
-    data."""
+    (``Algorithm.check_ported``); the fast reverb; bio data. The ImageNet
+    datasets raise in ``get_dataset``."""
     ALGORITHMS.get(cfg.algorithm).check_ported(cfg)
     if cfg.imb_algorithm:
         from semireward_tpu_torch import imb as _imb  # noqa: F401
         IMB_ALGORITHMS.get(cfg.imb_algorithm)
-    if cfg.net == "resnet50":
-        not_ported(f"resnet50 and the {cfg.dataset} data", "section 1 "
-                   "items 5 (the JPEG-folder datasets) and 6 (resnet50)")
-    if cfg.gradient_checkpointing:
-        not_ported("gradient checkpointing", "remat")
     if (modality_of(cfg.net) == "audio"
             and not cfg.extra.get("audio_exact_reverb", True)):
         not_ported("the fast reverb (audio_exact_reverb False)", "audio")
@@ -125,13 +119,17 @@ def flash_auto_default(cfg: Config, device: torch.device) -> bool:
 class Trainer:
     """``Trainer(cfg).train()`` is the CLI path; ``evaluate``/``predict``
     score the EMA weights (the live ones with ``eval_use_ema = False``).
-    Runs on CUDA unless ``device='cpu'``."""
+    Runs on CUDA unless ``device='cpu'``. The run's generator (init,
+    augmentation, dropout) lives on ``rng_device``, by default the training
+    device; ``rng_device='cpu'`` gives a run on the card the draws of the
+    same run on the CPU (``semireward_tpu_torch/rng.py``)."""
 
     def __init__(self, cfg: Config, bundle: Optional[SSLDataBundle] = None,
                  device=None, logger: Optional[logging.Logger] = None,
-                 alg_factory: Optional[Callable] = None):
+                 alg_factory: Optional[Callable] = None, rng_device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        rng_device = resolve_device(rng_device or self.device)
         self.logger = logger or logging.getLogger(
             f"semireward_tpu_torch.{cfg.save_name}")
         refuse_unported(cfg)
@@ -181,7 +179,14 @@ class Trainer:
         extra_kw = cfg.extra.get("net_kwargs", {})
         net_kw.update(json.loads(extra_kw) if isinstance(extra_kw, str)
                       else extra_kw)
-        self.generator = torch.Generator(device=self.device).manual_seed(
+        # as the JAX trainer: the BatchNorm momentum override (the
+        # WideResNets read it) and gradient checkpointing (each ViT block
+        # recomputed in the backward; the other builders ignore it)
+        if "bn_momentum" in cfg.extra:
+            net_kw["bn_momentum"] = float(cfg.extra["bn_momentum"])
+        if cfg.gradient_checkpointing:
+            net_kw["remat"] = True
+        self.generator = torch.Generator(device=rng_device).manual_seed(
             cfg.seed)
         self.model = builder(num_classes=cfg.num_classes,
                              dtype=_DTYPES[cfg.compute_dtype],

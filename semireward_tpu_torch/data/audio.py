@@ -36,6 +36,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from semireward_tpu_torch import rng
+
 
 @dataclass
 class AudioDataset:
@@ -295,12 +297,12 @@ def draw_strong_wave(generator: torch.Generator, B: int, device=None
     ``int()`` of the reference, so -5 never occurs and 0 has double mass),
     and two effect ids in 0..3 (gain, pitch, speed, reverb; with
     replacement) per clip."""
-    u = torch.rand(3, B, generator=generator, device=device)
+    u = rng.rand(3, B, generator=generator, device=device)
     return {"speed": 0.5 + 1.5 * u[0],
             "pitch_cents": -2.0 + 4.0 * u[1],
             "atten_db": torch.trunc(-5.0 + 10.0 * u[2]),
-            "choice": torch.randint(0, 4, (B, 2), generator=generator,
-                                    device=device)}
+            "choice": rng.randint(0, 4, (B, 2), generator=generator,
+                                  device=device)}
 
 
 def _apply_one(x, c, sp, pc, att, reverb):

@@ -18,6 +18,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.data.augment import ops
 
 
@@ -82,9 +83,9 @@ def _table(exclude_color: bool):
 
 def draw_crop(batch: int, spec: AugmentSpec, generator, device) -> CropDraws:
     n = 2 * spec.crop_pad + 1
-    oy = torch.randint(0, n, (batch,), generator=generator, device=device)
-    ox = torch.randint(0, n, (batch,), generator=generator, device=device)
-    flip = torch.rand(batch, generator=generator, device=device) < 0.5
+    oy = rng.randint(0, n, (batch,), generator=generator, device=device)
+    ox = rng.randint(0, n, (batch,), generator=generator, device=device)
+    flip = rng.rand(batch, generator=generator, device=device) < 0.5
     if not spec.hflip:
         flip = torch.zeros_like(flip)
     return CropDraws(oy, ox, flip)
@@ -94,10 +95,10 @@ def draw_randaug(batch: int, spec: AugmentSpec, generator,
                  device) -> RandAugDraws:
     n, k = spec.randaug_n, len(_table(spec.exclude_color))
     W = H = spec.crop_size
-    rand = lambda *s: torch.rand(*s, generator=generator, device=device)
+    rand = lambda *s: rng.rand(*s, generator=generator, device=device)
     return RandAugDraws(
-        op_idx=torch.randint(0, k, (n, batch), generator=generator,
-                             device=device),
+        op_idx=rng.randint(0, k, (n, batch), generator=generator,
+                           device=device),
         u=rand(n, batch), cut_v=rand(batch) * 0.5 * W, cut_x=rand(batch) * W,
         cut_y=rand(batch) * H)
 
@@ -206,7 +207,7 @@ def augment_views(raw_lb, raw_ulb, spec: AugmentSpec, keys: Sequence[str],
             out[key] = weak_augment(src, spec, dc)
     B, dev = raw_ulb.shape[0], raw_ulb.device
     if "x_ulb_s_0_rot" in keys:
-        rot_v = torch.randint(0, 4, (B,), generator=generator, device=dev)
+        rot_v = rng.randint(0, 4, (B,), generator=generator, device=dev)
         out["x_ulb_s_0_rot"] = rot90_per_sample(out["x_ulb_s_0"], rot_v)
         out["rot_v"] = rot_v
     if "x_ulb_rot" in keys:

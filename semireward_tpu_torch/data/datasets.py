@@ -2,7 +2,8 @@
 and ``data/cv_extra.py`` the ported paths use): raw uint8 arrays in host
 memory; CIFAR-10/100, SVHN and STL-10 from their local torchvision file
 layouts, EuroSAT and TissueMNIST from their npz files, and the seeded
-synthetic task. numpy (and scipy for SVHN's .mat) only, copied so that both
+synthetic tasks (blobs, and the rotation orbit of the golden-learning
+checks). numpy (and scipy for SVHN's .mat) only, copied so that both
 packages produce the same arrays for the same seed. Augmentation runs on the
 device (``data/augment``). Loaders read local files only.
 """
@@ -42,7 +43,7 @@ MEAN_STD = {
 
 # the names get_dataset reads
 CV_DATASETS = ("cifar10", "cifar100", "svhn", "stl10", "eurosat",
-               "tissuemnist", "medmnist", "synthetic")
+               "tissuemnist", "medmnist", "synthetic", "synthetic_orbit")
 
 
 @dataclass
@@ -248,15 +249,75 @@ def make_synthetic(num_classes: int, img_size: int, n_train: int = 512,
     return gen(n_train), gen(n_test)
 
 
+def make_synthetic_orbit(num_classes: int, img_size: int, n_lb: int,
+                         n_ulb: int = 2048, n_test: int = 512, seed: int = 0,
+                         noise: int = 40, rot_lab: float = 10.0,
+                         rot_max: float = 90.0, proto_scale: int = 4):
+    """The golden-learning task (``validation.py``): a rotation orbit with
+    a coverage gap the labels cannot close alone. Each class prototype
+    arranges one shared palette of ``proto_scale**2`` colours in a
+    class-specific order (every pixelwise statistic is the same across
+    classes; only the arrangement, which rotation scrambles, carries the
+    label), blown up to ``img_size``. Labeled images are rotated by angles
+    in [0, ``rot_lab``] degrees, unlabeled and eval images in [0,
+    ``rot_max``]: a labeled-only model is right only near the labeled
+    wedge, while consistency training carries the labels out along the
+    unlabeled orbit. The palette and arrangements are fixed (seed 1234);
+    ``seed`` varies the sampling and noise. Returns ``(lb, ulb, eval)``,
+    each ``(uint8 [n, H, W, 3], int64 [n])``; the labeled split cycles
+    through the classes."""
+    rs_geom = np.random.RandomState(1234)
+    k = proto_scale
+    palette = rs_geom.randint(0, 256, (k * k, 3))
+    protos = np.stack([
+        palette[rs_geom.permutation(k * k)].reshape(k, k, 3)
+        for _ in range(num_classes)])
+    rep = img_size // k
+    protos = np.repeat(np.repeat(protos, rep, axis=1), rep, axis=2)
+    protos = protos.astype(np.float32)
+    rs = np.random.RandomState(seed)
+
+    c = (img_size - 1) / 2.0
+    yy, xx = np.meshgrid(np.arange(img_size, dtype=np.float32),
+                         np.arange(img_size, dtype=np.float32), indexing="ij")
+
+    def gen(n, lo, hi, balanced=False):
+        if balanced:
+            if n % num_classes:
+                raise ValueError(f"{n} labels do not split evenly over "
+                                 f"{num_classes} classes")
+            y = np.tile(np.arange(num_classes), n // num_classes)
+        else:
+            y = rs.randint(0, num_classes, n)
+        th = np.deg2rad(rs.uniform(lo, hi, n).astype(np.float32))
+        cs, sn = np.cos(th)[:, None, None], np.sin(th)[:, None, None]
+        # inverse-map nearest-neighbour rotation about the centre, clamped
+        # at the edges (the blocky prototype continues its border blocks)
+        ys = c + (yy - c) * cs - (xx - c) * sn
+        xs = c + (yy - c) * sn + (xx - c) * cs
+        yc = np.clip(np.rint(ys).astype(np.int64), 0, img_size - 1)
+        xc = np.clip(np.rint(xs).astype(np.int64), 0, img_size - 1)
+        x = protos[y[:, None, None], yc, xc]
+        eps = rs.randint(-noise, noise + 1, x.shape)
+        x = np.clip(x + eps, 0, 255).astype(np.uint8)
+        return x, y.astype(np.int64)
+
+    lb = gen(n_lb, 0.0, rot_lab, balanced=True)
+    ulb = gen(n_ulb, 0.0, rot_max)
+    ev = gen(n_test, 0.0, rot_max)
+    return lb, ulb, ev
+
+
 def get_dataset(cfg, alg: str = "fixmatch") -> SSLDataBundle:
     """Dataset-name dispatch: cifar10, cifar100, svhn, stl10, eurosat,
-    tissuemnist (local files) and synthetic. The other datasets of the JAX
+    tissuemnist (local files), synthetic and synthetic_orbit. The other datasets of the JAX
     package are not ported yet (ROADMAP)."""
     name = cfg.dataset
     if name in ("imagenet", "imagenet127"):
-        raise NotImplementedError(f"dataset '{name}' needs the ImageNet "
-                                  f"loader, which is not ported yet "
-                                  f"(ROADMAP: data)")
+        raise NotImplementedError(
+            f"dataset '{name}' needs the JPEG-folder loader, which is not "
+            f"ported yet (ROADMAP: section 1 item 5, the JPEG-folder "
+            f"datasets)")
     if name in ("cifar10", "cifar100"):
         loader = _load_cifar10 if name == "cifar10" else _load_cifar100
         try:
@@ -297,6 +358,26 @@ def get_dataset(cfg, alg: str = "fixmatch") -> SSLDataBundle:
             cfg.data_dir, "tissuemnist")
         mean, std = MEAN_STD["tissuemnist"]
         num_classes = cfg.num_classes
+    elif name == "synthetic_orbit":
+        if cfg.lb_imb_ratio != 1.0 or cfg.ulb_imb_ratio != 1.0:
+            raise ValueError(
+                "synthetic_orbit generates balanced splits directly and does "
+                "not support lb/ulb_imb_ratio: use dataset='synthetic' for "
+                "the imbalanced tier (validation.imb_gain does)")
+        (lb_x, lb_y), (ulb_x, ulb_y), (ev_x, ev_y) = make_synthetic_orbit(
+            cfg.num_classes, cfg.img_size, n_lb=cfg.num_labels,
+            n_ulb=int(cfg.extra.get("synthetic_train", 2048)),
+            n_test=int(cfg.extra.get("synthetic_test", 512)),
+            seed=cfg.seed,
+            noise=int(cfg.extra.get("synthetic_noise", 40)),
+            rot_lab=float(cfg.extra.get("orbit_rot_lab", 10.0)),
+            rot_max=float(cfg.extra.get("orbit_rot_max", 90.0)),
+            proto_scale=int(cfg.extra.get("synthetic_proto_scale", 4)) or 4)
+        return SSLDataBundle(
+            train_lb=ArrayDataset(lb_x, lb_y),
+            train_ulb=ArrayDataset(ulb_x, ulb_y),
+            eval=ArrayDataset(ev_x, ev_y), num_classes=cfg.num_classes,
+            mean=MEAN["synthetic"], std=STD["synthetic"])
     elif name == "synthetic":
         n_train = int(cfg.extra.get("synthetic_train", 2048))
         n_test = int(cfg.extra.get("synthetic_test", 256))

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.algorithms import common as C
 from semireward_tpu_torch.core.losses import ce_loss
 from semireward_tpu_torch.imb.base import ImbAlgorithm
@@ -19,7 +20,7 @@ from semireward_tpu_torch.registry import IMB_ALGORITHMS
 
 def draw_uniform(n: int, generator=None, device=None):
     """``n`` uniforms in [0, 1), float32, from ``generator``."""
-    return torch.rand(n, generator=generator, device=device)
+    return rng.rand(n, generator=generator, device=device)
 
 
 def aux_logits_of(ctx, fwd):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.core.losses import ce_loss
 from semireward_tpu_torch.core.optim import Optimizer
 from semireward_tpu_torch.imb.base import ImbAlgorithm, softmax_np
@@ -44,9 +45,9 @@ HEAD = "teacher_classifier"
 def draw_tfe_mix(n: int, max_lam: float, generator=None, device=None):
     """The step's mixup draws: ``n`` uniforms in [0, 1) (mix where below
     the class's probability) and ``n`` lambdas uniform in [max_lam, 1)."""
-    u = torch.rand(n, generator=generator, device=device)
-    lam = max_lam + (1.0 - max_lam) * torch.rand(n, 1, generator=generator,
-                                                 device=device)
+    u = rng.rand(n, generator=generator, device=device)
+    lam = max_lam + (1.0 - max_lam) * rng.rand(n, 1, generator=generator,
+                                               device=device)
     return u, lam
 
 
@@ -203,7 +204,9 @@ class CoSSL(ImbAlgorithm):
         bs = int(self.cfg.extra.get("cossl_tfe_warm_bs", 64))
         names = [n for n, _ in trainer.model.named_parameters()]
         ema = dict(zip(names, trainer.state.ema))
-        g = torch.Generator(device=trainer.device).manual_seed(seed)
+        # on the run's generator's device (``Trainer(rng_device=)``)
+        rng_dev = getattr(trainer.state.rng, "device", trainer.device)
+        g = torch.Generator(device=rng_dev).manual_seed(seed)
         feats, logits = [], []
         for s in range(0, len(data), bs):
             x = trainer._to_device(np.asarray(data[s:s + bs]))

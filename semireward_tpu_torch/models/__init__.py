@@ -1,10 +1,11 @@
-"""Model zoo of the port: the ViT, BERT, HuBERT, wav2vec2 and WideResNet
-builders, registered under the JAX package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
+"""Model zoo of the port: the ViT, BERT, HuBERT, wav2vec2, WideResNet and
+ResNet-50 builders, registered under the JAX package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
 ``{'logits', 'feat'}`` like the flax models."""
 from __future__ import annotations
 
 from semireward_tpu_torch.models import bert as _bert
 from semireward_tpu_torch.models import hubert as _hubert
+from semireward_tpu_torch.models import resnet as _resnet
 from semireward_tpu_torch.models import wav2vec2 as _wav2vec2
 from semireward_tpu_torch.models import vit as _vit
 from semireward_tpu_torch.models import wrn as _wrn
@@ -20,6 +21,7 @@ NETS.register(_hubert.hubert_base, name="hubert_base")
 NETS.register(_wav2vec2.wave2vecv2_base, name="wave2vecv2_base")
 for _name in ("wrn_28_2", "wrn_28_8", "wrn_var_37_2"):
     NETS.register(getattr(_wrn, _name), name=_name)
+NETS.register(_resnet.resnet50, name="resnet50")
 
 
 def get_net_builder(net_name: str):

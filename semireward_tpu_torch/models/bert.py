@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.vit import _dropout, _layer_norm, _linear
 from semireward_tpu_torch.ops.attention import flash_attention
 from semireward_tpu_torch.ops.fused_mlp import fused_mlp, require_supported
@@ -56,8 +57,8 @@ class BertSelfAttention(nn.Module):
                    for n in ("query", "key", "value"))
         if self.use_flash:
             if train:
-                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                     device=x.device, dtype=torch.int32)
+                seed = rng.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                   device=x.device, dtype=torch.int32)
                 out = flash_attention(q, k, v, bias=attn_bias,
                                       dropout_rate=ATTN_DROP, dropout_seed=seed)
             else:
@@ -186,14 +187,15 @@ def init_bert_(model: nn.Module, generator=None) -> nn.Module:
     LayerNorm scale 1."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)):
-            m.weight.normal_(0.0, 0.02, generator=generator)
+            rng.init_(m.weight, torch.Tensor.normal_, 0.0, 0.02,
+                      generator=generator)
             if isinstance(m, nn.Linear):
                 m.bias.zero_()
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
     for p in (model.position_embeddings, model.token_type_embeddings):
-        p.normal_(0.0, 0.02, generator=generator)
+        rng.init_(p, torch.Tensor.normal_, 0.0, 0.02, generator=generator)
     return model
 
 

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.vit import _dropout, _layer_norm, _linear
 from semireward_tpu_torch.ops.attention import flash_attention
 from semireward_tpu_torch.ops.fused_mlp import fused_mlp, require_supported
@@ -100,8 +101,8 @@ class EncoderLayer(nn.Module):
                    for n in ("q", "k", "v"))
         if self.use_flash and (train or L >= 128):
             if train:
-                seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                     device=x.device, dtype=torch.int32)
+                seed = rng.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                   device=x.device, dtype=torch.int32)
                 o = flash_attention(q, k, v, dropout_rate=DROP,
                                     dropout_seed=seed)
             else:
@@ -200,7 +201,8 @@ def init_audio_(model: nn.Module, generator=None) -> nn.Module:
     norm scale 1."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d)):
-            m.weight.normal_(0.0, 0.02, generator=generator)
+            rng.init_(m.weight, torch.Tensor.normal_, 0.0, 0.02,
+                      generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):

@@ -11,12 +11,15 @@ import math
 import torch
 from torch import nn
 
+from semireward_tpu_torch import rng
+
 
 @torch.no_grad()
 def torch_default_(weight: torch.Tensor, generator=None) -> torch.Tensor:
     fan_in = weight[0].numel()
     bound = 1.0 / math.sqrt(fan_in)
-    return weight.uniform_(-bound, bound, generator=generator)
+    return rng.init_(weight, torch.Tensor.uniform_, -bound, bound,
+                     generator=generator)
 
 
 @torch.no_grad()
@@ -32,5 +35,6 @@ def init_module_(module: nn.Module, generator=None) -> nn.Module:
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
-            m.weight.normal_(0.0, 1.0, generator=generator)
+            rng.init_(m.weight, torch.Tensor.normal_, 0.0, 1.0,
+                      generator=generator)
     return module

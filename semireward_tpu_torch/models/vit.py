@@ -11,16 +11,29 @@ flash kernel (``ops/attention.py``, no bias, no dropout) under the JAX
 model's gate: unless training with attention dropout. Module names follow
 torch idiom (``blocks.0`` for flax ``blocks0``);
 ``semireward_tpu_torch.convert`` maps one onto the other.
+
+With ``remat`` (the configs' ``gradient_checkpointing``) each block of a
+training forward under autograd runs inside
+``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations are
+dropped and the block runs again in the backward, the fused-MLP and flash
+kernels included. A block's two drop-path masks are drawn before the
+checkpointed region and passed in, and the recompute replays the generator
+from where the block's forward started it (its dropout masks), so the
+backward sees the forward's masks, as ``nn.remat`` replays its key in the
+flax model. Eval forwards and forwards without grad run no checkpoint.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.initializers import init_module_
 from semireward_tpu_torch.ops.attention import flash_attention
 from semireward_tpu_torch.ops.fused_mlp import fused_mlp, require_supported
@@ -34,7 +47,7 @@ def _linear(x, layer: nn.Linear, dtype):
 def _dropout(x, rate: float, train: bool, generator):
     if not train or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = rng.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -44,8 +57,47 @@ def _drop_path(x, rate: float, train: bool, generator):
         return x
     keep_prob = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    keep = rng.rand(shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
+def _path_scale(x, rate: float, train: bool, generator):
+    """A residual branch's drop-path factor per sample, drawn ahead of the
+    block: ``_drop_path`` of ones ``[B, 1, ...]`` (``1 / keep_prob`` where
+    the sample is kept, 0 where it is dropped), or None when nothing
+    drops."""
+    if not train or rate == 0.0:
+        return None
+    ones = x.new_ones((x.shape[0],) + (1,) * (x.ndim - 1))
+    return _drop_path(ones, rate, train, generator)
+
+
+def _apply_path(h, scale):
+    """``h`` under the drop-path factor ``_path_scale`` drew."""
+    return h if scale is None else h * scale
+
+
+def _replay(generator: torch.Generator):
+    """``checkpoint``'s ``context_fn``: the recompute starts ``generator``
+    where the forward started it (so it draws the forward's dropout
+    masks), and leaves it where it was."""
+    start = []
+
+    @contextlib.contextmanager
+    def forward():
+        start.append(generator.get_state())
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = generator.get_state()
+        generator.set_state(start[0])
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return forward(), recompute()
 
 
 def _layer_norm(x, norm: nn.LayerNorm):
@@ -108,22 +160,35 @@ class Block(nn.Module):
                  qkv_bias: bool = True, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  dtype=torch.bfloat16, use_fused_mlp: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop, dtype,
                               use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype, use_fused_mlp)
-        self.drop_path, self.dtype = drop_path, dtype
+        self.drop_path, self.dtype, self.remat = drop_path, dtype, remat
 
     def forward(self, x, train: bool, generator=None):
+        s1 = _path_scale(x, self.drop_path, train, generator)
+        s2 = _path_scale(x, self.drop_path, train, generator)
+        if not (self.remat and train and torch.is_grad_enabled()):
+            return self._body(x, train, generator, s1, s2)
+        # the recompute replays the dropout draws: from ``generator``, or
+        # from the global generators, which checkpoint itself replays
+        kw = {} if generator is None else {
+            "preserve_rng_state": False,
+            "context_fn": lambda: _replay(generator)}
+        return checkpoint(self._body, x, train, generator, s1, s2,
+                          use_reentrant=False, **kw)
+
+    def _body(self, x, train: bool, generator, s1, s2):
         h = self.attn(_layer_norm(x, self.norm1).to(self.dtype), train,
                       generator)
-        x = x + _drop_path(h.to(x.dtype), self.drop_path, train, generator)
+        x = x + _apply_path(h.to(x.dtype), s1)
         h = self.mlp(_layer_norm(x, self.norm2).to(self.dtype), train,
                      generator)
-        return x + _drop_path(h.to(x.dtype), self.drop_path, train, generator)
+        return x + _apply_path(h.to(x.dtype), s2)
 
 
 class VisionTransformer(nn.Module):
@@ -138,7 +203,7 @@ class VisionTransformer(nn.Module):
                  qkv_bias: bool = True, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  dtype=torch.bfloat16, use_fused_mlp: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat: bool = False):
         super().__init__()
         self.num_classes, self.img_size, self.patch_size = (num_classes,
                                                             img_size,
@@ -155,7 +220,8 @@ class VisionTransformer(nn.Module):
         dpr = [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate,
-                  attn_drop_rate, dpr[i], dtype, use_fused_mlp, use_flash)
+                  attn_drop_rate, dpr[i], dtype, use_fused_mlp, use_flash,
+                  remat)
             for i in range(depth))
         if global_pool == "avg":
             self.fc_norm = nn.LayerNorm(embed_dim, eps=1e-6)

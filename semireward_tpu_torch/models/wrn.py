@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.batchnorm import BatchNorm
 
 _BN_MOM = 0.999  # flax momentum; the reference's torch momentum 0.001
@@ -145,10 +146,9 @@ def _trunc_normal_(t: torch.Tensor, std: float, generator=None):
     """jax.nn.initializers' truncated normal: N(0, std) cut at two standard
     deviations, std corrected for the cut (variance_scaling's
     'truncated_normal')."""
-    return nn.init.trunc_normal_(t, 0.0, std / 0.87962566103423978,
-                                 -2 * std / 0.87962566103423978,
-                                 2 * std / 0.87962566103423978,
-                                 generator=generator)
+    scale = std / 0.87962566103423978
+    return rng.init_(t, nn.init.trunc_normal_, 0.0, scale, -2 * scale,
+                     2 * scale, generator=generator)
 
 
 @torch.no_grad()

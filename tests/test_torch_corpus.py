@@ -1,7 +1,9 @@
 """The SemiReward YAML corpus in the port: every config under
 ``config/SemiReward/`` resolves (its algorithm in ``ALGORITHMS`` and built,
 its net in ``NETS``, its dataset read by the port's loaders), except the
-ImageNet ones, which raise naming the ImageNet loader. Plus two-step CPU
+ImageNet ones, which pass ``refuse_unported`` (gradient checkpointing is
+ported) and raise in ``get_dataset`` naming the JPEG-folder loader,
+ROADMAP section 1 item 5. Plus two-step CPU
 runs of the CLI on a usb_nlp ``srpseudolabel`` and a usb_audio
 ``srsoftmatch`` YAML at the shrunk sizes of the slices' CLI tests: token
 dicts and waveforms through PseudoLabel's separate forwards and SoftMatch's
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from semireward_tpu_torch import config as config_lib
+from semireward_tpu_torch.core.trainer import refuse_unported
 from semireward_tpu_torch.data import datasets as TD
 from semireward_tpu_torch.data.modality import modality_of
 from semireward_tpu_torch.registry import ALGORITHMS, NETS
@@ -45,7 +48,10 @@ def test_every_semireward_yaml_resolves(suite):
         assert alg.NAME == cfg.algorithm and alg.HAS_SR, path
         modality = modality_of(cfg.net)
         if suite == "imagenet_stretch":
-            with pytest.raises(NotImplementedError, match="ImageNet loader"):
+            assert cfg.gradient_checkpointing, path
+            refuse_unported(cfg)
+            with pytest.raises(NotImplementedError,
+                               match="JPEG-folder loader.*section 1 item 5"):
                 TD.get_dataset(cfg)
         elif modality == "cv":
             assert cfg.dataset in TD.CV_DATASETS, path
@@ -344,7 +350,10 @@ def test_every_imb_yaml_on_the_wrn_builds_its_wrapper(name):
 def test_imb_yaml_counts_and_the_resnet50_refusal(tmp_path):
     """594 of the 702 classic_cv_imb YAMLs that name a wrapper are on
     wrn_28_2; the other 108, and the 18 plain ones, run resnet50 on
-    imagenet127 and raise naming ROADMAP items 5 and 6."""
+    imagenet127: each passes ``refuse_unported`` (ResNet-50 is ported) and
+    its Trainer raises in ``get_dataset`` naming ROADMAP section 1 item 5
+    alone (the JPEG-folder loader). The ABC one builds a CPU Trainer on
+    synthetic data, at the split's ratio 286, and trains two steps."""
     from semireward_tpu_torch.core.trainer import Trainer
 
     configs = _imb_configs()
@@ -357,6 +366,23 @@ def test_imb_yaml_counts_and_the_resnet50_refusal(tmp_path):
     assert all(c.dataset == "imagenet127" for _, c in resnet)
     for path, cfg in resnet:
         cfg.save_dir = str(tmp_path)
+        refuse_unported(cfg)
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP: section 1 items 5 .* and 6"):
+                           match="JPEG-folder loader.*section 1 item 5,"
+                           ) as e:
             Trainer(cfg, device="cpu")
+        assert "item 6" not in str(e.value) and "resnet50" not in str(e.value)
+    path = next(p for p, c in resnet if c.imb_algorithm == "abc")
+    cfg = config_lib.from_yaml(path, {
+        "save_dir": str(tmp_path), "dataset": "synthetic", "img_size": 32,
+        "num_labels": 286, "ulb_num_labels": 572, "batch_size": 4,
+        "uratio": 1, "eval_batch_size": 16, "num_train_iter": 2,
+        "num_eval_iter": 2, "num_log_iter": 1, "resume": False,
+        "synthetic_train": 1270, "synthetic_test": 16})
+    tr = Trainer(cfg, device="cpu")
+    assert type(tr.model).__name__ == "AuxHeadNet"
+    assert type(tr.model.backbone).__name__ == "ResNet50"
+    assert len(tr.bundle.train_lb) < len(tr.bundle.train_ulb) + 286 * 127
+    results = tr.train()
+    assert tr.state.step == 2
+    assert all(math.isfinite(v) for v in results.values()), results

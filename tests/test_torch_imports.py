@@ -40,6 +40,10 @@ import semireward_tpu_torch.imb.darp
 import semireward_tpu_torch.imb.daso
 import semireward_tpu_torch.imb.crest
 import semireward_tpu_torch.imb.cossl
+import semireward_tpu_torch.models.resnet
+import semireward_tpu_torch.validation
+import semireward_tpu_torch.golden_quality
+import semireward_tpu_torch.draw_witness
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',

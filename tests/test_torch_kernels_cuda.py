@@ -664,3 +664,82 @@ def test_darp_and_daso_repeated_writes_give_the_same_bits(cuda_device):
         assert torch.equal(a[k], b[k]), k
         assert torch.equal(a[k].cpu(), cpu[k]), k
     assert a["ptr"].tolist() == [(14 % 3), 4 % 3, 2 % 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclude_color", [True, False])
+def test_augmentation_on_the_card_equals_the_cpu(cuda_device, exclude_color):
+    """The weak and strong views of the golden orbit images (the ones the
+    golden-learning checks train on) built on the card from the same draws
+    as on the CPU: crop / flip gathers and the colour ops bit-equal; the
+    geometric ops floor an affine map that the card may round one ulp
+    apart, so at most 0.5% of the pixels may differ."""
+    from semireward_tpu_torch.data.augment import pipeline as P
+    from semireward_tpu_torch.data.datasets import make_synthetic_orbit
+
+    (x, _), _, _ = make_synthetic_orbit(6, 32, 48, n_ulb=6, n_test=6)
+    spec = P.AugmentSpec(crop_size=32, crop_pad=4, mean=(0.5,) * 3,
+                         std=(0.25,) * 3, randaug_n=3,
+                         exclude_color=exclude_color)
+    g = torch.Generator().manual_seed(0)
+    dc = P.draw_crop(48, spec, g, "cpu")
+    dr = P.draw_randaug(48, spec, g, "cpu")
+    views = []
+    for dev in ("cpu", cuda_device):
+        raw = torch.from_numpy(x).to(dev)
+        move = lambda d: type(d)(*(t.to(dev) for t in d))
+        views.append((P.weak_augment(raw, spec, move(dc)).cpu(),
+                      P.strong_augment(raw, spec, move(dc), move(dr)).cpu()))
+    assert torch.equal(views[0][0], views[1][0])
+    differ = (views[0][1] != views[1][1]).any(-1).float().mean().item()
+    assert differ <= 5e-3, differ
+
+
+@pytest.mark.cuda
+def test_a_cpu_generator_gives_the_card_the_cpu_runs_draws(cuda_device,
+                                                           tmp_path):
+    """``Trainer(..., rng_device='cpu')`` on the card (the golden runs'
+    setting) starts from the CPU run's state, the net's and the rewarder's
+    init bit-equal, and augments the first batch from the CPU run's draws
+    (weak views bit-equal, strong views within the geometric ops' 0.5% of
+    pixels, as above); its generator stays where the CPU run's is."""
+    from semireward_tpu_torch.core.trainer import Trainer
+    from semireward_tpu_torch.validation import golden_config
+
+    runs = [Trainer(golden_config("srflexmatch", iters=4,
+                                  save_dir=str(tmp_path)), device=dev,
+                    rng_device="cpu") for dev in ("cpu", cuda_device)]
+    states = [{k: v.cpu() for k, v in tr.state.state_dict().items()
+               if k != "rng"} for tr in runs]
+    assert states[0].keys() == states[1].keys()
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
+    batches = [tr.make_batch(next(tr._make_loader())) for tr in runs]
+    assert torch.equal(batches[0]["x_ulb_w"], batches[1]["x_ulb_w"].cpu())
+    differ = (batches[0]["x_ulb_s"] != batches[1]["x_ulb_s"].cpu()).any(
+        -1).float().mean().item()
+    assert differ <= 5e-3, differ
+    assert torch.equal(runs[0].generator.get_state(),
+                       runs[1].generator.get_state())
+
+
+@pytest.mark.cuda
+def test_flax_batchnorm_takes_the_nets_bf16_channels_last_input(cuda_device):
+    """The nets feed the BatchNorm bf16 activations in channels-last
+    strides (NHWC input turned to NCHW by a permute), which takes CUDA's
+    channels-last kernels: the running statistics move as on the CPU
+    (within 1e-5 of their magnitude) and the output within 1%."""
+    from semireward_tpu_torch.models.batchnorm import BatchNorm
+
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(64, 16, 16, 32, generator=g) * 3 + 1).to(torch.bfloat16)
+    outs, stats = [], []
+    for dev in (torch.device("cpu"), cuda_device):
+        bn = BatchNorm(32, momentum=0.9).to(dev)
+        with torch.no_grad():
+            out = bn(x.to(dev).permute(0, 3, 1, 2), train=True)
+        outs.append(out.float().cpu())
+        stats.append([bn.running_mean.cpu(), bn.running_var.cpu()])
+    _close(outs[1].numpy(), outs[0].numpy(), 1e-2)
+    for a, b in zip(stats[1], stats[0]):
+        _close(a.numpy(), b.numpy(), 1e-5)

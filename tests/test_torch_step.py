@@ -210,7 +210,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
 
     # resume and use_pretrain are ported (tests/test_torch_checkpoint.py,
     # tests/test_torch_pretrained.py), imbalanced SSL too
-    # (tests/test_torch_imb.py); its ImageNet-127 runs on resnet50 are not
+    # (tests/test_torch_imb.py), and ResNet-50 (tests/test_torch_resnet.py);
+    # the ImageNet-127 data of its runs on resnet50 is not
     from semireward_tpu_torch import config as config_lib
 
     cfg = config_lib.from_yaml(os.path.join(
@@ -219,7 +220,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
         "fixmatch_abc_imagenet127_lb128101_286_ulbNone_286_0.yaml"),
         {"save_dir": str(tmp_path)})
     assert cfg.imb_algorithm == "abc" and cfg.net == "resnet50"
-    with pytest.raises(NotImplementedError, match="items 5 .* and 6"):
+    with pytest.raises(NotImplementedError,
+                       match="JPEG-folder loader.*section 1 item 5"):
         Trainer(cfg, device="cpu")
     # the bench's ref-equivalent arm is ported
     # (tests/test_torch_sr_variants.py)

@@ -356,8 +356,10 @@ def test_get_dataset_matches_jax(tmp_path, name, num_labels, num_classes):
 
 
 def test_imagenet_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="ImageNet loader"):
-        TD.get_dataset(torch_config(dataset="imagenet"))
+    for name in ("imagenet", "imagenet127"):
+        with pytest.raises(NotImplementedError,
+                           match="JPEG-folder loader.*section 1 item 5"):
+            TD.get_dataset(torch_config(dataset=name))
 
 
 def test_trainer_runs_classic_cv_on_cpu(tmp_path):
