@@ -102,8 +102,9 @@
    - CoMatch and SimMatch (``CO_SIM_PHASES``), at ``p_cutoff`` 0 and
      with short epochs (``epoch`` set from ``STEPS_PER_EPOCH``):
      ``vit_comatch`` (one forward of 32 images: K1 at M 8224, K2 at B 32;
-     the 2048-row queue's pointer and rows, memory smoothing from step 129
-     counted exactly, the contrastive loss non-zero), ``vit_simmatch`` (24
+     ``queue_batch`` 64: the 1024-row queue's pointer and rows, memory
+     smoothing from step 65 counted exactly, the contrastive loss
+     non-zero), ``vit_simmatch`` (24
      images; the bank's columns at the labeled indices seen moved, its
      labels those of the last batch, the instance loss 0 in the first
      epoch and above 0 after it), ``vit_simmatch_ema`` (the SimMatch
@@ -145,11 +146,22 @@
      the features out of K1 and K2); ``vit_srdash``: SemiReward over Dash
      through ``_make_sr_variant`` (Dash's warm-up through the wrapper),
      both with exact K1 / K2 counts;
+   - ``jpeg_decode``: the seeded ImageNet-layout JPEG folders of the two
+     phases below (``profile_step.synthetic_config`` writes them under
+     ``build/``: images of 200-500 px at quality 90, and a grayscale JPEG,
+     a CMYK JPEG and a PNG under a ``.JPEG`` name), ``JPEG_CHECK_IMAGES``
+     of each decoded on the card (nvJPEG, ``csrc/jpeg_decode.cu``, and the
+     resize there) and on the CPU (PIL): the card's batch on the card,
+     within ``JPEG_MEAN_BOUND`` / ``JPEG_P99_BOUND`` of the CPU's, exactly
+     the CMYK and PNG files redone on the host, the grayscale one three
+     equal channels; each route's images/s (``jpeg_phase``);
    - ``vit_b16_remat``: SRFlexMatch on the imagenet_stretch YAML
      (``VITB_YAML``: ViT-B/16 at 224 px, ``gradient_checkpointing``, 256 +
      256 images, ``use_cat``: 768 a forward, AdamW with layer decay 0.75)
-     on seeded synthetic images of its 1000 classes (``VITB_OVERRIDES``),
-     through K3 (M 151296) and K2 (B 768, N 197, H 12), each checkpointed
+     on its seeded JPEG folder of 1000 classes (``VITB_OVERRIDES``),
+     decoded on the card at 256 px, the weak views cropped and the strong
+     views resized-cropped to 224 from it, the eval center-cropped, through
+     K3 (M 151296) and K2 (B 768, N 197, H 12), each checkpointed
      block's K3f and K2f counted once more per backward; then the step's
      gradients with every block checkpointed against the same step
      unchecked, on one batch with the same drop-path masks, bit for bit,
@@ -157,8 +169,9 @@
      turns (``vitb_remat_checks``);
    - ``resnet50_fixmatch`` and ``resnet50_abc``: ResNet-50 on the
      classic_cv_imb ImageNet-127 YAMLs (``RESNET_YAML``: 112 px, 127
-     classes, 256 + 512, SGD) on a seeded synthetic split at the YAMLs'
-     ratio 286 (``RESNET_OVERRIDES``): losses finite, the BatchNorm
+     classes, 256 + 512, SGD) on a split of its seeded JPEG folder
+     (decoded on the card at 128 px) at the YAMLs' ratio 286
+     (``RESNET_OVERRIDES``): losses finite, the BatchNorm
      statistics moved by the train pass and left by an eval
      (``resnet_checks``), ABC's ``aux_classifier`` moved and its eval head;
      then ``profile_step.py`` on the FixMatch YAML (device busy and idle
@@ -194,6 +207,26 @@
 6. prints one ``kernels`` JSON line, runs the ``golden`` checks and, last,
    prints the ``ok`` JSON line.
 
+Each phase prints its wall seconds on a line of its own as it ends, and
+the run its total before the last lines; a JPEG phase prints its decode
+(images decoded on the card, files redone on the host, ms and images/s a
+step from ``train/prefetch_time``) beside its steps/s. The depth of the
+earlier phases was cut so that the smoke with the JPEG phases stays in its
+time limit (the checks are the same; PERF.md section 4): the headline ViT
+1200 -> 900 steps and HuBERT 700 -> 600 (their first FlexMatch selection
+came by steps 600 and 500 in three runs: 300 and 100 steps past it, as
+BERT's 600 keeps 100), USB 40 -> 24, CoMatch 160 -> 80 (``queue_batch``
+128 -> 64), SimMatch 80 -> 40, SimMatch's EMA teacher 40 -> 20, BERT
+CoMatch and HuBERT SimMatch 60 -> 30 (their epochs halved with them),
+SRFreeMatch / SRSoftMatch / SRPseudoLabel and the two WRN phases 100 ->
+50, ``sr_reforward`` 40 -> 32, ``sr_per_sample`` 100 -> 40, the imb
+wrappers 80 -> 40 steps with 16 (was 32) an epoch and an eval every 12
+(was 24), on one data set made once for the twelve, CReST 2 x 20 -> 2 x
+12, ``vit_resume`` 40 + 10 -> 30 + 5, ``vit_b16_remat`` 30 -> 22 steps,
+the two ResNet-50 phases 40 -> 18 and ResNet-50's profile 10 + 10 -> 2 +
+3 steps. The JPEG folders are written on a thread (a
+process a core) from the headline phase on, beside the host-bound phases.
+
 Any failed check raises, so the exit code is not 0 and the ``ok`` line is
 not printed. Needs one CUDA card; fails without one.
 """
@@ -208,6 +241,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -229,7 +263,7 @@ USB_ALGOS = ("pimodel", "meanteacher", "vat", "mixmatch", "remixmatch",
              "uda", "dash", "adamatch", "crmatch", "defixmatch")
 USB_YAML = {a: os.path.join(HERE, f"config/usb_cv/{a}/{a}_cifar100_200_0.yaml")
             for a in USB_ALGOS}
-USB_STEPS, USB_LOG_EVERY = 40, 20
+USB_STEPS, USB_LOG_EVERY = 24, 12
 # Dash: a short supervised warm-up (the default is 2048 steps). CRMatch,
 # UDA and DeFixMatch: no sample of random weights passes the YAMLs' cutoffs
 # (0.95, 0.8, 0.95) in 80 steps (H100 runs: util_ratio 0 in every window of
@@ -239,26 +273,27 @@ USB_STEPS, USB_LOG_EVERY = 40, 20
 USB_OVERRIDES = {"dash": {"num_wu_iter": 20},
                  **{a: {"p_cutoff": 0.0}
                     for a in ("crmatch", "uda", "defixmatch")}}
-# CoMatch and SimMatch: (phase, YAML, steps, steps an epoch). At p_cutoff 0
-# every sample passes the mask; the short epochs (``epoch`` set from the
-# YAML's num_train_iter) start CoMatch's memory smoothing after step 128
-# (past the first epoch and ``queue_batch``) and SimMatch's instance loss
-# after the first epoch, within the phase
+# CoMatch and SimMatch: (phase, YAML, steps, steps an epoch, overrides). At
+# p_cutoff 0 every sample passes the mask; the short epochs (``epoch`` set
+# from the YAML's num_train_iter) start CoMatch's memory smoothing after
+# step 64 (past the first epoch and ``queue_batch``, cut from 128 to 64: a
+# queue of 1024 rows) and SimMatch's instance loss after the first epoch,
+# within the phase
 CO_SIM_PHASES = (
     ("vit_comatch", "config/usb_cv/comatch/comatch_cifar100_200_0.yaml",
-     160, 40),
+     80, 40, {"queue_batch": 64}),
     ("vit_simmatch", "config/usb_cv/simmatch/simmatch_cifar100_200_0.yaml",
-     80, 40),
+     40, 20, {}),
     # STL-10 is outside _EMA_BANK_DATASETS: the EMA-teacher branch
     ("vit_simmatch_ema", "config/usb_cv/simmatch/simmatch_stl10_40_0.yaml",
-     40, 20),
+     20, 10, {}),
     ("bert_comatch", "config/usb_nlp/comatch/comatch_aclImdb_100_0.yaml",
-     60, 20),
+     30, 10, {}),
     ("audio_simmatch",
-     "config/usb_audio/simmatch/simmatch_esc50_250_0.yaml", 60, 20))
+     "config/usb_audio/simmatch/simmatch_esc50_250_0.yaml", 30, 10, {}))
 # SemiReward's reference-equivalent arm (the JAX bench's 8 re-forwards) and
 # per-sample mode, on the headline config
-REFORWARD, REFORWARD_STEPS, PER_SAMPLE_STEPS = 8, 40, 100
+REFORWARD, REFORWARD_STEPS, PER_SAMPLE_STEPS = 8, 32, 40
 # the stage-2 steps (ctx.step) whose last re-forward is held bit for bit
 # against the base forward
 REFORWARD_PROBE = (20, 30)
@@ -277,12 +312,12 @@ REFORWARD_PROBE = (20, 30)
 # phase: no class-0 prediction, so ADSH's refit is a no-op)
 IMB_NAMES = ("saw", "debiaspl", "adsh", "abc", "tras", "darp", "daso",
              "crest", "crest+", "cossl")
-IMB_STEPS, IMB_PER_EPOCH, IMB_EVAL_EVERY, IMB_LOG_EVERY = 80, 32, 24, 16
+IMB_STEPS, IMB_PER_EPOCH, IMB_EVAL_EVERY, IMB_LOG_EVERY = 40, 16, 12, 8
 IMB_OVERRIDES = {"darp_warmup_epochs": 0, "tras_warmup_epochs": 1,
                  "daso_num_pretrain_iter": 20, "cossl_warm_epoch": 1,
                  "cossl_tfe_warm_epoch": 1, "ema_m": 0.9}
 # CReST's generational driver: two generations of a few steps each
-CREST_GENS, CREST_GEN_STEPS = 2, 20
+CREST_GENS, CREST_GEN_STEPS = 2, 12
 # the wrappers' heads (each must move in training) and eval heads
 IMB_HEADS = {"abc": ("aux_classifier",), "tras": ("aux_classifier",),
              "cossl": ("teacher_classifier",)}
@@ -306,7 +341,10 @@ VITB_YAML = os.path.join(HERE, "config/SemiReward/imagenet_stretch/"
                          "flexmatch/flexmatch_imagenet_100000_0.yaml")
 VITB_OVERRIDES = {"num_labels": 2000, "synthetic_train": 4096,
                   "p_cutoff": 0.0}
-VITB_STEPS, VITB_AB_STEPS = 30, 4
+VITB_STEPS, VITB_AB_STEPS = 22, 4
+# the phase's steps/s on seeded synthetic arrays, before it read the JPEG
+# folders (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+VITB_ARRAY_SPS = "1.93-2.02"
 # ResNet-50 on the classic_cv_imb ImageNet-127 YAMLs (112 px, 127 classes,
 # 256 + 512, SGD, the split at ratio 286) on seeded synthetic images. Cut:
 # the head class's labels (the YAML's 128,101 -> 286, so that the tail
@@ -322,7 +360,7 @@ RESNET_YAML = {a: os.path.join(
 RESNET_OVERRIDES = {"num_labels": 286, "ulb_num_labels": 572,
                     "synthetic_train": 16384, "p_cutoff": 0.0,
                     "num_eval_iter": 24}
-RESNET_STEPS = 40
+RESNET_STEPS = 18
 # the golden-learning checks at the JAX test tier's settings and bounds
 # (tests/test_golden_learning.py): FlexMatch's gain over labeled-only at
 # 1000 iterations, SemiReward under 40% uniform noise at 500 (start_timing
@@ -346,19 +384,21 @@ PEAK_BYTES = 3.35e12
 # synthetic ESC-50 corpus first passed it by step 300 with the unfused
 # attention and by step 500 with flash attention (H100 runs: 584 entries
 # changed by step 1500, 22 by step 600). BERT and HuBERT ran 700 and 1000
-# steps until the ViT-B/16, ResNet-50 and golden phases came: 600 and 700
-# keep 100 steps past those first selections.
-TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 1200, 10, 10, 100
+# steps until the ViT-B/16, ResNet-50 and golden phases came. In three H100
+# runs since, the first selection came by step 600 (ViT-S) and 500 (BERT,
+# HuBERT), the same entries each time: 900, 600 and 600 steps keep 300,
+# 100 and 100 past it.
+TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 900, 10, 10, 100
 BERT_STEPS, BERT_LOG_EVERY = 600, 100
-AUDIO_STEPS, AUDIO_LOG_EVERY = 700, 100
+AUDIO_STEPS, AUDIO_LOG_EVERY = 600, 100
 # the other variants' checks (state moved, the rewarder's two stages, the
 # BatchNorm probe, weights at two log boundaries) all fall within these
-FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 100, 100, 100, 100
+FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 50, 50, 50, 50
 # the step whose forwards read the BatchNorm statistics before and after
 BN_PROBE_STEP = 5
-# vit_resume: A's first eval (and checkpoint) at step 40, in stage 2 after
-# the rewarder's stage-2 update at step 20 and 30; then 10 steps each
-RESUME_EVAL, RESUME_MORE = 40, 10
+# vit_resume: A's first eval (and checkpoint) at step 30, in stage 2 after
+# the rewarder's stage-2 update at step 20; then 5 steps each
+RESUME_EVAL, RESUME_MORE = 30, 5
 # the JAX package's metrics.jsonl keys beside the step's own train/<k> and
 # eval/<k> (core/trainer.py:570-575, 608-609)
 LOG_KEYS = {"step", "ts", "lr", "train/steps_per_sec", "train/prefetch_time",
@@ -1031,8 +1071,48 @@ def kernel_layers(module, F):
     return fused, n_flash
 
 
-def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
-                main_kernels, cfg_extra=None, after=None):
+# each phase's wall seconds, printed as it ends; the total at the end
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds printed on a line of their own
+    and kept in ``PHASE_SECONDS[name]``."""
+    t0 = time.time()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = time.time() - t0
+    print(f"phase {name}: {PHASE_SECONDS[name]:.1f} s", flush=True)
+    return out
+
+
+def train_phase(name, *args, **kw):
+    return timed(name, _train_phase, name, *args, **kw)
+
+
+def jpeg_stats(trainer, save_dir):
+    """A JPEG-folder phase's decode: the counts (images nvJPEG decoded on
+    the card, files redone on the host) and, from ``metrics.jsonl``, the
+    host's wait for each step's raw batch (``train/prefetch_time``, here
+    the labeled and unlabeled batches' read, decode and resize: no
+    producer thread), as ms and images/s a step."""
+    decoded, redone = trainer.jpeg_counts()
+    cfg = trainer.cfg
+    with open(os.path.join(save_dir, cfg.save_name, "metrics.jsonl")) as f:
+        wait = [json.loads(line)["train/prefetch_time"] for line in f
+                if "train/prefetch_time" in line]
+    per_step = cfg.batch_size + cfg.ulb_batch_size
+    ms = 1e3 * sum(wait[1:]) / max(len(wait) - 1, 1)  # after the first
+    return {"decoded_on_card": decoded,
+            "redone_on_host": sorted(os.path.basename(p) for p in redone),
+            "decode_size": trainer.bundle.train_lb.img_size,
+            "images_a_step": per_step,
+            "prefetch_time_s_by_window": wait,
+            "decode_ms_a_step": ms,
+            "decode_images_per_s": per_step / (ms / 1e3) if ms else None}
+
+
+def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
+                 main_kernels, cfg_extra=None, after=None, bundle=None):
     """Train ``steps`` steps through ``Trainer.train`` with every count set
     to 0 just before and read just after; checks the launch counts exactly
     (the forwards and backwards of every layer on a kernel,
@@ -1047,7 +1127,8 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     running statistics where the net has them, and the eval. ``cfg_extra``
     goes into the config's ``extra`` (``sr_reforward``: the JAX loss reads
     it there). ``after(trainer)`` runs the phase's own checks on the
-    trained run after the counts are read, and returns what it read."""
+    trained run after the counts are read, and returns what it read.
+    ``bundle``: the data, where phases share it (else the config's)."""
     from semireward_tpu_torch.core.trainer import Trainer
     from semireward_tpu_torch.imb.base import ImbAlgorithm
     from semireward_tpu_torch.models.batchnorm import BatchNorm
@@ -1059,7 +1140,7 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                                        "N_k": N_K, "save_dir": save_dir,
                                        **overrides})
     cfg.extra.update(cfg_extra or {})
-    trainer = Trainer(cfg)
+    trainer = Trainer(cfg, bundle=bundle)
     model = trainer.model
     sr = getattr(trainer.alg, "HAS_SR", False)
     imb = trainer.alg.NAME if isinstance(trainer.alg, ImbAlgorithm) else None
@@ -1327,6 +1408,13 @@ def train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         extra.update(after(trainer))
     windows = trainer.log_history[1:]  # after the first (warm-up) window
     sps = sum(w["steps"] for w in windows) / sum(w["seconds"] for w in windows)
+    if trainer.jpeg_counts() is not None:
+        extra["jpeg"] = jpeg_stats(trainer, save_dir)
+        print(f"  {name} on the JPEG folder: {sps:.3f} steps/s, decode "
+              f"{extra['jpeg']['decode_ms_a_step']:.1f} ms a step "
+              f"({extra['jpeg']['decode_images_per_s']:.0f} images/s)"
+              + (f"; on synthetic arrays: {VITB_ARRAY_SPS} steps/s"
+                 if name == "vit_b16_remat" else ""))
     print(f"  losses finite over {len(history)} steps; "
           + ("stage-2 keep ratio in (0, 1]; " if sr else "")
           + f"{base} state moved {moved}; eval top-1 "
@@ -1514,7 +1602,7 @@ def crest_phase(F, A):
 
     save_dir = tempfile.mkdtemp(prefix="chip_smoke_crest_")
     cfg = synthetic_config(imb_yaml("fixmatch", "crest+"), {
-        "num_log_iter": 10, "save_dir": save_dir,
+        "num_log_iter": 6, "save_dir": save_dir,
         "num_eval_iter": CREST_GEN_STEPS, "crest_num_gens": CREST_GENS})
     sizes = []
     F.reset_launches()
@@ -1680,7 +1768,7 @@ def resnet_profile():
 
     sets = [f"{k}={v}" for k, v in RESNET_OVERRIDES.items()]
     r = profile_step.main(["--config", RESNET_YAML["fixmatch"], "--warmup",
-                           "10", "--steps", "10"]
+                           "2", "--steps", "3"]
                           + [a for kv in sets for a in ("--set", kv)])
     assert r["device_busy_ms_per_step"] > 0, r
 
@@ -1725,7 +1813,7 @@ def resume_phase(F, A):
 
     def config(run, **kw):
         return synthetic_config(HEADLINE_YAML, {
-            "num_log_iter": 10, "num_eval_iter": RESUME_EVAL,
+            "num_log_iter": 5, "num_eval_iter": RESUME_EVAL,
             "start_timing": START_TIMING, "N_k": N_K,
             "save_dir": os.path.join(root, run), **kw})
 
@@ -1785,7 +1873,7 @@ def resume_phase(F, A):
             assert LOG_KEYS | losses <= keys, (LOG_KEYS | losses) - keys
             assert all(k.startswith("train/") for k in keys - LOG_KEYS), keys
     n_eval = math.ceil(len(a.bundle.eval) / cfg.eval_batch_size)
-    steps = more + RESUME_MORE  # A's 50 and B's 10
+    steps = more + RESUME_MORE  # A's 35 and B's 5
     fwd_calls, bwd_calls = steps + 4 * n_eval, steps  # A 2 evals, B, CLI
     n_mlp = sum(bool(getattr(m, "use_fused", False))
                 for m in a.model.modules())
@@ -1809,14 +1897,117 @@ def resume_phase(F, A):
     return launches
 
 
+# jpeg_decode: images of each seeded folder held on the card route against
+# the CPU route, and the bound the JAX package holds its own native decoder
+# to against PIL (tests/test_modalities.py:323): mean |diff| < 4 levels,
+# 99th percentile <= 16
+JPEG_CHECK_IMAGES, JPEG_MEAN_BOUND, JPEG_P99_BOUND = 256, 4.0, 16.0
+# the files of a seeded folder that nvJPEG must reject (the grayscale JPEG
+# is its own: three equal channels)
+JPEG_REDONE = ["planted_cmyk.JPEG", "planted_png.JPEG"]
+
+
+def write_jpeg_folders():
+    """Start writing the seeded JPEG folders of the ViT-B/16 and ResNet-50
+    phases (``profile_step.synthetic_config``: a process a core) on a
+    thread, so that the writing runs beside the host-bound phases before
+    them. Returns the thread and a list that takes its error;
+    ``jpeg_phase`` joins it."""
+    from semireward_tpu_torch.profile_step import synthetic_config
+
+    errors = []
+
+    def run():
+        try:
+            for path, over in ((VITB_YAML, VITB_OVERRIDES),
+                               (RESNET_YAML["fixmatch"], RESNET_OVERRIDES)):
+                synthetic_config(path, over)
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    thread = threading.Thread(target=run, name="jpeg-folders")
+    thread.start()
+    return thread, errors
+
+
+def jpeg_phase(folders):
+    """nvJPEG on the card against PIL on the CPU, on ``JPEG_CHECK_IMAGES``
+    train images of each seeded folder (the ViT-B/16 YAML's at 256 px, the
+    ResNet-50 one's at 128; the three planted files among them): the card's
+    batch lies on the card, differs from the CPU's by under the bound,
+    nvJPEG rejected exactly the CMYK and PNG files (decoded on the host)
+    and gave the grayscale one three equal channels. Prints each route's
+    images/s (warm: the second gather of the same files). ``folders``:
+    ``write_jpeg_folders``'s thread and error list, joined first."""
+    from semireward_tpu_torch.data.cv_extra import get_imagenet
+    from semireward_tpu_torch.profile_step import synthetic_config
+
+    thread, errors = folders
+    thread.join()
+    if errors:
+        raise errors[0]
+    out = {}
+    for yaml_path, over in ((VITB_YAML, VITB_OVERRIDES),
+                            (RESNET_YAML["fixmatch"], RESNET_OVERRIDES)):
+        cfg = synthetic_config(yaml_path, over)
+        size = int(math.floor(cfg.img_size / cfg.crop_ratio))
+        card, _ = get_imagenet(cfg.data_dir, size, "cuda")
+        host, _ = get_imagenet(cfg.data_dir, size, "cpu")
+        names = [os.path.basename(p) for p in card.paths]
+        planted = [names.index(n) for n in sorted(
+            JPEG_REDONE + ["planted_gray.JPEG"])]
+        rs = np.random.RandomState(0)
+        rest = rs.choice(np.setdiff1d(np.arange(len(card)), planted),
+                         JPEG_CHECK_IMAGES - len(planted), replace=False)
+        idx = np.concatenate([planted, rest])
+        secs = {}
+        for route, ds in (("card", card), ("cpu", host)):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = ds.gather(idx)
+                torch.cuda.synchronize()
+                secs[route] = time.perf_counter() - t0
+            if route == "card":
+                got = batch
+        assert got.is_cuda and got.dtype == torch.uint8, got.device
+        assert tuple(got.shape) == (len(idx), size, size, 3), got.shape
+        diff = np.abs(got.cpu().numpy().astype(np.int16) - batch)
+        gray = got[1]  # idx starts with the planted cmyk, gray, png
+        redone = sorted(os.path.basename(p) for p in card.redone_on_host)
+        res = {"folder": cfg.data_dir, "decode_size": size,
+               "images": len(idx), "mean_abs_diff": float(diff.mean()),
+               "p99_abs_diff": float(np.percentile(diff, 99)),
+               "max_abs_diff": int(diff.max()),
+               "bound": [JPEG_MEAN_BOUND, JPEG_P99_BOUND],
+               "redone_on_host": redone,
+               "decoded_on_card": card.decoded_on_card,
+               "gray_three_equal_channels": bool(
+                   torch.equal(gray[..., 0], gray[..., 1])
+                   and torch.equal(gray[..., 1], gray[..., 2])),
+               "card_images_per_s": len(idx) / secs["card"],
+               "cpu_images_per_s": len(idx) / secs["cpu"],
+               "cpu_threads": os.cpu_count(),
+               "nvjpeg_version": card._nvjpeg.version(), "card": card_line()}
+        print(json.dumps({"jpeg_decode": res}), flush=True)
+        assert res["mean_abs_diff"] < JPEG_MEAN_BOUND, res
+        assert res["p99_abs_diff"] <= JPEG_P99_BOUND, res
+        assert redone == JPEG_REDONE, redone
+        assert card.decoded_on_card == 2 * (len(idx) - len(JPEG_REDONE))
+        assert res["gray_three_equal_channels"], res
+        out[size] = res
+    return out
+
+
 def new_phases(F, A):
     """ViT-B/16 at 224 px with gradient checkpointing (K2 + K3), ResNet-50
-    FixMatch and FixMatch + ABC on the ImageNet-127 YAMLs; returns each
-    phase's launches."""
+    FixMatch and FixMatch + ABC on the ImageNet-127 YAMLs, each on its
+    seeded JPEG folder decoded on the card; returns each phase's
+    launches."""
     k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
     k2 = ("flash_attention_fwd", "flash_attention_bwd")
     out = [train_phase("vit_b16_remat", VITB_YAML, VITB_OVERRIDES,
-                       VITB_STEPS, 10, F, A, k2 + k3,
+                       VITB_STEPS, 11, F, A, k2 + k3,
                        after=vitb_remat_checks)]
     per_epoch = {"epoch": _num_train_iter(RESNET_YAML["fixmatch"])
                  // IMB_PER_EPOCH}
@@ -1824,9 +2015,9 @@ def new_phases(F, A):
                       ("resnet50_abc", "fixmatch_abc")):
         out.append(train_phase(name, RESNET_YAML[key],
                                {**RESNET_OVERRIDES, **per_epoch},
-                               RESNET_STEPS, 10, F, A, (),
+                               RESNET_STEPS, 9, F, A, (),
                                after=resnet_checks))
-    resnet_profile()
+    timed("resnet50_profile", resnet_profile)
     return out
 
 
@@ -1841,14 +2032,13 @@ def main() -> int:
     from semireward_tpu_torch.ops import attention as A
     from semireward_tpu_torch.ops import fused_mlp as F
 
+    t_start = time.time()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.time()
-    built = _build.build_all()
-    print(f"built {sorted(built) or 'nothing (cached)'} in "
-          f"{time.time() - t0:.1f} s")
+    built = timed("build", _build.build_all)
+    print(f"built {sorted(built) or 'nothing (cached)'}")
     for name in _build.sources():
         text = _build.compiler_log(name)
         entry = ""
@@ -1863,24 +2053,29 @@ def main() -> int:
                     and spill.groups() != ("0", "0")):
                 raise AssertionError(f"{name} kernel {entry} spills: {line}")
 
-    kernels = fused_mlp_phase(F)
+    kernels = timed("k1_k3", fused_mlp_phase, F)
     from semireward_tpu_torch import k3_profile
     # K1's and K3's time by GEMM, one JSON line each
+    t0 = time.time()
     print(json.dumps({"k1_breakdown": k3_profile.breakdown(6168, 384, 1536),
                       "card": card}))
     for m in (4776, 6144, 151296):
         print(json.dumps({"k3_breakdown": k3_profile.breakdown(m),
                           "card": card}))
-    kernels.update(flash_phase(A, k3_profile.FLASH_SHAPES))
+    PHASE_SECONDS["k1_k3_breakdown"] = time.time() - t0
+    kernels.update(timed("k2", flash_phase, A, k3_profile.FLASH_SHAPES))
     # K2's time by kernel, launches and host time a call at the train shapes
     # and ViT-B/16's at 224 px
+    t0 = time.time()
     for name, shape in (*k3_profile.FLASH_SHAPES.items(),
                         ("vit_b16_224", (768, 197, 12, False, 0.0))):
         print(json.dumps({"k2_breakdown": k3_profile.flash_breakdown(*shape),
                           "shape": name, "card": card}))
+    PHASE_SECONDS["k2_breakdown"] = time.time() - t0
     k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
     k2 = ("flash_attention_fwd", "flash_attention_bwd")
     k1 = ("fused_mlp_fwd", "fused_mlp_bwd")
+    folders = write_jpeg_folders()
     phases = [
         train_phase("vit", HEADLINE_YAML, {}, TRAIN_STEPS, LOG_EVERY, F, A,
                     k1 + k2),
@@ -1888,30 +2083,32 @@ def main() -> int:
                     k2 + k3),
         train_phase("audio", AUDIO_YAML, {}, AUDIO_STEPS, AUDIO_LOG_EVERY, F,
                     A, k2 + k3),
-        train_phase("vit_srfreematch", FREE_YAML, {}, FREE_STEPS, 50, F, A,
+        train_phase("vit_srfreematch", FREE_YAML, {}, FREE_STEPS, 25, F, A,
                     k1 + k2),
-        train_phase("vit_srsoftmatch", SOFT_YAML, {}, SOFT_STEPS, 50, F, A,
+        train_phase("vit_srsoftmatch", SOFT_YAML, {}, SOFT_STEPS, 25, F, A,
                     k1 + k2),
-        train_phase("vit_srpseudolabel", PL_YAML, {}, PL_STEPS, 50, F, A,
+        train_phase("vit_srpseudolabel", PL_YAML, {}, PL_STEPS, 25, F, A,
                     k1 + k2),
         # no Pallas kernel covers the WRN step: no kernel of the port runs
-        train_phase("wrn_srfixmatch", WRN_FIX_YAML, {}, WRN_STEPS, 50, F, A,
+        train_phase("wrn_srfixmatch", WRN_FIX_YAML, {}, WRN_STEPS, 25, F, A,
                     ()),
-        train_phase("wrn_srpseudolabel", WRN_PL_YAML, {}, WRN_STEPS, 50, F,
+        train_phase("wrn_srpseudolabel", WRN_PL_YAML, {}, WRN_STEPS, 25, F,
                     A, ()),
-        resume_phase(F, A)]
+        timed("vit_resume", resume_phase, F, A)]
     # the USB base algorithms on the ViT-S/2-32 path (K1 and K2)
     phases += [train_phase(f"vit_{a}", USB_YAML[a], USB_OVERRIDES.get(a, {}),
                            USB_STEPS, USB_LOG_EVERY, F, A, k1 + k2)
                for a in USB_ALGOS]
     # CoMatch and SimMatch: ViT-S through K1 and K2, BERT-base and
     # HuBERT-base through K2 and K3
-    for name, rel, steps, per_epoch in CO_SIM_PHASES:
+    for name, rel, steps, per_epoch, over in CO_SIM_PHASES:
         path = os.path.join(HERE, rel)
         phases.append(train_phase(
             name, path, {"p_cutoff": 0.0,
-                         "epoch": _num_train_iter(path) // per_epoch},
-            steps, 20, F, A, k2 + (k1 if name.startswith("vit") else k3)))
+                         "epoch": _num_train_iter(path) // per_epoch,
+                         **over},
+            steps, per_epoch // 2, F, A,
+            k2 + (k1 if name.startswith("vit") else k3)))
     # SemiReward's reference-equivalent arm and per-sample mode, at
     # p_cutoff 0: FlexMatch's selected_label moves within the short phases
     phases.append(train_phase("vit_srflexmatch_reforward", HEADLINE_YAML,
@@ -1919,21 +2116,28 @@ def main() -> int:
                               k1 + k2, cfg_extra={"sr_reforward": REFORWARD}))
     phases.append(train_phase("vit_srflexmatch_per_sample", HEADLINE_YAML,
                               {"sr_per_sample": True, "p_cutoff": 0.0},
-                              PER_SAMPLE_STEPS, 20, F, A, k1 + k2))
+                              PER_SAMPLE_STEPS, 10, F, A, k1 + k2))
     # the imbalanced-SSL wrappers on WRN-28-2 (no kernel of the port runs)
     imb_over = {**IMB_OVERRIDES, "num_eval_iter": IMB_EVAL_EVERY,
                 "p_cutoff": 0.0,
                 "epoch": _num_train_iter(imb_yaml("fixmatch", "saw"))
                 // IMB_PER_EPOCH}
+    # every imb YAML names one split of one data set: made once
+    from semireward_tpu_torch.data.datasets import get_dataset
+    from semireward_tpu_torch.profile_step import synthetic_config
+    imb_data = get_dataset(synthetic_config(imb_yaml("fixmatch", "saw"),
+                                            imb_over))
     for imb in IMB_NAMES:
         phases.append(train_phase(f"imb_{imb}", imb_yaml("fixmatch", imb),
                                   imb_over, IMB_STEPS, IMB_LOG_EVERY, F, A,
-                                  ()))
+                                  (), bundle=imb_data))
     for imb in ("abc", "daso"):
         phases.append(train_phase(f"imb_remixmatch_{imb}",
                                   imb_yaml("remixmatch", imb), imb_over,
-                                  IMB_STEPS, IMB_LOG_EVERY, F, A, ()))
-    phases.append(crest_phase(F, A))
+                                  IMB_STEPS, IMB_LOG_EVERY, F, A, (),
+                                  bundle=imb_data))
+    del imb_data
+    phases.append(timed("imb_crest_gens", crest_phase, F, A))
     # the wrapper code under K1 and K2: ABC over FixMatch on the headline
     # ViT-S/2-32 (its head reads the features out of K1 and K2), and
     # SemiReward over Dash (registered through _make_sr_variant; Dash's
@@ -1949,6 +2153,9 @@ def main() -> int:
     phases.append(train_phase("vit_srdash", USB_YAML["dash"], {
         "algorithm": "srdash", "num_wu_iter": 20}, USB_STEPS,
         USB_LOG_EVERY, F, A, k1 + k2))
+    # the JPEG folders' decode on the card against the CPU route, then the
+    # ViT-B/16 and ResNet-50 phases on those folders
+    timed("jpeg_decode", jpeg_phase, folders)
     phases += new_phases(F, A)
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
 
@@ -1974,7 +2181,9 @@ def main() -> int:
     # the golden checks run no kernel of the port (their launches are held
     # at 0), so the kernels line stands before them; a failed bound still
     # ends the run before the ok line
-    golden_phase(F, A)
+    timed("golden", golden_phase, F, A)
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
+    print(f"smoke total: {time.time() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

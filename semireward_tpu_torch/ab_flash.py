@@ -7,7 +7,9 @@
 For each named config (the usb_nlp BERT-base config
 config/SemiReward/usb_nlp/flexmatch/flexmatch_aclImdb_100_0.yaml, the
 headline ViT-S config, the usb_audio HuBERT-base config
-config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml), builds
+config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml; the
+imagenet_stretch ViT-B/16 and ImageNet-127 ResNet-50 YAMLs on their seeded
+JPEG folders, ``vit_base_jpeg`` and ``resnet50_jpeg``), builds
 two trainers with ``--knob`` on and off as ``profile_step.synthetic_config``
 sets them up (``use_flash_attention``, K2, or ``use_fused_mlp``, K1/K3:
 True / False; ``prefetch_depth``, the producer thread that assembles the
@@ -39,10 +41,20 @@ AUDIO = "config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml"
 # each knob's (on, off) values
 KNOBS = {"use_flash_attention": (True, False), "use_fused_mlp": (True, False),
          "prefetch_depth": (2, 0)}
+VITB = ("config/SemiReward/imagenet_stretch/flexmatch/"
+        "flexmatch_imagenet_100000_0.yaml")
+RESNET = ("config/classic_cv_imb/fixmatch/"
+          "fixmatch_imagenet127_lb128101_286_ulbNone_286_0.yaml")
 CONFIGS = {
     "bert_base_L512": (NLP, {}),
     "vit_small_N257": (HEADLINE, {}),
     "hubert_base_N199": (AUDIO, {}),
+    # the JPEG-folder YAMLs at chip_smoke.py's cuts, on their seeded
+    # folders decoded on the card
+    "vit_base_jpeg": (VITB, {"num_labels": 2000, "synthetic_train": 4096,
+                             "p_cutoff": 0.0}),
+    "resnet50_jpeg": (RESNET, {"num_labels": 286, "ulb_num_labels": 572,
+                               "synthetic_train": 16384, "p_cutoff": 0.0}),
 }
 
 
@@ -93,7 +105,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--knob", default="use_flash_attention",
                     choices=sorted(KNOBS))
-    ap.add_argument("--configs", default=",".join(CONFIGS),
+    ap.add_argument("--configs",
+                    default="bert_base_L512,vit_small_N257,hubert_base_N199",
                     help="comma-separated names of CONFIGS")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--warmup", type=int, default=30)

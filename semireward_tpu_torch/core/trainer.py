@@ -8,11 +8,13 @@ parameters only, and eval runs the EMA parameters with the live running
 statistics, BatchNorm in eval mode).
 
 Per step, CV: the host gathers a raw uint8 batch (seeded samplers), copies
-it to the device, builds the weak/strong views there. NLP: the host
-tokenizes the views into one static length bucket and copies the token
-dicts over. Audio: the host crops / pads the waveforms into the fixed
-bucket, the strong views' crops go over raw and get their sox effects on
-the device. Then the train step runs. Metrics stay on the device until a log
+it to the device, builds the weak/strong views there; a full-size JPEG set
+decodes its batch on the card (nvJPEG) at ``img_size / crop_ratio``, the
+views crop it (``AugmentSpec.src_size``) and the eval center-crops it.
+NLP: the host tokenizes the views into one static length bucket and copies
+the token dicts over. Audio: the host crops / pads the waveforms into the
+fixed bucket, the strong views' crops go over raw and get their sox effects
+on the device. Then the train step runs. Metrics stay on the device until a log
 boundary. With ``extra['prefetch_depth']`` > 0 a producer thread
 assembles the host batches ahead of the step (``PrefetchLoader``); the
 device copies and augmentation stay on the main thread.
@@ -88,8 +90,7 @@ def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what this
     config asks of the port that it does not do yet, before any data is
     loaded: a form of the algorithm that it does not have
-    (``Algorithm.check_ported``); the fast reverb; bio data. The ImageNet
-    datasets raise in ``get_dataset``."""
+    (``Algorithm.check_ported``); the fast reverb; bio data."""
     ALGORITHMS.get(cfg.algorithm).check_ported(cfg)
     if cfg.imb_algorithm:
         from semireward_tpu_torch import imb as _imb  # noqa: F401
@@ -158,7 +159,7 @@ class Trainer:
                                           cfg.sample_rate)
         else:
             self.bundle = bundle if bundle is not None else get_dataset(
-                cfg, cfg.algorithm)
+                cfg, cfg.algorithm, device=self.device)
         data_info = {"ulb_dest_len": self.bundle.ulb_dest_len,
                      "lb_dest_len": self.bundle.lb_dest_len}
         if not cfg.is_regression:
@@ -231,11 +232,16 @@ class Trainer:
                 f"pretrained backbone loaded from {cfg.pretrain_path}")
         no_color = bool(cfg.extra.get(
             "randaug_no_color", cfg.dataset in ("tissuemnist", "medmnist")))
+        # a full-size JPEG set decodes at img_size / crop_ratio, and the
+        # views crop img_size out of it, as the JAX trainer
+        src = int(getattr(self.bundle.train_lb, "img_size", cfg.img_size))
         self.aug_spec = AugmentSpec(
             crop_size=cfg.img_size,
             crop_pad=int(cfg.img_size * (1 - cfg.crop_ratio)),
             mean=self.bundle.mean, std=self.bundle.std, randaug_n=3,
-            exclude_color=no_color) if self.modality == "cv" else None
+            exclude_color=no_color,
+            src_size=src if src > cfg.img_size else 0,
+        ) if self.modality == "cv" else None
         self.state = init_train_state(cfg, self.alg, self.model, builder,
                                       self.generator)
         self._step = make_train_step(cfg, self.alg)
@@ -252,6 +258,7 @@ class Trainer:
         self._save_dir = os.path.join(cfg.save_dir, cfg.save_name)
         self._iters_per_epoch = (cfg.num_train_iter // cfg.epoch
                                  if cfg.epoch > 0 else 0)
+        self._redone_logged = 0  # JPEG files redone on the host, logged
 
     @property
     def needs_warmup(self) -> bool:
@@ -269,7 +276,11 @@ class Trainer:
         return getattr(self.alg, "EVAL_OUT_KEY", "logits")
 
     # ------------------------------------------------------------------
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _to_device(self, arr) -> torch.Tensor:
+        """A host array to the device; a tensor (a JPEG batch decoded on
+        the card) as it is."""
+        if isinstance(arr, torch.Tensor):
+            return arr.to(self.device)
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -413,6 +424,7 @@ class Trainer:
                                   dt / per - prefetch_acc / per, 0.0)},
                              step_now)
                     prefetch_acc = 0.0
+                    self._log_jpeg_redo()
                     t0, window_start = time.time(), step_now
                 # the host's work at an epoch boundary (SAW's and ADSH's
                 # refits, CoSSL's warm start)
@@ -459,6 +471,27 @@ class Trainer:
             log("test (best ckpt): "
                 + " ".join(f"{k}={v:.4f}" for k, v in test_m.items()))
         return results
+
+    def jpeg_counts(self):
+        """A JPEG-folder bundle's decode counts: images nvJPEG decoded on
+        the card, and the files it rejected, which PIL decoded instead
+        (``None`` for array data)."""
+        sets = [d for d in (self.bundle.train_lb, self.bundle.train_ulb,
+                            self.bundle.eval)
+                if hasattr(d, "redone_on_host")]
+        if not sets:
+            return None
+        return (sum(d.decoded_on_card for d in sets),
+                set().union(*(d.redone_on_host for d in sets)))
+
+    def _log_jpeg_redo(self):
+        counts = self.jpeg_counts()
+        if counts and len(counts[1]) > self._redone_logged:
+            self._redone_logged = len(counts[1])
+            self.logger.info(
+                f"jpeg: {counts[0]} images decoded on the card; "
+                f"{len(counts[1])} files nvJPEG rejected, decoded on the "
+                f"host: {', '.join(sorted(counts[1])[:8])}")
 
     def warmup(self):
         """Dash's supervised pre-stage: ``num_wu_iter`` steps of the train
@@ -557,12 +590,19 @@ class Trainer:
         return out.get(out_key, out["logits"]).float().cpu().numpy()
 
     def _eval_batches(self, ds):
-        """Fixed-shape eval batches with a validity mask; NLP texts are
-        tokenized into one bucket per batch, waveforms cropped / padded to
-        the bucket."""
+        """Fixed-shape eval batches with a validity mask; images wider than
+        ``img_size`` center-cropped to it, NLP texts tokenized into one
+        bucket per batch, waveforms cropped / padded to the bucket."""
         bs = self.cfg.eval_batch_size
         if self.modality == "cv":
-            yield from eval_batches(ds, bs)
+            S = self.cfg.img_size
+            for b in eval_batches(ds, bs):
+                if b["x"].shape[1] > S:
+                    off = (b["x"].shape[1] - S) // 2
+                    # a full-size JPEG set decodes at img_size /
+                    # crop_ratio: the reference's CenterCrop
+                    b["x"] = b["x"][:, off:off + S, off:off + S]
+                yield b
             return
         n = len(ds)
         for start in range(0, n, bs):

@@ -81,16 +81,22 @@ def identity(img, _v):
 
 def equalize(img, _v):
     """PIL ImageOps.equalize per channel: step = (npixels - hist[255]) // 255,
-    lut[i] = (step // 2 + cumsum(hist)[:i]) // step; identity if step == 0."""
+    lut[i] = (step // 2 + cumsum(hist)[:i]) // step; identity if step == 0.
+    A value whose truncation lies outside [0, 255] (the bilinear
+    RandomResizedCrop extrapolates at a box's top and left edges when it
+    upsamples) falls in no bin and maps to 0, as in the JAX package's
+    one-hot form."""
     B, H, W, C = img.shape
     chans = img.permute(0, 3, 1, 2).reshape(B * C, H * W)
     pix = chans.to(torch.long)
+    valid = (pix >= 0) & (pix <= 255)
+    pix = pix.clamp(0, 255)
     hist = torch.zeros(B * C, 256, dtype=torch.long, device=img.device)
-    hist.scatter_add_(1, pix, torch.ones_like(pix))
+    hist.scatter_add_(1, pix, valid.long())
     step = (hist.sum(1) - hist[:, 255]) // 255
     excl = torch.cumsum(hist, 1) - hist
     lut = ((step[:, None] // 2 + excl) // step.clamp(min=1)[:, None]).clamp(0, 255)
-    out = torch.gather(lut, 1, pix).to(img.dtype)
+    out = (torch.gather(lut, 1, pix) * valid).to(img.dtype)
     out = torch.where(step[:, None] == 0, chans, out)
     return out.reshape(B, C, H, W).permute(0, 2, 3, 1).contiguous()
 

@@ -5,6 +5,14 @@
 - strong = weak + RandAugment(n=3, continuous magnitudes) + Cutout(<= 0.5)
 - eval = plain normalize
 
+A full-size JPEG set decodes at ``src_size = floor(img_size / crop_ratio)``
+(``AugmentSpec.src_size``), and its views follow the reference's ImageNet
+transforms: weak = a random ``crop_size`` crop of the larger decode + flip,
+strong = RandomResizedCrop (area 8-100%, aspect 3/4-4/3, bilinear) + flip +
+RandAugment; eval center-crops (the trainer). Both crops are gathers: the
+one-hot product that the JAX package used on the TPU for the crop is a TPU
+measurement and is not carried over.
+
 Each view is split into a *draw* (crop offsets, flips, op ids, magnitudes,
 cutout corners; a few numbers per image from an explicit
 ``torch.Generator``) and a deterministic *apply* on the device, so tests can
@@ -14,6 +22,7 @@ reads the draws back to the host.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -30,6 +39,13 @@ class AugmentSpec(NamedTuple):
     randaug_n: int = 3
     exclude_color: bool = False    # RandAugment no-color variant
     hflip: bool = True
+    # full-size JPEG sets: the decode's size, floor(img_size / crop_ratio);
+    # 0 = decoded at crop_size (the reflect-pad path)
+    src_size: int = 0
+
+    @property
+    def full_size(self) -> bool:
+        return self.src_size > self.crop_size
 
 
 # (op, min_val, max_val), the reference's augment_list() order
@@ -64,9 +80,17 @@ GEO_NAMES = ("rotate", "shear_x", "shear_y", "translate_x", "translate_y")
 
 
 class CropDraws(NamedTuple):
-    oy: torch.Tensor    # long [B], in [0, 2*pad]
+    oy: torch.Tensor    # long [B], in [0, 2*pad] (full size: [0, src-crop])
     ox: torch.Tensor    # long [B]
     flip: torch.Tensor  # bool [B]
+
+
+class ResizedCropDraws(NamedTuple):
+    area: torch.Tensor       # f32 [B], box area / image area, [0.08, 1)
+    log_ratio: torch.Tensor  # f32 [B], log aspect, [log 3/4, log 4/3)
+    ux: torch.Tensor         # f32 [B], uniform [0, 1): the box's left edge
+    uy: torch.Tensor         # f32 [B], uniform [0, 1): its top edge
+    flip: torch.Tensor       # bool [B]
 
 
 class RandAugDraws(NamedTuple):
@@ -81,14 +105,28 @@ def _table(exclude_color: bool):
     return NO_COLOR_OPS if exclude_color else FULL_OPS
 
 
+def _draw_flip(batch: int, spec: AugmentSpec, generator, device):
+    flip = rng.rand(batch, generator=generator, device=device) < 0.5
+    return flip if spec.hflip else torch.zeros_like(flip)
+
+
 def draw_crop(batch: int, spec: AugmentSpec, generator, device) -> CropDraws:
-    n = 2 * spec.crop_pad + 1
+    n = (spec.src_size - spec.crop_size + 1 if spec.full_size
+         else 2 * spec.crop_pad + 1)
     oy = rng.randint(0, n, (batch,), generator=generator, device=device)
     ox = rng.randint(0, n, (batch,), generator=generator, device=device)
-    flip = rng.rand(batch, generator=generator, device=device) < 0.5
-    if not spec.hflip:
-        flip = torch.zeros_like(flip)
-    return CropDraws(oy, ox, flip)
+    return CropDraws(oy, ox, _draw_flip(batch, spec, generator, device))
+
+
+def draw_resized_crop(batch: int, spec: AugmentSpec, generator,
+                      device) -> ResizedCropDraws:
+    """RandomResizedCrop's draws: area 8-100% of the image, aspect ratio
+    3/4-4/3 (uniform in its log), the box's place, the flip."""
+    rand = lambda: rng.rand(batch, generator=generator, device=device)
+    lo, hi = math.log(3 / 4), math.log(4 / 3)
+    return ResizedCropDraws(
+        area=0.08 + 0.92 * rand(), log_ratio=lo + (hi - lo) * rand(),
+        ux=rand(), uy=rand(), flip=_draw_flip(batch, spec, generator, device))
 
 
 def draw_randaug(batch: int, spec: AugmentSpec, generator,
@@ -118,6 +156,62 @@ def crop_flip(x, pad: int, d: CropDraws):
     cols = torch.where(d.flip[:, None], cols.flip(-1), cols)
     bi = torch.arange(B, device=x.device)[:, None, None]
     return x[bi, rows[:, :, None], cols[:, None, :]]
+
+
+def crop_from_larger(x, out_size: int, d: CropDraws):
+    """A random ``out_size`` crop of a larger image + hflip as one gather
+    (the reference's Resize(img / crop_ratio) -> RandomCrop(img) -> flip):
+    offsets in [0, src - out], no padding."""
+    B = x.shape[0]
+    ar = torch.arange(out_size, device=x.device)
+    rows = ar + d.oy[:, None]
+    cols = ar + d.ox[:, None]
+    cols = torch.where(d.flip[:, None], cols.flip(-1), cols)
+    bi = torch.arange(B, device=x.device)[:, None, None]
+    return x[bi, rows[:, :, None], cols[:, None, :]]
+
+
+def resized_crop_boxes(H: int, W: int, d: ResizedCropDraws):
+    """-> (x0, y0, w, h), int32 [B] each: the box of each image, in the JAX
+    package's float32 arithmetic (int32 truncation, sides clipped to [1,
+    W] / [1, H])."""
+    area = d.area.float() * float(H * W)
+    ar = torch.exp(d.log_ratio.float())
+    w = torch.sqrt(area * ar).to(torch.int32).clamp(1, W)
+    h = torch.sqrt(area / ar).to(torch.int32).clamp(1, H)
+    x0 = (d.ux.float() * (W - w + 1).float()).to(torch.int32)
+    y0 = (d.uy.float() * (H - h + 1).float()).to(torch.int32)
+    return x0, y0, w, h
+
+
+def random_resized_crop(x, out_size: int, d: ResizedCropDraws):
+    """RandomResizedCropAndInterpolation (the reference's timm-derived
+    transform): each image's box (``resized_crop_boxes``) bilinearly
+    sampled onto an ``out_size`` grid, in float32, then the flip. ``x``:
+    float [B, H, W, C]. As in the JAX package, a sample point above or left
+    of pixel 0 (a box smaller than the grid at the top or left edge) keeps
+    its negative weight: those rows and columns extrapolate past [0,
+    255]."""
+    B, H, W, C = x.shape
+    x0, y0, w, h = resized_crop_boxes(H, W, d)
+    step = (torch.arange(out_size, device=x.device) + 0.5)[None]
+
+    def axis(start, side, size):
+        pos = start[:, None] + step * (side.float() / out_size)[:, None] - 0.5
+        lo = torch.floor(pos).to(torch.int64).clamp(0, size - 1)
+        return lo, (lo + 1).clamp(0, size - 1), pos - lo
+
+    y0i, y1i, fy = axis(y0, h, H)
+    x0i, x1i, fx = axis(x0, w, W)
+    fy, fx = fy[:, :, None, None], fx[:, None, :, None]
+    bi = torch.arange(B, device=x.device)[:, None, None]
+
+    def at(r, c):
+        return x[bi, r[:, :, None], c[:, None, :]]
+
+    out = (at(y0i, x0i) * (1 - fy) * (1 - fx) + at(y0i, x1i) * (1 - fy) * fx
+           + at(y1i, x0i) * fy * (1 - fx) + at(y1i, x1i) * fy * fx)
+    return torch.where(d.flip[:, None, None, None], out.flip(2), out)
 
 
 def randaugment_apply(x, d: RandAugDraws, exclude_color: bool = False):
@@ -159,12 +253,22 @@ def normalize(x, mean: Sequence[float], std: Sequence[float]):
 
 def weak_augment(batch, spec: AugmentSpec, d: CropDraws):
     """[B, H, W, C] uint8 -> normalized float32 weak view."""
-    return normalize(crop_flip(batch.float(), spec.crop_pad, d), spec.mean,
-                     spec.std)
+    x = (crop_from_larger(batch.float(), spec.crop_size, d)
+         if spec.full_size else crop_flip(batch.float(), spec.crop_pad, d))
+    return normalize(x, spec.mean, spec.std)
 
 
-def strong_augment(batch, spec: AugmentSpec, dc: CropDraws, dr: RandAugDraws):
-    x = crop_flip(batch.float(), spec.crop_pad, dc)
+def draw_strong_crop(batch: int, spec: AugmentSpec, generator, device):
+    """The strong view's crop draws: a resized crop on a full-size set."""
+    return (draw_resized_crop if spec.full_size else draw_crop)(
+        batch, spec, generator, device)
+
+
+def strong_augment(batch, spec: AugmentSpec, dc, dr: RandAugDraws):
+    """Crop (``ResizedCropDraws`` on a full-size set, else ``CropDraws``),
+    RandAugment, Cutout, normalize."""
+    x = (random_resized_crop(batch.float(), spec.crop_size, dc)
+         if spec.full_size else crop_flip(batch.float(), spec.crop_pad, dc))
     x = randaugment_apply(x, dr, spec.exclude_color)
     return normalize(x, spec.mean, spec.std)
 
@@ -199,12 +303,13 @@ def augment_views(raw_lb, raw_ulb, spec: AugmentSpec, keys: Sequence[str],
             continue
         src = raw_lb if key in ("x_lb", "x_lb_s") else raw_ulb
         B, dev = src.shape[0], src.device
-        dc = draw_crop(B, spec, generator, dev)
         if key in strong_keys and not (key == "x_ulb_s" and weak_ulb_s):
-            out[key] = strong_augment(src, spec, dc,
-                                      draw_randaug(B, spec, generator, dev))
+            out[key] = strong_augment(
+                src, spec, draw_strong_crop(B, spec, generator, dev),
+                draw_randaug(B, spec, generator, dev))
         else:
-            out[key] = weak_augment(src, spec, dc)
+            out[key] = weak_augment(src, spec,
+                                    draw_crop(B, spec, generator, dev))
     B, dev = raw_ulb.shape[0], raw_ulb.device
     if "x_ulb_s_0_rot" in keys:
         rot_v = rng.randint(0, 4, (B,), generator=generator, device=dev)

@@ -3,15 +3,21 @@ and ``data/cv_extra.py`` the ported paths use): raw uint8 arrays in host
 memory; CIFAR-10/100, SVHN and STL-10 from their local torchvision file
 layouts, EuroSAT and TissueMNIST from their npz files, and the seeded
 synthetic tasks (blobs, and the rotation orbit of the golden-learning
-checks). numpy (and scipy for SVHN's .mat) only, copied so that both
-packages produce the same arrays for the same seed. Augmentation runs on the
-device (``data/augment``). Loaders read local files only.
+checks); the full-size JPEG folders (``imagenet``, ``imagenet127``,
+``food101``, ``semi_aves``) decode a batch at a time (``data/cv_extra.py``),
+on the card unless the caller asks for the CPU. numpy (and scipy for SVHN's
+.mat) only, copied so that both packages produce the same arrays and splits
+for the same seed. Augmentation runs on the device (``data/augment``).
+Loaders read local files only; ``write_synthetic_stl10`` and
+``write_synthetic_jpeg_folder`` write seeded corpora in the layouts they
+read.
 """
 from __future__ import annotations
 
 import math
 import os
 import pickle
+import shutil
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -42,8 +48,10 @@ MEAN_STD = {
 
 
 # the names get_dataset reads
+JPEG_DATASETS = ("imagenet", "imagenet127", "food101", "semi_aves")
 CV_DATASETS = ("cifar10", "cifar100", "svhn", "stl10", "eurosat",
-               "tissuemnist", "medmnist", "synthetic", "synthetic_orbit")
+               "tissuemnist", "medmnist", "synthetic", "synthetic_orbit",
+               *JPEG_DATASETS)
 
 
 @dataclass
@@ -171,6 +179,103 @@ def write_synthetic_stl10(data_dir: str, seed: int = 0,
                 f.write((y + 1).astype(np.uint8).tobytes())
     open(os.path.join(base, "_complete"), "w").close()
     return base
+
+
+_NOISE = {}
+
+
+def _noise_tile(seed: int):
+    """The luminance noise of a seeded JPEG folder: a 500 x 500 gray tile
+    of +-12 about 128, as an RGB image (drawn once a process)."""
+    from PIL import Image
+
+    if seed not in _NOISE:
+        rs = np.random.RandomState([seed, 1 << 30])
+        _NOISE[seed] = Image.fromarray(np.repeat(
+            rs.randint(116, 141, (500, 500, 1)), 3, 2).astype(np.uint8))
+    return _NOISE[seed]
+
+
+def _synthetic_jpeg(args):
+    """Write image ``i`` of a seeded JPEG folder (see
+    :func:`write_synthetic_jpeg_folder`)."""
+    from PIL import Image, ImageChops
+
+    path, proto, seed, i = args
+    rs = np.random.RandomState([seed, i])
+    h = rs.randint(200, 501)
+    w = int(np.clip(round(h * np.exp(rs.uniform(np.log(3 / 4),
+                                                 np.log(4 / 3)))), 200, 500))
+    low = np.clip(proto + rs.randint(-30, 31, proto.shape), 0, 255)
+    base = Image.fromarray(low.astype(np.uint8)).resize((w, h),
+                                                        Image.BILINEAR)
+    noise = _noise_tile(seed)
+    oy, ox = rs.randint(0, noise.height - h + 1), rs.randint(
+        0, noise.width - w + 1)
+    ImageChops.add(base, noise.crop((ox, oy, ox + w, oy + h)),
+                   offset=-128).save(path, "JPEG", quality=90)
+
+
+def write_synthetic_jpeg_folder(data_dir: str, num_classes: int,
+                                n_train: int, n_val: int,
+                                seed: int = 0) -> str:
+    """Write a seeded corpus in the ImageNet folder layout that
+    ``cv_extra.get_imagenet`` reads (``<data_dir>/imagenet/{train,val}/
+    <class>/*.JPEG``, class ``c`` named ``n%08d``) and return ``data_dir``.
+    Images have ImageNet's sides (each 200-500 px, aspect 3:4 to 4:3) at
+    JPEG quality 90, 4:2:0: image ``i`` of class ``c`` is ``c``'s
+    prototype (4 x 4 colour blocks, each moved by up to +-30) blown up
+    bilinearly, plus luminance noise of +-12, drawn from ``(seed, i)``;
+    train and val cycle through the classes. As in ImageNet's train set,
+    class 0's train folder also holds a grayscale JPEG, a CMYK JPEG and a
+    PNG under a ``.JPEG`` name (``planted_{gray,cmyk,png}.JPEG``). From
+    512 images on, a process a core writes them (threads did not scale).
+    The marker ``imagenet/_complete``, written last, holds the arguments; a
+    finished corpus of the same arguments is kept as it is."""
+    import json
+    from PIL import Image
+
+    root = os.path.join(data_dir, "imagenet")
+    marker = os.path.join(root, "_complete")
+    spec = json.dumps([num_classes, n_train, n_val, seed])
+    if os.path.exists(marker):
+        with open(marker) as f:
+            if f.read() == spec:
+                return data_dir
+    shutil.rmtree(root, ignore_errors=True)
+    rs = np.random.RandomState(seed)
+    protos = rs.randint(0, 256, (num_classes, 4, 4, 3)).astype(np.uint8)
+    jobs = []
+    for split, n, off in (("train", n_train, 0), ("val", n_val, n_train)):
+        for c in range(num_classes):
+            os.makedirs(os.path.join(root, split, f"n{c:08d}"))
+        for i in range(n):
+            c = i % num_classes
+            jobs.append((os.path.join(root, split, f"n{c:08d}",
+                                      f"n{c:08d}_{i}.JPEG"),
+                         protos[c], seed, off + i))
+    procs = min(8, os.cpu_count() or 1, len(jobs) // 512)
+    if procs > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(procs, multiprocessing.get_context(
+                "spawn")) as ex:
+            list(ex.map(_synthetic_jpeg, jobs, chunksize=64))
+    else:
+        for job in jobs:
+            _synthetic_jpeg(job)
+    # the files a JPEG decoder may reject, as ImageNet's train set has them
+    planted = Image.fromarray(np.repeat(np.repeat(protos[0], 75, 0), 100, 1))
+    cls0 = os.path.join(root, "train", f"n{0:08d}")
+    planted.convert("L").save(os.path.join(cls0, "planted_gray.JPEG"),
+                              "JPEG", quality=90)
+    planted.convert("CMYK").save(os.path.join(cls0, "planted_cmyk.JPEG"),
+                                 "JPEG", quality=90)
+    planted.save(os.path.join(cls0, "planted_png.JPEG"), "PNG")
+    with open(marker, "w") as f:
+        f.write(spec)
+    return data_dir
 
 
 def load_eurosat(data_dir: str):
@@ -308,16 +413,72 @@ def make_synthetic_orbit(num_classes: int, img_size: int, n_lb: int,
     return lb, ulb, ev
 
 
-def get_dataset(cfg, alg: str = "fixmatch") -> SSLDataBundle:
-    """Dataset-name dispatch: cifar10, cifar100, svhn, stl10, eurosat,
-    tissuemnist (local files), synthetic and synthetic_orbit. The other datasets of the JAX
-    package are not ported yet (ROADMAP)."""
+def _jpeg_bundle(cfg, device) -> SSLDataBundle:
+    """The full-size JPEG folder datasets (the JAX package's
+    ``get_dataset`` branch, datasets.py:320-376): images decode at
+    ``floor(img_size / crop_ratio)`` and the views crop ``img_size`` out of
+    that (``AugmentSpec.src_size``; eval center-crops). ``semi_aves`` reads
+    its predefined labeled / unlabeled / val lists; ``food101`` its train
+    and test lists and ``imagenet`` / ``imagenet127`` their folders (the
+    same loader: an imagenet127 tree holds its 127 coarse class folders),
+    then the labeled indices are drawn as for the array datasets, dumped
+    under ``data_statistics``."""
+    from semireward_tpu_torch.data.cv_extra import (
+        MEAN_STD as JPEG_MEAN_STD, JPEGFolderDataset, get_imagenet,
+        load_folder_list)
+    from semireward_tpu_torch.data.split import sample_labeled_unlabeled_data
+
     name = cfg.dataset
-    if name in ("imagenet", "imagenet127"):
-        raise NotImplementedError(
-            f"dataset '{name}' needs the JPEG-folder loader, which is not "
-            f"ported yet (ROADMAP: section 1 item 5, the JPEG-folder "
-            f"datasets)")
+    mean, std = JPEG_MEAN_STD["imagenet"]
+    decode = int(math.floor(cfg.img_size / cfg.crop_ratio))
+    if name == "semi_aves":
+        def first(*cands):
+            for c in cands:
+                if os.path.isfile(os.path.join(cfg.data_dir, name, c)):
+                    return load_folder_list(cfg.data_dir, name, c)
+            raise FileNotFoundError(
+                f"{name}: none of {cands} under {cfg.data_dir}/{name}")
+
+        sets = [JPEGFolderDataset(*first(*cands), decode, device)
+                for cands in (("l_train_val.txt", "l_train.txt"),
+                              ("u_train_in.txt", "u_train.txt"),
+                              ("val.txt", "test.txt"))]
+        return SSLDataBundle(*sets, num_classes=cfg.num_classes, mean=mean,
+                             std=std)
+    if name == "food101":
+        train = JPEGFolderDataset(*load_folder_list(
+            cfg.data_dir, name, "train_list.txt"), decode, device)
+        val = JPEGFolderDataset(*load_folder_list(
+            cfg.data_dir, name, "test_list.txt"), decode, device)
+    else:
+        train, val = get_imagenet(cfg.data_dir, decode, device)
+    lb_idx, ulb_idx = sample_labeled_unlabeled_data(
+        np.asarray(train.targets), cfg.num_classes, cfg.num_labels,
+        ulb_num_labels=cfg.ulb_num_labels,
+        lb_imbalance_ratio=cfg.lb_imb_ratio,
+        ulb_imbalance_ratio=cfg.ulb_imb_ratio,
+        rng=np.random.RandomState(cfg.seed),
+        dump_dir=os.path.join(cfg.data_dir, "data_statistics", name,
+                              "labeled_idx"),
+        dump_tag=f"labels{cfg.num_labels}_{cfg.lb_imb_ratio}"
+                 f"_ulb{cfg.ulb_num_labels}_{cfg.ulb_imb_ratio}"
+                 f"_seed{cfg.seed}")
+    if cfg.include_lb_to_ulb:
+        ulb_idx = np.concatenate([lb_idx, ulb_idx])
+    return SSLDataBundle(
+        train_lb=train.subset(lb_idx), train_ulb=train.subset(ulb_idx),
+        eval=val, num_classes=cfg.num_classes, mean=mean, std=std)
+
+
+def get_dataset(cfg, alg: str = "fixmatch", device=None) -> SSLDataBundle:
+    """Dataset-name dispatch: cifar10, cifar100, svhn, stl10, eurosat,
+    tissuemnist (local files), synthetic and synthetic_orbit, and the
+    full-size JPEG folders (``JPEG_DATASETS``), which decode on ``device``
+    (default: the first CUDA card). The other datasets of the JAX package
+    are not ported yet (ROADMAP)."""
+    name = cfg.dataset
+    if name in JPEG_DATASETS:
+        return _jpeg_bundle(cfg, device)
     if name in ("cifar10", "cifar100"):
         loader = _load_cifar10 if name == "cifar10" else _load_cifar100
         try:

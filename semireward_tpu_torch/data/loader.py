@@ -1,14 +1,17 @@
 """Host-side batching (the parts of ``semireward_tpu/data/loader.py`` the
 headline path uses): seeded infinite samplers yielding raw uint8 batches,
 fixed-shape eval batches, and the prefetch thread. numpy only, copied so
-both packages draw the same index streams for the same seed. The native
-row gather is not ported yet (ROADMAP).
+both packages draw the same index streams for the same seed. A JPEG-folder
+dataset's ``gather`` decodes its batch, on the card where the dataset lives
+there (a CUDA tensor, passed on as it is). The native row gather is not
+ported yet (ROADMAP).
 """
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from semireward_tpu_torch.data.datasets import ArrayDataset, SSLDataBundle
 
@@ -130,8 +133,9 @@ class SSLLoader:
 
 
 def eval_batches(ds: ArrayDataset, batch_size: int):
-    """Fixed-shape eval batches; last batch padded, with a validity mask so
-    every batch has one shape."""
+    """Fixed-shape eval batches; last batch padded (by repeating its last
+    image; a JPEG set's batch may be a CUDA tensor), with a validity mask
+    so every batch has one shape."""
     n = len(ds)
     lazy = hasattr(ds, "gather")  # JPEG folder datasets decode per batch
     for start in range(0, n, batch_size):
@@ -142,7 +146,9 @@ def eval_batches(ds: ArrayDataset, batch_size: int):
         pad = batch_size - (stop - start)
         mask = np.ones(batch_size, bool)
         if pad:
-            x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+            x = (torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+                 if isinstance(x, torch.Tensor)
+                 else np.concatenate([x, np.repeat(x[-1:], pad, axis=0)]))
             y = np.concatenate([y, np.repeat(y[-1:], pad, axis=0)])
             mask[stop - start:] = False
         yield {"x": x, "y": y, "mask": mask}
@@ -159,9 +165,11 @@ class PrefetchLoader:
     wait is the true loader-starvation signal surfaced as
     ``train/prefetch_time`` (the analogue of the reference TimerHook's
     metric, core/hooks/timer.py:13-27). Producer exceptions re-raise on
-    the consumer side. The wrapped loader does host work only: no CUDA
-    call and no draw from a torch generator (the trainer's device copies
-    and augmentation stay on the main thread, in stream order)."""
+    the consumer side. The wrapped loader draws from no torch generator
+    (the trainer's device copies and augmentation stay on the main thread,
+    in stream order); its only CUDA work is a JPEG set's decode on the
+    card, whose batch it passes on as it is, ordered before the step that
+    reads it by the one default stream both threads launch on."""
 
     def __init__(self, loader, depth: int = 2):
         import queue
@@ -219,5 +227,10 @@ class PrefetchLoader:
             raise item
         return item
 
-    def close(self):
+    def close(self, timeout: float = 120.0):
+        """Stop the producer and wait until it has finished the batch it
+        is assembling: a JPEG set decodes that batch on the card, and a
+        daemon thread still inside PyTorch when the interpreter exits
+        aborts the process."""
         self._stop.set()
+        self._thr.join(timeout)

@@ -148,6 +148,18 @@ class ImbAlgorithm(Algorithm):
         return out._replace(total_loss=total, metrics=metrics)
 
 
+def refuse_lazy_images(ds, what: str) -> None:
+    """Raise ``NotImplementedError`` where ``what`` needs a dataset's whole
+    image array and ``ds`` decodes a batch at a time (a JPEG folder): the
+    JAX package reads ``.data`` there and fails with ``AttributeError``
+    (ROADMAP section 3)."""
+    if not hasattr(ds, "data"):
+        raise NotImplementedError(
+            f"{what} reads the whole image array of its data, which a JPEG "
+            f"folder dataset ({type(ds).__name__}) does not hold; the JAX "
+            f"package fails there too (ROADMAP section 3)")
+
+
 def predict_ulb_logits(trainer) -> np.ndarray:
     """Logits of the EMA weights over the whole unlabeled set, eval
     transforms (normalize only), the main head: the reference's

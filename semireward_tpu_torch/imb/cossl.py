@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from semireward_tpu_torch import rng
 from semireward_tpu_torch.core.losses import ce_loss
 from semireward_tpu_torch.core.optim import Optimizer
-from semireward_tpu_torch.imb.base import ImbAlgorithm, softmax_np
+from semireward_tpu_torch.imb.base import (ImbAlgorithm, refuse_lazy_images,
+                                           softmax_np)
 from semireward_tpu_torch.models.wrappers import CoSSLNet
 from semireward_tpu_torch.registry import IMB_ALGORITHMS
 
@@ -54,16 +55,16 @@ def draw_tfe_mix(n: int, max_lam: float, generator=None, device=None):
 def tfe_view(x, spec, strong: bool, generator):
     """A strong (RandAugment) or weak view of a uint8 image batch on the
     device, for the warm-start's feature passes."""
-    from semireward_tpu_torch.data.augment.pipeline import (draw_crop,
-                                                            draw_randaug,
-                                                            strong_augment,
-                                                            weak_augment)
+    from semireward_tpu_torch.data.augment.pipeline import (
+        draw_crop, draw_randaug, draw_strong_crop, strong_augment,
+        weak_augment)
 
-    dc = draw_crop(x.shape[0], spec, generator, x.device)
+    B, dev = x.shape[0], x.device
     if strong:
-        return strong_augment(x, spec, dc, draw_randaug(
-            x.shape[0], spec, generator, x.device))
-    return weak_augment(x, spec, dc)
+        return strong_augment(x, spec, draw_strong_crop(B, spec, generator,
+                                                        dev),
+                              draw_randaug(B, spec, generator, dev))
+    return weak_augment(x, spec, draw_crop(B, spec, generator, dev))
 
 
 def balanced_features(lb_feats, lb_probs, y_lb, ulb_feats, ulb_probs,
@@ -224,6 +225,8 @@ class CoSSL(ImbAlgorithm):
         self.warmed = True
         trainer.logger.info("CoSSL: TFE classifier warm-up")
         lb, ulb = trainer.bundle.train_lb, trainer.bundle.train_ulb
+        for ds in (lb, ulb):
+            refuse_lazy_images(ds, "CoSSL's teacher warm start")
         lb_feats, lb_logits = self._feats_logits(
             trainer, lb.data, self.tfe_augment == "strong", 0)
         ulb_feats, _ = self._feats_logits(trainer, ulb.data, True, 1)

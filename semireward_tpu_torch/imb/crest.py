@@ -19,7 +19,7 @@ import torch
 
 from semireward_tpu_torch.algorithms import common as C
 from semireward_tpu_torch.imb.base import (ImbAlgorithm, predict_ulb_logits,
-                                           softmax_np)
+                                           refuse_lazy_images, softmax_np)
 from semireward_tpu_torch.registry import IMB_ALGORITHMS
 
 
@@ -129,7 +129,9 @@ def train_crest(cfg, logger=None, device=None, num_iters=None,
     from semireward_tpu_torch.registry import ALGORITHMS
 
     base_cfg = cfg.replace(include_lb_to_ulb=False)
-    bundle0 = get_dataset(base_cfg, cfg.algorithm)
+    bundle0 = get_dataset(base_cfg, cfg.algorithm, device=device)
+    for ds in (bundle0.train_lb, bundle0.train_ulb):
+        refuse_lazy_images(ds, "CReST's generation loop (train_crest)")
     lb_data0, lb_tgt0 = bundle0.train_lb.data, bundle0.train_lb.targets
     counts = np.bincount(np.asarray(lb_tgt0, np.int64),
                          minlength=cfg.num_classes).astype(np.float64)

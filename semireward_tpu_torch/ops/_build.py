@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` at the repository root (``build/`` is
 git-ignored) and is loaded with ``ctypes``; its functions take plain
-pointers, ints and the CUDA stream. The file name carries a hash of the
-source and of every ``csrc/*.cuh`` header, so an edited source or header
-never loads a stale library. Nothing builds at
+pointers, ints and the CUDA stream. A source may link libraries of the
+toolkit beyond ``NVCC_FLAGS`` (``LINK_FLAGS``: ``jpeg_decode`` links
+nvJPEG, found at run time through an rpath to the toolkit's library
+folder). The file name carries a hash of the source, of every
+``csrc/*.cuh`` header and of the source's whole flag list, so an edited
+source, header or flag never loads a stale library. Nothing builds at
 import time: the first launch builds, or ``build_all`` builds every source
 at once, one ``nvcc`` process per source, all started together. Each
 library's compiler output (ptxas's registers and spills) is kept beside it
@@ -27,6 +30,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# each source's flags beyond NVCC_FLAGS: the toolkit libraries it links
+LINK_FLAGS = {"jpeg_decode": ["-lnvjpeg"]}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -42,11 +48,27 @@ def _nvcc() -> str:
                        "from semireward_tpu_torch/csrc at first use")
 
 
+def flags(name: str) -> list:
+    """``csrc/<name>.cu``'s nvcc flags: ``NVCC_FLAGS``, then its
+    ``LINK_FLAGS`` and, where it links a library, an rpath to the toolkit's
+    ``lib64`` beside the ``bin`` that holds nvcc."""
+    link = LINK_FLAGS.get(name, [])
+    if not link:
+        return list(NVCC_FLAGS)
+    lib = Path(_nvcc()).resolve().parents[1] / "lib64"
+    return [*NVCC_FLAGS, *link, "-Xlinker", f"-rpath={lib}"]
+
+
+def command(name: str, out: str) -> list:
+    """The nvcc command line that builds ``csrc/<name>.cu`` into ``out``."""
+    return [_nvcc(), *flags(name), "-o", out, str(CSRC / f"{name}.cu")]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -62,16 +84,16 @@ def build_all(names: Iterable[str] = None) -> Dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target)
+        procs[name] = (subprocess.Popen(
+            command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, target)
     logs, failed = {}, []
     for name, (proc, tmp, target) in procs.items():
         out, _ = proc.communicate()
         logs[name] = out
         if proc.returncode != 0:
-            os.unlink(tmp)
+            if os.path.exists(tmp):  # nvcc removes it after a failed link
+                os.unlink(tmp)
             failed.append(f"{name}:\n{out}")
         else:
             target.with_suffix(".log").write_text(out)

@@ -45,23 +45,30 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(
 SYNTH_TEXT = os.path.join(_BUILD, "synth_text")
 SYNTH_AUDIO = os.path.join(_BUILD, "synth_audio")
 SYNTH_STL10 = os.path.join(_BUILD, "synth_stl10")
+# data/datasets.py:write_synthetic_jpeg_folder's ImageNet-layout corpora
+SYNTH_JPEG = {"imagenet": os.path.join(_BUILD, "synth_imagenet"),
+              "imagenet127": os.path.join(_BUILD, "synth_imagenet127")}
 
 
 def synthetic_config(path: str, overrides=None):
     """``path``'s config as the smoke run, the profile and the A/B run it:
     random weights and no resume (the repo ships no weights), start_timing
     10 and N_k 10 (stage 2 and the reward filter within a short run), and
-    synthetic data: CIFAR-shaped images (``dataset synthetic``; 2048 train
-    images, or twice the YAML's ``num_labels`` where that is more, so that
-    the classic_cv YAMLs' 10000 labels split, or on a classic_cv_imb YAML
-    ``num_classes * (num_labels + ulb_num_labels)``, so that every class
-    holds the head class's counts) for an image net, except on
-    an STL-10 YAML: there the seeded STL-10-layout corpus under
-    ``build/synth_stl10`` (96 px); for a text
-    net the seeded aclImdb-layout corpus, written
-    under ``build/synth_text`` on first use; for an audio net the seeded
-    ESC-50-layout corpus under ``build/synth_audio``. ``overrides`` go on
-    top."""
+    synthetic data. For an image net: CIFAR-shaped images (``dataset
+    synthetic``; 2048 train images, or twice the YAML's ``num_labels``
+    where that is more, so that the classic_cv YAMLs' 10000 labels split,
+    or on an imbalanced YAML ``num_classes * (num_labels +
+    ulb_num_labels)``, so that every class holds the head class's counts;
+    ``synthetic_train`` overrides it), except on an STL-10 YAML, where the
+    seeded STL-10-layout corpus under ``build/synth_stl10`` (96 px) stands
+    in, and on an ``imagenet`` / ``imagenet127`` YAML, where a seeded
+    ImageNet-layout JPEG folder of that many train images and
+    ``synthetic_test`` (256) val images of the YAML's classes does
+    (``build/synth_imagenet``, ``build/synth_imagenet127``), decoded as the
+    YAML's dataset; for a text net the seeded aclImdb-layout corpus,
+    written under ``build/synth_text`` on first use; for an audio net the
+    seeded ESC-50-layout corpus under ``build/synth_audio``. ``overrides``
+    go on top."""
     from semireward_tpu_torch import config as config_lib
     from semireward_tpu_torch.data.modality import modality_of
 
@@ -83,6 +90,15 @@ def synthetic_config(path: str, overrides=None):
             # unlabeled counts: every class holds both
             n = max(n, cfg.num_classes * (cfg.num_labels
                                           + int(cfg.ulb_num_labels)))
+        n = int(cfg.extra.get("synthetic_train", n))
+        if cfg.dataset in SYNTH_JPEG:
+            from semireward_tpu_torch.data.datasets import (
+                write_synthetic_jpeg_folder)
+            root = write_synthetic_jpeg_folder(
+                SYNTH_JPEG[cfg.dataset], cfg.num_classes, n,
+                int(cfg.extra.get("synthetic_test", 256)))
+            return config_lib.from_yaml(path, {"data_dir": root,
+                                               **overrides})
         return config_lib.from_yaml(path, {
             "dataset": "synthetic", "synthetic_train": n, **overrides})
     if modality == "nlp":

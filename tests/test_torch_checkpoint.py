@@ -290,3 +290,22 @@ def test_prefetch_keeps_order_reraises_and_closes(impl):
     n = len(made)
     time.sleep(0.3)
     assert len(made) == n
+
+
+def test_prefetch_close_waits_for_the_batch_in_hand():
+    """The port's ``close`` returns once the producer has finished the
+    batch it was assembling (a JPEG set's decode on the card runs there),
+    so no producer outlives the train loop."""
+    from semireward_tpu_torch.data.loader import PrefetchLoader
+
+    def slow():
+        i = 0
+        while True:
+            time.sleep(0.2)
+            yield i
+            i += 1
+
+    pf = PrefetchLoader(slow(), depth=1)
+    assert next(pf) == 0
+    pf.close()
+    assert not pf._thr.is_alive()

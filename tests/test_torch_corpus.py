@@ -1,9 +1,8 @@
 """The SemiReward YAML corpus in the port: every config under
 ``config/SemiReward/`` resolves (its algorithm in ``ALGORITHMS`` and built,
-its net in ``NETS``, its dataset read by the port's loaders), except the
-ImageNet ones, which pass ``refuse_unported`` (gradient checkpointing is
-ported) and raise in ``get_dataset`` naming the JPEG-folder loader,
-ROADMAP section 1 item 5. Plus two-step CPU
+its net in ``NETS``, its dataset read by the port's loaders; the ImageNet
+ones pass ``refuse_unported`` (gradient checkpointing is ported) and reach
+the JPEG-folder loader, which reads their local folder). Plus two-step CPU
 runs of the CLI on a usb_nlp ``srpseudolabel`` and a usb_audio
 ``srsoftmatch`` YAML at the shrunk sizes of the slices' CLI tests: token
 dicts and waveforms through PseudoLabel's separate forwards and SoftMatch's
@@ -38,7 +37,7 @@ def _configs(suite):
 
 
 @pytest.mark.parametrize("suite", sorted(SUITES))
-def test_every_semireward_yaml_resolves(suite):
+def test_every_semireward_yaml_resolves(suite, tmp_path):
     configs = _configs(suite)
     assert len(configs) == SUITES[suite]
     for path, cfg in configs:
@@ -50,9 +49,10 @@ def test_every_semireward_yaml_resolves(suite):
         if suite == "imagenet_stretch":
             assert cfg.gradient_checkpointing, path
             refuse_unported(cfg)
-            with pytest.raises(NotImplementedError,
-                               match="JPEG-folder loader.*section 1 item 5"):
-                TD.get_dataset(cfg)
+            assert cfg.dataset in TD.JPEG_DATASETS, path
+            cfg.data_dir = str(tmp_path)
+            with pytest.raises(FileNotFoundError, match="imagenet.train"):
+                TD.get_dataset(cfg, device="cpu")
         elif modality == "cv":
             assert cfg.dataset in TD.CV_DATASETS, path
         else:  # the layout loaders read any corpus of their modality
@@ -60,9 +60,13 @@ def test_every_semireward_yaml_resolves(suite):
 
 
 def test_555_of_570_resolve():
+    # all 570 since the JPEG-folder datasets: the 15 imagenet_stretch
+    # YAMLs resolve too, on the JPEG-folder loader
     assert sum(SUITES.values()) == len(glob.glob(
         os.path.join(ROOT, "*", "*", "*.yaml"))) == 570
     assert sum(SUITES.values()) - SUITES["imagenet_stretch"] == 555
+    assert all(c.dataset in TD.JPEG_DATASETS
+               for _, c in _configs("imagenet_stretch"))
 
 
 def test_cli_trains_a_usb_nlp_srpseudolabel_yaml_on_cpu(tmp_path,
@@ -351,9 +355,10 @@ def test_imb_yaml_counts_and_the_resnet50_refusal(tmp_path):
     """594 of the 702 classic_cv_imb YAMLs that name a wrapper are on
     wrn_28_2; the other 108, and the 18 plain ones, run resnet50 on
     imagenet127: each passes ``refuse_unported`` (ResNet-50 is ported) and
-    its Trainer raises in ``get_dataset`` naming ROADMAP section 1 item 5
-    alone (the JPEG-folder loader). The ABC one builds a CPU Trainer on
-    synthetic data, at the split's ratio 286, and trains two steps."""
+    its Trainer reaches the JPEG-folder loader (the ImageNet data is
+    ported too), which reads its local folder. The ABC one builds a CPU
+    Trainer on synthetic data, at the split's ratio 286, and trains two
+    steps."""
     from semireward_tpu_torch.core.trainer import Trainer
 
     configs = _imb_configs()
@@ -365,13 +370,10 @@ def test_imb_yaml_counts_and_the_resnet50_refusal(tmp_path):
     assert len(resnet) == 126
     assert all(c.dataset == "imagenet127" for _, c in resnet)
     for path, cfg in resnet:
-        cfg.save_dir = str(tmp_path)
+        cfg.save_dir = cfg.data_dir = str(tmp_path)
         refuse_unported(cfg)
-        with pytest.raises(NotImplementedError,
-                           match="JPEG-folder loader.*section 1 item 5,"
-                           ) as e:
+        with pytest.raises(FileNotFoundError, match="imagenet.train"):
             Trainer(cfg, device="cpu")
-        assert "item 6" not in str(e.value) and "resnet50" not in str(e.value)
     path = next(p for p, c in resnet if c.imb_algorithm == "abc")
     cfg = config_lib.from_yaml(path, {
         "save_dir": str(tmp_path), "dataset": "synthetic", "img_size": 32,

@@ -5,7 +5,9 @@ card. Imports no JAX, so it runs on a CUDA machine without it:
 
 Without a card every test here skips."""
 import dataclasses
+import glob
 import math
+import os
 
 import numpy as np
 import pytest
@@ -743,3 +745,117 @@ def test_flax_batchnorm_takes_the_nets_bf16_channels_last_input(cuda_device):
     _close(outs[1].numpy(), outs[0].numpy(), 1e-2)
     for a, b in zip(stats[1], stats[0]):
         _close(a.numpy(), b.numpy(), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the JPEG-folder datasets' decode on the card (nvJPEG, data/_nvjpeg.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jpeg_folder(tmp_path_factory):
+    """A seeded ImageNet-layout folder: 4 classes, 60 train images of
+    200-500 px and the three planted files."""
+    from semireward_tpu_torch.data.datasets import write_synthetic_jpeg_folder
+
+    root = str(tmp_path_factory.mktemp("jpeg"))
+    write_synthetic_jpeg_folder(root, 4, 60, 8, seed=5)
+    return root
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [256, 128])
+def test_nvjpeg_decode_matches_the_cpu_route(cuda_device, jpeg_folder, size):
+    """The card route (nvJPEG, then the antialiased resize on the card)
+    against PIL on the CPU: within the bound the JAX package holds its
+    native decoder to (mean |diff| < 4, 99th percentile <= 16); the batch
+    lies on the card; nvJPEG rejects exactly the CMYK and PNG files, which
+    are decoded on the host and counted."""
+    from semireward_tpu_torch.data.cv_extra import get_imagenet
+
+    card, _ = get_imagenet(jpeg_folder, size, cuda_device)
+    host, _ = get_imagenet(jpeg_folder, size, "cpu")
+    idx = np.arange(len(card))
+    got = card.gather(idx)
+    assert got.is_cuda and got.shape == (len(idx), size, size, 3)
+    diff = np.abs(got.cpu().numpy().astype(int) - host.gather(idx))
+    assert diff.mean() < 4.0 and np.percentile(diff, 99) <= 16, (
+        diff.mean(), np.percentile(diff, 99))
+    redone = sorted(os.path.basename(p) for p in card.redone_on_host)
+    assert redone == ["planted_cmyk.JPEG", "planted_png.JPEG"], redone
+    assert card.decoded_on_card == len(idx) - 2
+
+
+@pytest.mark.cuda
+def test_nvjpeg_gives_a_grayscale_jpeg_three_equal_channels(cuda_device,
+                                                            jpeg_folder):
+    from PIL import Image
+    from semireward_tpu_torch.data._nvjpeg import NvJpeg, take
+
+    path = glob.glob(os.path.join(jpeg_folder, "imagenet/train/*",
+                                  "planted_gray.JPEG"))[0]
+    dec = NvJpeg(cuda_device)
+    with open(path, "rb") as f:
+        img = take(dec.decode(f.read()))
+    torch.cuda.synchronize()
+    assert img.shape == (300, 400, 3)
+    assert torch.equal(img[..., 0], img[..., 1])
+    assert torch.equal(img[..., 1], img[..., 2])
+    want = np.asarray(Image.open(path).convert("RGB")).astype(int)
+    assert np.abs(img.cpu().numpy().astype(int) - want).max() <= 2
+    dec.close()
+
+
+@pytest.mark.cuda
+def test_trainer_reports_the_files_redone_on_the_host(cuda_device,
+                                                      jpeg_folder, tmp_path):
+    """A Trainer on the folder (the data on the card by default): its
+    batches come from nvJPEG and ``jpeg_counts`` names the rejected
+    files once they were gathered."""
+    from semireward_tpu_torch.config import get_config
+    from semireward_tpu_torch.core.trainer import Trainer
+
+    cfg = get_config(dict(
+        algorithm="fixmatch", net="wrn_28_2", dataset="imagenet",
+        data_dir=jpeg_folder, num_classes=4, num_labels=8, img_size=56,
+        batch_size=4, eval_batch_size=8, num_train_iter=2, num_eval_iter=2,
+        num_log_iter=1, save_dir=str(tmp_path), use_pretrain=False,
+        resume=False, net_kwargs={"depth": 10, "widen_factor": 1}))
+    tr = Trainer(cfg)
+    assert tr.aug_spec.src_size == 64
+    tr.train()
+    tr.bundle.train_ulb.gather(np.arange(len(tr.bundle.train_ulb)))
+    decoded, redone = tr.jpeg_counts()
+    assert decoded > 0
+    assert sorted(os.path.basename(p) for p in redone) == [
+        "planted_cmyk.JPEG", "planted_png.JPEG"]
+
+
+@pytest.mark.cuda
+def test_a_failed_nvjpeg_build_or_handle_raises(cuda_device, jpeg_folder,
+                                                monkeypatch):
+    """No quiet fallback: a decoder that does not link (a missing library)
+    and a handle that nvJPEG refuses both raise from ``gather``."""
+    from semireward_tpu_torch.data import _nvjpeg
+    from semireward_tpu_torch.data.cv_extra import get_imagenet
+    from semireward_tpu_torch.ops import _build
+
+    card, _ = get_imagenet(jpeg_folder, 64, cuda_device)
+    monkeypatch.setitem(_build.LINK_FLAGS, "jpeg_decode",
+                        ["-lnvjpeg_not_a_library"])
+    monkeypatch.delitem(_build._loaded, "jpeg_decode", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc failed for jpeg_decode"):
+        card.gather(np.arange(4))
+    monkeypatch.undo()
+
+    class Refusing:
+        _srt_typed = True
+
+        @staticmethod
+        def srt_jpeg_handle_create(handle):
+            return 1  # NVJPEG_STATUS_NOT_INITIALIZED
+
+    monkeypatch.setattr(_nvjpeg, "_lib", lambda: Refusing)
+    card, _ = get_imagenet(jpeg_folder, 64, cuda_device)
+    with pytest.raises(RuntimeError, match="nvjpegCreateSimple failed"):
+        card.gather(np.arange(4))
+    assert card.decoded_on_card == 0 and not card.redone_on_host

@@ -81,7 +81,8 @@ def _check_leaf(name, got, want, lr_bound, min_far=0):
 
 
 def run_three_sr_steps(name, check_algo, over=None, extra=None,
-                       before_step=None, trained_at=(2,), rewarder_far=0):
+                       before_step=None, trained_at=(2,), rewarder_far=0,
+                       views=None):
     """Three ``name`` steps of both packages from the same weights on the
     same injected views (three drawn a step, the ones the algorithm
     consumes passed in); after each,
@@ -92,7 +93,9 @@ def run_three_sr_steps(name, check_algo, over=None, extra=None,
     and into both configs' ``extra``; ``before_step(step, jstate, tbatch)``
     runs before each step; the rewarder must move at the steps
     ``trained_at`` and only there, each of its leaves with up to
-    ``rewarder_far`` elements at the Adam bound where 0.1% is fewer."""
+    ``rewarder_far`` elements at the Adam bound where 0.1% is fewer.
+    ``views(step)`` gives a step's float32 views in place of the drawn
+    ones."""
     cfg = dict(CFG, algorithm=name, **(over or {}))
     jcfg, tcfg = jax_config(**cfg), torch_config(**cfg)
     jcfg.extra.update(extra or {})
@@ -119,9 +122,12 @@ def run_three_sr_steps(name, check_algo, over=None, extra=None,
 
     rs = np.random.RandomState(0)
     names = [n for n, _ in tmodel.named_parameters()]
+    make_views = views
     for step in range(3):
         views = {k: rs.randn(B, S, S, 3).astype(np.float32)
                  for k in ("x_lb", "x_ulb_w", "x_ulb_s")}
+        if make_views is not None:
+            views = make_views(step)
         views = {k: v for k, v in views.items() if k in talg.BATCH_KEYS}
         y = rs.randint(0, NC, B)
         idx = rs.choice(DATA_INFO["ulb_dest_len"], B, replace=False)
@@ -210,18 +216,18 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
 
     # resume and use_pretrain are ported (tests/test_torch_checkpoint.py,
     # tests/test_torch_pretrained.py), imbalanced SSL too
-    # (tests/test_torch_imb.py), and ResNet-50 (tests/test_torch_resnet.py);
-    # the ImageNet-127 data of its runs on resnet50 is not
+    # (tests/test_torch_imb.py), ResNet-50 (tests/test_torch_resnet.py) and
+    # the ImageNet-127 data of its runs (tests/test_torch_jpeg.py): the
+    # YAML reaches the JPEG-folder loader, which reads the local folder
     from semireward_tpu_torch import config as config_lib
 
     cfg = config_lib.from_yaml(os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "config/classic_cv_imb/fixmatch_abc/"
         "fixmatch_abc_imagenet127_lb128101_286_ulbNone_286_0.yaml"),
-        {"save_dir": str(tmp_path)})
+        {"save_dir": str(tmp_path), "data_dir": str(tmp_path)})
     assert cfg.imb_algorithm == "abc" and cfg.net == "resnet50"
-    with pytest.raises(NotImplementedError,
-                       match="JPEG-folder loader.*section 1 item 5"):
+    with pytest.raises(FileNotFoundError, match="imagenet.train"):
         Trainer(cfg, device="cpu")
     # the bench's ref-equivalent arm is ported
     # (tests/test_torch_sr_variants.py)
