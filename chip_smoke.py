@@ -146,6 +146,25 @@
      the features out of K1 and K2); ``vit_srdash``: SemiReward over Dash
      through ``_make_sr_variant`` (Dash's warm-up through the wrapper),
      both with exact K1 / K2 counts;
+   - the text and audio forms of MixMatch, ReMixMatch and VAT, the fast
+     reverb and DNABERT-2 (``TEXT_AUDIO_PHASES``, ``TEXT_AUDIO_STEPS``
+     steps each, K2 + K3, the switches that make the JAX package train
+     each form): ``bert_mixmatch_manifold``, ``bert_remixmatch_manifold``
+     (``rot_loss_ratio`` 0) and ``bert_vat_embed`` on the usb_nlp aclImdb
+     YAMLs (BERT-base, max_length 512, 4 + 4 texts; VAT's r_adv of norm
+     ``vat_eps`` a sample on the embeddings); ``audio_mixmatch``,
+     ``audio_vat`` (its r_adv and the probe's gradient exactly 0, as in
+     JAX, with no probed forward) and ``audio_remixmatch``
+     (``rot_loss_ratio`` 0) in input space on the usb_audio ESC-50 YAMLs
+     (HuBERT-base, 8 + 8 clips); ``audio_fast_reverb`` (HuBERT FixMatch
+     with ``audio_exact_reverb`` False at ``p_cutoff`` 0: the strong views
+     took the fast reverb only, which on the card equals the CPU's and
+     stays within the bound of the JAX package's test against the exact
+     one, ``fast_reverb_checks``); ``dnabert_flexmatch`` (the usb_nlp
+     FlexMatch YAML with ``net dnabert_2_117m`` on the seeded CSV k-mer
+     corpus under ``build/synth_bio``, 512-token views, ``p_cutoff`` 0);
+     the passes a layer a step of each form read off its JAX loss
+     (``passes_per_step``);
    - ``jpeg_decode``: the seeded ImageNet-layout JPEG folders of the two
      phases below (``profile_step.synthetic_config`` writes them under
      ``build/``: images of 200-500 px at quality 90, and a grayscale JPEG,
@@ -211,11 +230,11 @@ Each phase prints its wall seconds on a line of its own as it ends, and
 the run its total before the last lines; a JPEG phase prints its decode
 (images decoded on the card, files redone on the host, ms and images/s a
 step from ``train/prefetch_time``) beside its steps/s. The depth of the
-earlier phases was cut so that the smoke with the JPEG phases stays in its
-time limit (the checks are the same; PERF.md section 4): the headline ViT
-1200 -> 900 steps and HuBERT 700 -> 600 (their first FlexMatch selection
-came by steps 600 and 500 in three runs: 300 and 100 steps past it, as
-BERT's 600 keeps 100), USB 40 -> 24, CoMatch 160 -> 80 (``queue_batch``
+earlier phases was cut so that the smoke with the JPEG and the text and
+audio phases stays in its time limit (the checks are the same; PERF.md
+section 4): the headline ViT 1200 -> 900 -> 700 steps and HuBERT 700 ->
+600 (their first FlexMatch selection came by steps 600 and 500 in three
+runs: 100 steps past it, as BERT's 600 keeps 100), USB 40 -> 24, CoMatch 160 -> 80 (``queue_batch``
 128 -> 64), SimMatch 80 -> 40, SimMatch's EMA teacher 40 -> 20, BERT
 CoMatch and HuBERT SimMatch 60 -> 30 (their epochs halved with them),
 SRFreeMatch / SRSoftMatch / SRPseudoLabel and the two WRN phases 100 ->
@@ -291,6 +310,33 @@ CO_SIM_PHASES = (
      30, 10, {}),
     ("audio_simmatch",
      "config/usb_audio/simmatch/simmatch_esc50_250_0.yaml", 30, 10, {}))
+# The text and audio forms of MixMatch, ReMixMatch and VAT, the fast reverb
+# and DNABERT-2: (phase, YAML, overrides, config extra), each
+# TEXT_AUDIO_STEPS steps on BERT-base (usb_nlp aclImdb: max_length 512, 4 + 4
+# texts, use_cat; K2 with the key bias and dropout at N 512, K3 at C 768),
+# HuBERT-base (usb_audio ESC-50: 4 s at 16 kHz, 8 + 8 clips; K3, K2 at N
+# 199) or DNABERT-2 (BERT-base over k-mer ids, 512-token views of the seeded
+# CSV corpus: K2 + K3). The switches are the ones that make the JAX package
+# train each form (mixup_manifold and vat_embed on token dicts; no rotation
+# head off images: its loaders give no rot_v); p_cutoff 0 where a mask
+# gates the loss, so that it trains in a short run
+TEXT_AUDIO_PHASES = (
+    ("bert_mixmatch_manifold", "usb_nlp/mixmatch/mixmatch_aclImdb_100_0",
+     {"mixup_manifold": True}, {}),
+    ("bert_remixmatch_manifold",
+     "usb_nlp/remixmatch/remixmatch_aclImdb_100_0",
+     {"mixup_manifold": True, "rot_loss_ratio": 0.0}, {}),
+    ("bert_vat_embed", "usb_nlp/vat/vat_aclImdb_100_0", {"vat_embed": True},
+     {}),
+    ("audio_mixmatch", "usb_audio/mixmatch/mixmatch_esc50_250_0", {}, {}),
+    ("audio_vat", "usb_audio/vat/vat_esc50_250_0", {}, {}),
+    ("audio_remixmatch", "usb_audio/remixmatch/remixmatch_esc50_250_0",
+     {"rot_loss_ratio": 0.0}, {}),
+    ("audio_fast_reverb", "usb_audio/fixmatch/fixmatch_esc50_250_0",
+     {"p_cutoff": 0.0}, {"audio_exact_reverb": False}),
+    ("dnabert_flexmatch", "usb_nlp/flexmatch/flexmatch_aclImdb_100_0",
+     {"net": "dnabert_2_117m", "dataset": "synth_dna", "p_cutoff": 0.0}, {}))
+TEXT_AUDIO_STEPS, TEXT_AUDIO_LOG_EVERY = 24, 12
 # SemiReward's reference-equivalent arm (the JAX bench's 8 re-forwards) and
 # per-sample mode, on the headline config
 REFORWARD, REFORWARD_STEPS, PER_SAMPLE_STEPS = 8, 32, 40
@@ -386,9 +432,9 @@ PEAK_BYTES = 3.35e12
 # changed by step 1500, 22 by step 600). BERT and HuBERT ran 700 and 1000
 # steps until the ViT-B/16, ResNet-50 and golden phases came. In three H100
 # runs since, the first selection came by step 600 (ViT-S) and 500 (BERT,
-# HuBERT), the same entries each time: 900, 600 and 600 steps keep 300,
-# 100 and 100 past it.
-TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 900, 10, 10, 100
+# HuBERT), the same entries each time: 700, 600 and 600 steps keep 100
+# past it (the headline ViT ran 900 until the text and audio phases came).
+TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 700, 10, 10, 100
 BERT_STEPS, BERT_LOG_EVERY = 600, 100
 AUDIO_STEPS, AUDIO_LOG_EVERY = 600, 100
 # the other variants' checks (state moved, the rewarder's two stages, the
@@ -857,15 +903,19 @@ PASSES = {
     # labeled; weak (no gradient; MeanTeacher's on the EMA weights);
     # second weak
     "pimodel": (3, 2), "meanteacher": (3, 2),
-    # labeled; unlabeled; the probe (its autograd.grad is a backward);
-    # adversarial
+    # labeled; unlabeled; the probe (its autograd.grad is a backward; on
+    # token dicts with vat_embed through the embeddings); adversarial. On
+    # the audio nets the probe's gradient is JAX's exact 0 (the frozen
+    # extractor), taken without the probe's forward: ``passes_per_step``
     "vat": (4, 4),
     # two weak (no gradient); three mixed chunks of num_lb rows (the JAX
-    # loss's labeled forward, whose outputs no loss reads, is not run)
+    # loss's labeled forward, whose outputs no loss reads, is not run;
+    # mixup_manifold: ``passes_per_step``)
     "mixmatch": (5, 3),
     # weak (no gradient); s0 (the u1 loss); four mixed chunks; the rotated
     # s0 view (the JAX loss's labeled and s1 forwards, whose outputs no
-    # loss reads, are not run)
+    # loss reads, are not run; rot_loss_ratio 0 and mixup_manifold:
+    # ``passes_per_step``)
     "remixmatch": (7, 6),
     # one forward over [lb, w, s, rot x 4]
     "crmatch": (1, 1),
@@ -875,35 +925,55 @@ PASSES = {
 }
 
 
-def passes_per_step(base: str, use_cat: bool):
+def passes_per_step(base: str, cfg):
     """(forwards, backwards) per train step of every layer (``PASSES``); the
     algorithms on ``ssl_forward`` forward the concatenated views once with
     ``use_cat`` (DeFixMatch's labeled part holds both labeled views), else
     three times with the weak pass under no_grad. Read off each JAX loss:
 
-    ============================== ======== =========
-    algorithm                      forwards backwards
-    ============================== ======== =========
-    ssl_forward, ``use_cat``       1        1
-    ssl_forward, separate passes   3        2
-    pseudolabel                    2        2
-    pimodel, meanteacher           3        2
-    vat                            4        4
-    mixmatch                       5        3
-    remixmatch                     7        6
-    crmatch, comatch               1        1
-    simmatch                       1 (+1)   1
-    SemiReward, ``sr_reforward`` n 1 (1+n)  1 (2)
-    ============================== ======== =========
+    ================================= ======== =========
+    algorithm                         forwards backwards
+    ================================= ======== =========
+    ssl_forward, ``use_cat``          1        1
+    ssl_forward, separate passes      3        2
+    pseudolabel                       2        2
+    pimodel, meanteacher              3        2
+    vat (images; text, ``vat_embed``) 4        4
+    vat (waveforms: no probe)         3        3
+    mixmatch                          5        3
+    mixmatch, ``mixup_manifold``      3        1
+    remixmatch                        7        6
+    remixmatch, ``rot_loss_ratio`` 0  6        5
+    remixmatch, ``mixup_manifold``    5 (4)    4 (3)
+    crmatch, comatch                  1        1
+    simmatch                          1 (+1)   1
+    SemiReward, ``sr_reforward`` n    1 (1+n)  1 (2)
+    ================================= ======== =========
+
+    MixMatch's manifold form: the two weak forwards without gradient and
+    the labeled one; its mixed chunks go through the head alone.
+    ReMixMatch's: the weak (no gradient), labeled, s0 and s1 forwards, the
+    rotated view's where the rotation head is on (in brackets: off);
+    its chunks through the head alone.
 
     In brackets: SimMatch with its EMA teacher (a dataset outside
     ``_EMA_BANK_DATASETS``; the teacher's forward has no backward) and
     SemiReward's stage-2 steps with ``extra['sr_reforward']`` n > 1 (n - 1
     re-forwards without gradient and the last one with it, whose backward
     runs beside the base forward's); ``launch_passes`` adds them up."""
+    from semireward_tpu_torch.data.modality import modality_of
+
+    if base == "vat" and modality_of(cfg.net) == "audio":
+        return 3, 3
+    if base == "mixmatch" and cfg.mixup_manifold:
+        return 3, 1
+    if base == "remixmatch":
+        rot = int(cfg.rot_loss_ratio > 0)
+        return (4 + rot, 3 + rot) if cfg.mixup_manifold else (6 + rot,
+                                                               5 + rot)
     if base in PASSES:
         return PASSES[base]
-    return (1, 1) if use_cat else (3, 2)
+    return (1, 1) if cfg.use_cat else (3, 2)
 
 
 def launch_passes(cfg, alg, base: str, steps: int):
@@ -911,7 +981,7 @@ def launch_passes(cfg, alg, base: str, steps: int):
     step 0: ``passes_per_step`` a step, plus SimMatch's EMA-teacher forward
     a step, plus ``sr_reforward`` n > 1's n forwards and one backward a
     stage-2 step (``ctx.step > start_timing``)."""
-    n_fwd, n_bwd = passes_per_step(base, cfg.use_cat)
+    n_fwd, n_bwd = passes_per_step(base, cfg)
     fwd, bwd = n_fwd * steps, n_bwd * steps
     if getattr(alg, "use_ema_teacher", False):
         fwd += steps
@@ -1130,6 +1200,7 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     trained run after the counts are read, and returns what it read.
     ``bundle``: the data, where phases share it (else the config's)."""
     from semireward_tpu_torch.core.trainer import Trainer
+    from semireward_tpu_torch.data.modality import modality_of
     from semireward_tpu_torch.imb.base import ImbAlgorithm
     from semireward_tpu_torch.models.batchnorm import BatchNorm
     from semireward_tpu_torch.profile_step import synthetic_config
@@ -1145,7 +1216,7 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     sr = getattr(trainer.alg, "HAS_SR", False)
     imb = trainer.alg.NAME if isinstance(trainer.alg, ImbAlgorithm) else None
     base = (trainer.alg.base if sr or imb else trainer.alg).NAME
-    n_fwd, n_bwd = passes_per_step(base, cfg.use_cat)
+    n_fwd, n_bwd = passes_per_step(base, cfg)
     if getattr(trainer.alg.base if imb else trainer.alg, "keep_fwd", False):
         n_fwd, n_bwd = n_fwd + 1, n_bwd + 1  # ReMixMatch's labeled forward
     n_ref = int(cfg.extra.get("sr_reforward", 1)) if sr else 1
@@ -1384,6 +1455,9 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         assert spread > 0.0, "two samples of one label took one reward"
         extra["reward_spread_one_label"] = spread
     if base == "vat":
+        # on the audio nets JAX's gradient is exactly 0 and so is r_adv;
+        # elsewhere every sample's r_adv has norm vat_eps
+        eps = 0.0 if modality_of(cfg.net) == "audio" else cfg.vat_eps
         r_adv = [r.flatten(1).norm(dim=1) for r in spied["r_adv"]]
         zero = [bool((g == 0).all()) for g in spied["grad_d"]]
         extra.update(r_adv_norm_min_max=[(float(r.min()), float(r.max()))
@@ -1391,9 +1465,10 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                      grad_d_all_zero=zero,
                      grad_d_abs_max=[float(g.abs().max())
                                      for g in spied["grad_d"]])
-        assert spied["grad_d"] and not any(zero), zero
-        assert all(abs(float(r.min()) - cfg.vat_eps) < 1e-3 * cfg.vat_eps
-                   and abs(float(r.max()) - cfg.vat_eps) < 1e-3 * cfg.vat_eps
+        assert spied["grad_d"] and all(zero) == (eps == 0.0) and (
+            any(zero) == (eps == 0.0)), zero
+        assert all(abs(float(r.min()) - eps) <= 1e-3 * eps
+                   and abs(float(r.max()) - eps) <= 1e-3 * eps
                    for r in r_adv), r_adv
     if imb:
         extra.update(_imb_checks(trainer, cfg, imb, steps, history,
@@ -2021,6 +2096,86 @@ def new_phases(F, A):
     return out
 
 
+def reverb_spy():
+    """Count the calls of the port's two reverbs (``data/audio.py``) until
+    the returned undo; returns the counts and the undo."""
+    from semireward_tpu_torch.data import audio
+
+    calls, orig = {}, {}
+    for name in ("_sox_reverb_wet", "_sox_reverb_wet_exact"):
+        calls[name], orig[name] = 0, getattr(audio, name)
+
+        def spy(x, name=name):
+            calls[name] += 1
+            return orig[name](x)
+
+        setattr(audio, name, spy)
+    return calls, lambda: [setattr(audio, n, f) for n, f in orig.items()]
+
+
+def fast_reverb_checks(calls, undo):
+    """``audio_fast_reverb``'s own checks, after its run: the strong views
+    took the fast reverb and never the exact one; on the card the fast
+    reverb equals the CPU's (1e-5 of the largest magnitude) and stays
+    within the bound of the JAX package's ``tests/test_modalities.py::
+    TestSoxEffectKernels::test_fast_reverb_bounded_vs_exact`` against the
+    exact one: the same first echo (sample 405), the octave-band energies
+    of the impulse responses within its factors, the broadband energy
+    within 4x."""
+    from semireward_tpu_torch.data import audio
+
+    def after(trainer):
+        undo()
+        assert calls["_sox_reverb_wet"] > 0, calls
+        assert calls["_sox_reverb_wet_exact"] == 0, calls
+        x = torch.randn(8, 64000, generator=torch.Generator().manual_seed(0))
+        err = check_close("fast reverb, card against CPU",
+                          audio._sox_reverb_wet(x.cuda()).cpu(),
+                          audio._sox_reverb_wet(x), 1e-5)
+        imp = torch.zeros(1, 16000, device="cuda")
+        imp[0, 0] = 1.0
+        h_fast = audio._sox_reverb_wet(imp)[0].cpu().numpy()
+        h_exact = audio._sox_reverb_wet_exact(imp)[0].cpu().numpy()
+        first = [int(np.nonzero(np.abs(h) > 1e-6)[0][0])
+                 for h in (h_fast, h_exact)]
+        assert first == [405, 405], first
+        Hf, He = np.abs(np.fft.rfft(h_fast)), np.abs(np.fft.rfft(h_exact))
+        freqs = np.fft.rfftfreq(16000, 1 / 16000)
+        ratios = []
+        for (lo, hi), top in zip([(62, 250), (250, 1000), (1000, 4000),
+                                  (4000, 8000)], (2.0, 3.0, 5.0, 8.0)):
+            sel = (freqs >= lo) & (freqs < hi)
+            ratios.append(float((Hf[sel] ** 2).sum() / (He[sel] ** 2).sum()))
+            assert 0.8 < ratios[-1] < top, (lo, hi, ratios)
+        tot = float((h_fast ** 2).sum() / (h_exact ** 2).sum())
+        assert 0.5 < tot < 4.0, tot
+        print(f"  fast reverb: {calls} calls; octave-band energy ratios to "
+              f"the exact one {ratios}, broadband {tot:.3f}, first echo "
+              f"{first}")
+        return {"reverb_calls": dict(calls), "band_energy_ratios": ratios,
+                "broadband_ratio": tot, "card_vs_cpu_max_abs_err": err}
+
+    return after
+
+
+def text_audio_phases(F, A):
+    """The text and audio forms of MixMatch, ReMixMatch and VAT, the fast
+    reverb and DNABERT-2 (``TEXT_AUDIO_PHASES``), through K2 and K3;
+    returns each phase's launches."""
+    k23 = ("flash_attention_fwd", "flash_attention_bwd",
+           "fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
+    out = []
+    for name, rel, over, extra in TEXT_AUDIO_PHASES:
+        after = None
+        if extra.get("audio_exact_reverb") is False:
+            after = fast_reverb_checks(*reverb_spy())
+        out.append(train_phase(
+            name, os.path.join(HERE, f"config/{rel}.yaml"), over,
+            TEXT_AUDIO_STEPS, TEXT_AUDIO_LOG_EVERY, F, A, k23,
+            cfg_extra=extra, after=after))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2153,6 +2308,9 @@ def main() -> int:
     phases.append(train_phase("vit_srdash", USB_YAML["dash"], {
         "algorithm": "srdash", "num_wu_iter": 20}, USB_STEPS,
         USB_LOG_EVERY, F, A, k1 + k2))
+    # the text and audio forms of MixMatch, ReMixMatch and VAT, the fast
+    # reverb and DNABERT-2 on BERT-base / HuBERT-base geometry (K2 + K3)
+    phases += text_audio_phases(F, A)
     # the JPEG folders' decode on the card against the CPU route, then the
     # ViT-B/16 and ResNet-50 phases on those folders
     timed("jpeg_decode", jpeg_phase, folders)

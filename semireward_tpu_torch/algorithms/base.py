@@ -14,7 +14,6 @@ import torch
 from semireward_tpu_torch.algorithms import common as C
 from semireward_tpu_torch.core.losses import (ce_loss, consistency_loss,
                                               gen_ulb_targets)
-from semireward_tpu_torch.data.modality import modality_of
 
 
 class StepCtx(NamedTuple):
@@ -40,18 +39,6 @@ class LossOut(NamedTuple):
     metrics: Dict[str, torch.Tensor]
 
 
-def not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
-
-
-def text_audio_item(net: str) -> str:
-    """The ROADMAP item that takes an algorithm's text and audio forms on
-    ``net``: audio's on the audio nets, else NLP's."""
-    if modality_of(net) == "audio":
-        return "the rest of audio, section 1 item 12"
-    return "the rest of NLP and bio, section 1 item 11"
-
-
 class Algorithm:
     """Base. Subclasses override ``init_state`` and ``loss``."""
 
@@ -72,9 +59,11 @@ class Algorithm:
 
     @classmethod
     def check_ported(cls, cfg) -> None:
-        """Raise ``NotImplementedError`` naming its ROADMAP item where
-        ``cfg`` asks this algorithm for a form that the port does not have
-        yet (the trainer asks before it loads the data)."""
+        """Raise where ``cfg`` asks this algorithm for a form that the port
+        does not run, before any data is loaded (the trainer asks first):
+        one not ported yet (``NotImplementedError`` naming its ROADMAP
+        item), or one on which the JAX package's loss fails at its first
+        step (the same exception type, naming the switch or key)."""
 
     def ce_loss(self, logits, targets, reduction="none"):
         return ce_loss(logits, targets, reduction)

@@ -1,13 +1,27 @@
 """VAT, Virtual Adversarial Training (port of
-``semireward_tpu/algorithms/vat.py``), image inputs: one power iteration
-finds the direction in input space that moves the prediction most, as
-``torch.autograd.grad`` of the KL divergence through a tiny probe ``d``;
-the adversarial forward at ``vat_eps`` along it gives the consistency KL,
-plus an entropy penalty on the unlabeled predictions. Every unlabeled
-forward runs with BatchNorm frozen. The probed and the adversarial forwards
-draw the same dropout and drop-path masks (the JAX package gives both one
-key): the generator's state is replayed between them. The NLP form that
-perturbs the word embeddings (``vat_embed``) is not ported yet."""
+``semireward_tpu/algorithms/vat.py``): one power iteration finds the
+direction that moves the prediction most, as ``torch.autograd.grad`` of
+the KL divergence through a tiny probe ``d``; the adversarial forward at
+``vat_eps`` along it gives the consistency KL, plus an entropy penalty on
+the unlabeled predictions. Every unlabeled forward runs with BatchNorm
+frozen. The probed and the adversarial forwards draw the same dropout and
+drop-path masks (the JAX package gives both one key): the generator's state
+is replayed between them.
+
+- Images and waveforms: the probe perturbs the input. The audio nets'
+  feature extractor is frozen (the JAX model's ``stop_gradient``), so the
+  gradient with respect to a waveform is exactly 0 and so is ``r_adv``
+  (``6 * 0 / (0 + 1e-16)``): the port takes that zero without the probe's
+  forward and backward, which the JAX program never runs either (its
+  gradient is a symbolic zero), and the adversarial forward is the clean
+  clip under the probe's dropout stream.
+- Token dicts with ``vat_embed``: the probe perturbs the embedding
+  LayerNorm's output of the unlabeled forward (``return_embed``), fed back
+  as ``inputs_embeds``, which replaces the word embeddings only (the
+  position and type embeddings and the LayerNorm apply again: the
+  reference's quirk, kept by the JAX package). Without ``vat_embed`` the
+  JAX loss reads a dict's ``shape`` and fails; the port refuses such a
+  config when it is built."""
 from __future__ import annotations
 
 import torch
@@ -15,9 +29,7 @@ import torch.nn.functional as F
 
 from semireward_tpu_torch import rng
 from semireward_tpu_torch.algorithms import common as C
-from semireward_tpu_torch.algorithms.base import (Algorithm, LossOut,
-                                                  StepCtx, not_ported,
-                                                  text_audio_item)
+from semireward_tpu_torch.algorithms.base import Algorithm, LossOut, StepCtx
 from semireward_tpu_torch.data.modality import modality_of
 from semireward_tpu_torch.models.batchnorm import frozen_bn
 from semireward_tpu_torch.registry import ALGORITHMS
@@ -51,25 +63,40 @@ def draw_probe(x, generator=None):
     return XI * l2_normalize(d)
 
 
-def power_iteration(model, x, ul_y, d, generator=None):
+def perturbed_forward(model, x, tokens=None, generator=None):
+    """The net at ``x``: the input itself, or with ``tokens`` the
+    embeddings fed to the token dict as ``inputs_embeds``."""
+    inp = x if tokens is None else {**tokens, "inputs_embeds": x}
+    return model(inp, train=True, generator=generator)
+
+
+def power_iteration(model, x, ul_y, d, generator=None, tokens=None):
     """Gradient of ``KL(ul_y || model(x + d))`` with respect to ``d``
     (detached; no parameter gradient is kept)."""
     d = d.detach().requires_grad_()
-    out = model(x + d, train=True, generator=generator)
+    out = perturbed_forward(model, x + d, tokens, generator)
     return torch.autograd.grad(kl_div_with_logit(ul_y, out["logits"]),
                                d)[0]
 
 
-def adversarial_perturbation(model, x, ul_y, eps, generator=None):
+def adversarial_perturbation(model, x, ul_y, eps, generator=None,
+                             tokens=None):
     """``(r_adv, grad_d)``: one power iteration from a drawn probe, and its
     gradient scaled to norm ``eps`` a sample. The generator's state is
     replayed after the probed forward, so the adversarial forward that
-    follows draws the same masks (the JAX package gives both one key)."""
+    follows draws the same masks (the JAX package gives both one key).
+    On a net whose input gradient is exactly 0 (``input_grad_is_zero``:
+    the audio nets' frozen extractor) ``grad_d`` is that zero, with no
+    probed forward, and the adversarial forward draws what it would have
+    drawn."""
     d = draw_probe(x, generator)
-    replay = generator.get_state() if generator is not None else None
-    grad_d = power_iteration(model, x, ul_y, d, generator)
-    if replay is not None:
-        generator.set_state(replay)
+    if tokens is None and getattr(model, "input_grad_is_zero", False):
+        grad_d = torch.zeros_like(d)
+    else:
+        replay = generator.get_state() if generator is not None else None
+        grad_d = power_iteration(model, x, ul_y, d, generator, tokens)
+        if replay is not None:
+            generator.set_state(replay)
     return eps * l2_normalize(grad_d), grad_d
 
 
@@ -82,9 +109,15 @@ class VAT(Algorithm):
 
     @classmethod
     def check_ported(cls, cfg) -> None:
-        if cfg.vat_embed or modality_of(cfg.net) != "cv":
-            not_ported(f"VAT's embedding perturbation (vat_embed) on "
-                       f"{cfg.net}", text_audio_item(cfg.net))
+        """On token dicts only the embedding form runs (the JAX loss's
+        input-space probe raises this ``AttributeError`` at its first
+        step); ``vat_embed`` on images or waveforms is ignored, as in the
+        JAX package."""
+        if modality_of(cfg.net) == "nlp" and not cfg.vat_embed:
+            raise AttributeError(
+                f"vat on {cfg.net} probes a token dict: set vat_embed to "
+                f"perturb the word embeddings (the JAX package's input-space "
+                f"probe reads the shape of a dict and fails)")
 
     def loss(self, ctx: StepCtx) -> LossOut:
         cfg = self.cfg
@@ -93,12 +126,16 @@ class VAT(Algorithm):
         sup_loss = self.ce_loss(outs_lb["logits"], b["y_lb"],
                                 reduction="mean")
         x_ulb = b["x_ulb_w"]
+        tokens = x_ulb if cfg.vat_embed and isinstance(x_ulb, dict) else None
         with frozen_bn(model):
-            outs_ulb = model(x_ulb, train=True, generator=gen)
+            outs_ulb = model(x_ulb, train=True, generator=gen,
+                             **({} if tokens is None else
+                                {"return_embed": True}))
             ul_y = outs_ulb["logits"].detach()
-            r_adv, _ = adversarial_perturbation(model, x_ulb, ul_y,
-                                                cfg.vat_eps, gen)
-            out_adv = model(x_ulb + r_adv, train=True, generator=gen)
+            x = x_ulb if tokens is None else outs_ulb["embed"].detach()
+            r_adv, _ = adversarial_perturbation(model, x, ul_y, cfg.vat_eps,
+                                                gen, tokens)
+            out_adv = perturbed_forward(model, x + r_adv, tokens, gen)
         unsup_loss = kl_div_with_logit(ul_y, out_adv["logits"])
         loss_entmin = entropy_loss(outs_ulb["logits"])
         fwd = C.ForwardOut(outs_lb["logits"], outs_ulb["logits"],

@@ -12,9 +12,11 @@ it to the device, builds the weak/strong views there; a full-size JPEG set
 decodes its batch on the card (nvJPEG) at ``img_size / crop_ratio``, the
 views crop it (``AugmentSpec.src_size``) and the eval center-crops it.
 NLP: the host tokenizes the views into one static length bucket and copies
-the token dicts over. Audio: the host crops / pads the waveforms into the
-fixed bucket, the strong views' crops go over raw and get their sox effects
-on the device. Then the train step runs. Metrics stay on the device until a log
+the token dicts over (a ``dnabert*`` net reads CSV k-mer data,
+``data/bio.py``, each view padded to ``max_length``). Audio: the host crops /
+pads the waveforms into the fixed bucket, the strong views' crops go over
+raw and get their sox effects on the device (the exact reverb, or with
+``extra['audio_exact_reverb']`` False the fast one). Then the train step runs. Metrics stay on the device until a log
 boundary. With ``extra['prefetch_depth']`` > 0 a producer thread
 assembles the host batches ahead of the step (``PrefetchLoader``); the
 device copies and augmentation stay on the main thread.
@@ -35,8 +37,8 @@ wrapper over ``algorithm`` (``imb/``; ``alg_factory`` builds any other),
 and the trainer runs its hooks: ``on_epoch_end(trainer, state)`` at every
 epoch boundary (``step % (num_train_iter // epoch) == 0``), the eval head
 ``eval_out_key(step)`` / ``EVAL_OUT_KEY``, and the step's
-``post_param_update``. What is not ported yet raises naming its ROADMAP
-item (``refuse_unported``).
+``post_param_update``. A form of an algorithm that the port does not run
+raises before any data is loaded (``refuse_unported``).
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ from torch.func import functional_call
 from semireward_tpu_torch import resolve_device
 from semireward_tpu_torch import algorithms as _algorithms  # noqa: F401
 from semireward_tpu_torch import models as _models  # noqa: F401
-from semireward_tpu_torch.algorithms.base import SupervisedWarmup, not_ported
+from semireward_tpu_torch.algorithms.base import SupervisedWarmup
 from semireward_tpu_torch.config import Config
 from semireward_tpu_torch.core import checkpoint as ckpt
 from semireward_tpu_torch.core import metrics as M
@@ -72,9 +74,13 @@ from semireward_tpu_torch.registry import ALGORITHMS, IMB_ALGORITHMS, NETS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+# the BERT-geometry text nets: BERT, DNABERT-2 and the generic HF text
+# classifier (the flax builders of the last two take no kernel switch)
+BERT_NETS = ("bert_", "dnabert_", "hf_text_")
 # nets whose MLP runs the fused kernels unless the config says otherwise, as
-# in the JAX package (K1 at ViT-S widths, K3 at C = 768)
-FUSED_MLP_NETS = ("vit_", "bert_", "hubert_", "wave2vecv2_")
+# in the JAX package (K1 at ViT-S widths, K3 at C = 768), and the BERT
+# geometry's other text nets
+FUSED_MLP_NETS = ("vit_", "hubert_", "wave2vecv2_") + BERT_NETS
 
 
 # No producer thread unless the config asks for one: set by the H100 A/B
@@ -87,19 +93,14 @@ PREFETCH_DEPTH_DEFAULT = 0
 
 
 def refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for what this
-    config asks of the port that it does not do yet, before any data is
-    loaded: a form of the algorithm that it does not have
-    (``Algorithm.check_ported``); the fast reverb; bio data."""
+    """Raise, before any data is loaded, for a form of the algorithm that
+    the port does not run (``Algorithm.check_ported``: not ported yet, or
+    one the JAX package fails on) and for an imbalanced-SSL wrapper that is
+    not registered."""
     ALGORITHMS.get(cfg.algorithm).check_ported(cfg)
     if cfg.imb_algorithm:
         from semireward_tpu_torch import imb as _imb  # noqa: F401
         IMB_ALGORITHMS.get(cfg.imb_algorithm)
-    if (modality_of(cfg.net) == "audio"
-            and not cfg.extra.get("audio_exact_reverb", True)):
-        not_ported("the fast reverb (audio_exact_reverb False)", "audio")
-    if cfg.net.startswith("dnabert"):
-        not_ported("bio/DNA data", "NLP and bio")
 
 
 def flash_auto_default(cfg: Config, device: torch.device) -> bool:
@@ -109,12 +110,13 @@ def flash_auto_default(cfg: Config, device: torch.device) -> bool:
     time per step, 0.98-1.12x the steps/s of the unfused attention), for
     BERT at ``max_length`` >= 384 (BERT-base at 512: 1.10-1.72x) and for
     HuBERT / wav2vec2 (HuBERT-base at N = 199: 1.08x, every flash window
-    faster than every unfused one). Shorter BERT runs are not measured yet
-    and stay off, as in the JAX package. The CPU runs the plain version
-    either way."""
+    faster than every unfused one); DNABERT-2 and the HF text classifier,
+    BERT's geometry, as BERT. Shorter BERT runs are not measured yet and
+    stay off, as in the JAX package. The CPU runs the plain version either
+    way."""
     return device.type == "cuda" and (
         cfg.net.startswith(("vit_", "hubert_", "wave2vecv2_"))
-        or (cfg.net.startswith("bert_") and cfg.max_length >= 384))
+        or (cfg.net.startswith(BERT_NETS) and cfg.max_length >= 384))
 
 
 class Trainer:
@@ -136,7 +138,15 @@ class Trainer:
         refuse_unported(cfg)
         self.modality = modality_of(cfg.net)
 
-        if self.modality == "nlp":
+        if self.modality == "nlp" and cfg.net.startswith("dnabert"):
+            # CSV k-mer data on the NLP pipeline with its own collator
+            from semireward_tpu_torch.data.bio import (BioCollator,
+                                                       get_bio_dataset)
+            self.bundle = bundle if bundle is not None else GenericBundle(
+                get_bio_dataset(cfg, cfg.algorithm), cfg.num_classes)
+            self.collator = BioCollator(k=int(cfg.extra.get("kmer", 6)),
+                                        max_length=cfg.max_length)
+        elif self.modality == "nlp":
             from semireward_tpu_torch.data.nlp import (NLPCollator,
                                                        auto_buckets,
                                                        get_nlp_dataset,
@@ -325,7 +335,9 @@ class Trainer:
                     x = self._to_device(v)
                     batch[k[:-5]] = apply_strong_wave(
                         x, draw_strong_wave(self.generator, x.shape[0],
-                                            self.device))
+                                            self.device),
+                        exact_reverb=bool(self.cfg.extra.get(
+                            "audio_exact_reverb", True)))
                 elif k.startswith("x_"):
                     batch[k] = self._to_device(v)
         else:

@@ -17,12 +17,14 @@
 
 The resampler is the JAX package's 32-tap Nuttall-windowed sinc, evaluated
 per output sample (the JAX file's banded Hankel-window layout is a TPU
-gather workaround that computes the same filter). The reverb is sox
-reverb.c's exact filter, one ``torch.fft`` convolution against an impulse
-response computed once per buffer length on the host with scipy (the JAX
-trainer's default, ``audio_exact_reverb True``). The JAX package's fast
-reverb (an associative-scan approximation) is not ported: the trainer
-refuses ``audio_exact_reverb False``.
+gather workaround that computes the same filter). Both reverbs are one
+``torch.fft`` convolution against an impulse response computed once per
+buffer length on the host with scipy: sox reverb.c's exact filter (the JAX
+trainer's default, ``audio_exact_reverb True``) or the JAX package's fast
+filter (``audio_exact_reverb False``: the same combs without their
+HF-damping pole, which the JAX file solves with an associative scan; the
+filter is linear and time-invariant, so its impulse response gives the
+same output).
 """
 from __future__ import annotations
 
@@ -236,13 +238,15 @@ def _sox_reverb_constants(reverberance=50.0, hf_damping=50.0,
 
 
 @functools.lru_cache(maxsize=8)
-def _reverb_ir_rfft(T: int, sr: int = _SR):
+def _reverb_ir_rfft(T: int, sr: int = _SR, exact: bool = True):
     """(rfft of the length-T wet impulse response, fft length L), computed
-    once per buffer length on the host with scipy.lfilter from the exact
-    sox difference equations (comb: H = z^-d (1 - damp z^-1) / (1 - damp
-    z^-1 - f (1 - damp) z^-d); allpass: H = (1.5 z^-d - 1) / (1 - 0.5
-    z^-d)). L >= 2T - 1 makes the circular convolution linear for the first
-    T outputs."""
+    once per buffer length on the host with scipy.lfilter in float64.
+    ``exact``: sox's difference equations (comb: H = z^-d (1 - damp z^-1) /
+    (1 - damp z^-1 - f (1 - damp) z^-d)); else the JAX package's fast
+    filter (``_sox_reverb_wet``: comb y[t] = x[t-d] + f y[t-d], H = z^-d /
+    (1 - f z^-d)). Allpass either way: H = (1.5 z^-d - 1) / (1 - 0.5 z^-d).
+    L >= 2T - 1 makes the circular convolution linear for the first T
+    outputs."""
     from scipy.signal import lfilter
 
     f, damp, scale, gain = _sox_reverb_constants()
@@ -253,11 +257,14 @@ def _reverb_ir_rfft(T: int, sr: int = _SR):
         d = max(1, int(d44 * scale * sr / 44100.0 + 0.5))
         num = np.zeros(d + 2)
         num[d] = 1.0
-        num[d + 1] = -damp
         den = np.zeros(d + 1)
         den[0] = 1.0
-        den[1] = -damp
-        den[d] += -f * (1.0 - damp)
+        if exact:
+            num[d + 1] = -damp
+            den[1] = -damp
+            den[d] += -f * (1.0 - damp)
+        else:
+            den[d] = -f
         h += lfilter(num, den, imp)
     for d44 in _ALLPASS_DELAYS_44K:
         d = max(1, int(d44 * scale * sr / 44100.0 + 0.5))
@@ -276,17 +283,31 @@ def _reverb_ir_rfft(T: int, sr: int = _SR):
 _ir_on_device: Dict = {}
 
 
-def _sox_reverb_wet_exact(x):
-    """``reverb -w`` (wet only), sox reverb.c's exact filter: one rfft /
-    irfft pair per row against the precomputed impulse-response spectrum."""
+def _reverb_wet(x, exact: bool):
+    """One rfft / irfft pair per row of ``x`` against the precomputed
+    impulse-response spectrum (``_reverb_ir_rfft``)."""
     T = x.shape[-1]
-    key = (T, str(x.device))
+    key = (T, str(x.device), exact)
     if key not in _ir_on_device:
-        Hf, L = _reverb_ir_rfft(T)
+        Hf, L = _reverb_ir_rfft(T, exact=exact)
         _ir_on_device[key] = (torch.from_numpy(Hf).to(x.device), L)
     Hf, L = _ir_on_device[key]
     y = torch.fft.irfft(torch.fft.rfft(x.float(), n=L) * Hf, n=L)
     return y[..., :T].to(x.dtype)
+
+
+def _sox_reverb_wet_exact(x):
+    """``reverb -w`` (wet only), sox reverb.c's exact filter."""
+    return _reverb_wet(x, exact=True)
+
+
+def _sox_reverb_wet(x):
+    """``reverb -w`` (wet only), the JAX package's fast filter: sox's
+    feedback 0.8818 and allpasses, the combs without their HF-damping pole
+    (high frequencies ring longer than sox's; JAX's
+    ``tests/test_modalities.py::TestSoxEffectKernels::
+    test_fast_reverb_bounded_vs_exact`` bounds the difference)."""
+    return _reverb_wet(x, exact=False)
 
 
 def draw_strong_wave(generator: torch.Generator, B: int, device=None
@@ -315,17 +336,18 @@ def _apply_one(x, c, sp, pc, att, reverb):
     return torch.where(c == 3, reverb(x), out)
 
 
-def apply_strong_wave(batch: torch.Tensor, draws: Dict[str, torch.Tensor]
-                      ) -> torch.Tensor:
+def apply_strong_wave(batch: torch.Tensor, draws: Dict[str, torch.Tensor],
+                      exact_reverb: bool = True) -> torch.Tensor:
     """Apply the two drawn effects of each clip, in draw order, to
     ``batch [B, T]`` float32 on its device (JAX ``strong_augment_wave``):
     gain -n normalizes the peak to the drawn dBFS; pitch is one resample at
     ``2^(cents/1200)``; speed one resample at the drawn speed (the trailing
     ``rate`` of the sox chain leaves the 1/speed duration change in the
-    fixed buffer); reverb -w is the exact sox filter."""
+    fixed buffer); reverb -w is the exact sox filter, or with
+    ``exact_reverb`` False the JAX package's fast one."""
+    reverb = _sox_reverb_wet_exact if exact_reverb else _sox_reverb_wet
     x = batch.float()
     for slot in range(2):
         x = _apply_one(x, draws["choice"][:, slot], draws["speed"],
-                       draws["pitch_cents"], draws["atten_db"],
-                       _sox_reverb_wet_exact)
+                       draws["pitch_cents"], draws["atten_db"], reverb)
     return x

@@ -52,10 +52,13 @@ def modality_of(net_name: str) -> str:
 
 class NLPSSLLoader:
     """Yields tokenized view batches (keys shaped like the reference's nlp
-    collator output), every view of a step padded to one static length
-    bucket (data/nlp.py:NLPCollator.collate_views). The same seeds and
-    RandomState streams as the JAX loader on one process, so both give the
-    same batches. Several processes come with the mesh (ROADMAP: K4)."""
+    collator output): every view of a step padded to one static length
+    bucket where the collator has ``collate_views``
+    (data/nlp.py:NLPCollator), else each view padded by the collator's own
+    ``views`` (data/bio.py:BioCollator, always to ``max_length``). Views
+    are drawn key by key in the order of ``batch_keys``, from the same seeds
+    and RandomState streams as the JAX loader on one process, so both give
+    the same batches. Several processes come with the mesh (ROADMAP: K4)."""
 
     def __init__(self, splits, collator, batch_size, ulb_batch_size,
                  batch_keys, seed=0):
@@ -75,11 +78,22 @@ class NLPSSLLoader:
     def __next__(self) -> Dict:
         li = next(self._lb)
         ui = next(self._ulb)
-        return {"y_lb": self.lb.targets[li],
-                "idx_lb": li.astype(np.int32),
-                "idx_ulb": ui.astype(np.int32),
-                **self.col.collate_views(self.lb, self.ulb, li, ui, self.keys,
-                                         self._rs)}
+        out = {"y_lb": self.lb.targets[li],
+               "idx_lb": li.astype(np.int32),
+               "idx_ulb": ui.astype(np.int32)}
+        if hasattr(self.col, "collate_views"):
+            out.update(self.col.collate_views(self.lb, self.ulb, li, ui,
+                                              self.keys, self._rs))
+            return out
+        for k in self.keys:
+            if k in ("x_lb", "x_lb_s"):
+                out[k] = self.col.views(self.lb, li, self._rs,
+                                        strong=k == "x_lb_s")
+            elif k in ("x_ulb_w", "x_ulb_w_2"):
+                out[k] = self.col.views(self.ulb, ui, self._rs, strong=False)
+            elif k.startswith("x_ulb_s"):
+                out[k] = self.col.views(self.ulb, ui, self._rs, strong=True)
+        return out
 
 
 class AudioSSLLoader:

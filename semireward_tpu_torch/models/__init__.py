@@ -1,9 +1,10 @@
-"""Model zoo of the port: the ViT, BERT, HuBERT, wav2vec2, WideResNet and
-ResNet-50 builders, registered under the JAX package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
+"""Model zoo of the port: the ViT, BERT (with DNABERT-2 and the generic
+HF text classifier), HuBERT, wav2vec2, WideResNet and ResNet-50 builders, registered under the JAX package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
 ``{'logits', 'feat'}`` like the flax models."""
 from __future__ import annotations
 
 from semireward_tpu_torch.models import bert as _bert
+from semireward_tpu_torch.models import huggingface as _hf
 from semireward_tpu_torch.models import hubert as _hubert
 from semireward_tpu_torch.models import resnet as _resnet
 from semireward_tpu_torch.models import wav2vec2 as _wav2vec2
@@ -17,6 +18,8 @@ for _name in ("vit_tiny_patch2_32", "vit_small_patch2_32",
     NETS.register(getattr(_vit, _name), name=_name)
 for _name in ("bert_base_uncased", "bert_base_cased"):
     NETS.register(getattr(_bert, _name), name=_name)
+for _name in ("dnabert_2_117m", "hf_text_classifier"):
+    NETS.register(getattr(_hf, _name), name=_name)
 NETS.register(_hubert.hubert_base, name="hubert_base")
 NETS.register(_wav2vec2.wave2vecv2_base, name="wave2vecv2_base")
 for _name in ("wrn_28_2", "wrn_28_8", "wrn_var_37_2"):

@@ -130,7 +130,12 @@ class EncoderLayer(nn.Module):
 
 class ClassificationAudioTransformer(nn.Module):
     """``forward(x, train, only_fc, only_feat, generator)`` returns
-    ``{'logits', 'feat'}``."""
+    ``{'logits', 'feat'}``; ``only_fc`` maps pooled features to logits
+    through the head alone (the flax model's ``head``)."""
+
+    # the frozen extractor cuts every gradient with respect to the waveform:
+    # exactly 0, as under the flax model's stop_gradient (VAT reads this)
+    input_grad_is_zero = True
 
     def __init__(self, num_classes: int, hidden: int = 768, layers: int = 12,
                  heads: int = 12, dtype=torch.bfloat16,

@@ -1,7 +1,9 @@
 """Algorithm-specific net wrappers (port of
 ``semireward_tpu/models/wrappers.py``): extra heads over any backbone.
 
-RotNet (ReMixMatch's 4-way rotation head), ProjectionNet (CoMatch) and
+RotNet (ReMixMatch's 4-way rotation head, over any net: the ``only_fc``
+and ``only_feat`` calls pass through to it, images, token dicts or
+waveforms alike), ProjectionNet (CoMatch) and
 SimMatchNet (an l2-normalized projection head), CRMatchNet (rotation head
 and the feature-level consistency head), AuxHeadNet (the ABC / TRAS
 auxiliary head) and CoSSLNet (CoSSL's teacher head); the last two pass
@@ -46,6 +48,10 @@ class _Wrapper(nn.Module):
     @property
     def num_features(self) -> int:
         return self.backbone.num_features
+
+    @property
+    def input_grad_is_zero(self) -> bool:
+        return getattr(self.backbone, "input_grad_is_zero", False)
 
     def _passthrough(self, x, train, only_fc, only_feat, generator):
         return self.backbone(x, train=train, only_fc=only_fc,

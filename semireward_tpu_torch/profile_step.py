@@ -44,6 +44,7 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build")
 SYNTH_TEXT = os.path.join(_BUILD, "synth_text")
 SYNTH_AUDIO = os.path.join(_BUILD, "synth_audio")
+SYNTH_BIO = os.path.join(_BUILD, "synth_bio")
 SYNTH_STL10 = os.path.join(_BUILD, "synth_stl10")
 # data/datasets.py:write_synthetic_jpeg_folder's ImageNet-layout corpora
 SYNTH_JPEG = {"imagenet": os.path.join(_BUILD, "synth_imagenet"),
@@ -66,8 +67,10 @@ def synthetic_config(path: str, overrides=None):
     ``synthetic_test`` (256) val images of the YAML's classes does
     (``build/synth_imagenet``, ``build/synth_imagenet127``), decoded as the
     YAML's dataset; for a text net the seeded aclImdb-layout corpus,
-    written under ``build/synth_text`` on first use; for an audio net the
-    seeded ESC-50-layout corpus under ``build/synth_audio``. ``overrides``
+    written under ``build/synth_text`` on first use (for a ``dnabert*`` net
+    the seeded CSV k-mer corpus, ``data/bio.py:write_synthetic_bio``, under
+    ``build/synth_bio``); for an audio net the seeded ESC-50-layout corpus
+    under ``build/synth_audio``. ``overrides``
     go on top."""
     from semireward_tpu_torch import config as config_lib
     from semireward_tpu_torch.data.modality import modality_of
@@ -101,6 +104,11 @@ def synthetic_config(path: str, overrides=None):
                                                **overrides})
         return config_lib.from_yaml(path, {
             "dataset": "synthetic", "synthetic_train": n, **overrides})
+    if cfg.net.startswith("dnabert"):
+        from semireward_tpu_torch.data.bio import write_synthetic_bio
+        write_synthetic_bio(SYNTH_BIO, cfg.dataset, cfg.num_classes)
+        return config_lib.from_yaml(path, {"data_dir": SYNTH_BIO,
+                                           **overrides})
     if modality == "nlp":
         from semireward_tpu_torch.data.nlp import write_synthetic_corpus
         root = SYNTH_TEXT

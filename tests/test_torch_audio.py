@@ -13,6 +13,9 @@ JAX package.
   4e-7 in most runs, but one run of the file in eighteen on this CPU put
   54 of 6400 resampled samples 3e-5 of max|JAX| apart, and the cause was
   not found: each side gives the same bits run after run in one process).
+- The fast reverb (``audio_exact_reverb False``) against JAX's
+  ``_sox_reverb_wet`` within 1e-5, its chain at the chain's tolerance, and
+  against the exact reverb within the bound of JAX's own test.
 - The seeded synthetic corpus round-trips through both packages'
   ``load_pkl_dataset`` and ``get_audio_dataset``.
 """
@@ -127,10 +130,62 @@ def test_draws_have_the_reference_support_and_fast_reverb_waits():
     assert set(att.tolist()) == set(range(-4, 5))   # trunc: -5 never, 0 twice
     assert abs(float((att == 0).float().mean()) - 0.2) < 0.03
     assert set(d["choice"].flatten().tolist()) == {0, 1, 2, 3}
+    # the fast reverb is ported: the config passes the trainer's checks
+    # and reaches the loader, which reads the (missing) local corpus
     cfg = torch_config(net="hubert_base", dataset="esc50", data_dir="/nowhere",
                        audio_exact_reverb=False)
-    with pytest.raises(NotImplementedError, match="fast reverb"):
+    with pytest.raises(FileNotFoundError, match="esc50"):
         Trainer(cfg, device="cpu")
+
+
+@jax.jit
+def _jax_fast(x, key):
+    return (jax.vmap(jaudio._sox_reverb_wet)(x),
+            jaudio.strong_augment_wave(key, x, exact_reverb=False),
+            _jax_draws(key))
+
+
+def test_fast_reverb_and_its_chain_match_jax():
+    """The fast reverb (one FFT convolution against the fast filter's
+    impulse response) against JAX's associative-scan ``_sox_reverb_wet``
+    within 1e-5 of max|JAX| (measured 2e-7: float64 response, float32
+    FFT, against JAX's float32 scan), and the chain with
+    ``exact_reverb=False`` against JAX's at the chain's tolerance."""
+    rs = np.random.RandomState(7)
+    x = (rs.randn(B, T) * 0.3).astype(np.float32)
+    rev, chain, draws = jax.device_get(_jax_fast(jnp.asarray(x),
+                                                 jax.random.PRNGKey(7)))
+    assert (np.asarray(draws["choice"]) == 3).any()   # a reverb is drawn
+    tx = torch.from_numpy(x)
+    _close(taudio._sox_reverb_wet(tx).numpy(), rev, 1e-5)
+    tdraws = {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+    tdraws["choice"] = tdraws["choice"].long()
+    _close(taudio.apply_strong_wave(tx, tdraws, exact_reverb=False).numpy(),
+           chain)
+    assert not np.allclose(taudio.apply_strong_wave(tx, tdraws).numpy(),
+                           chain, atol=1e-3)
+
+
+def test_fast_reverb_is_bounded_by_jaxs_test_against_the_exact_one():
+    """The bound of JAX's ``tests/test_modalities.py::TestSoxEffectKernels::
+    test_fast_reverb_bounded_vs_exact`` on the port's two reverbs: the same
+    first echo (sample 405), the octave-band energies of the impulse
+    responses within its factors, the broadband energy within 4x."""
+    x = torch.zeros(1, 16000)
+    x[0, 0] = 1.0
+    h_fast = taudio._sox_reverb_wet(x)[0].numpy()
+    h_exact = taudio._sox_reverb_wet_exact(x)[0].numpy()
+    assert np.nonzero(np.abs(h_fast) > 1e-6)[0][0] == 405
+    assert np.nonzero(np.abs(h_exact) > 1e-6)[0][0] == 405
+    Hf, He = np.abs(np.fft.rfft(h_fast)), np.abs(np.fft.rfft(h_exact))
+    freqs = np.fft.rfftfreq(16000, 1 / 16000)
+    for (lo, hi), top in zip([(62, 250), (250, 1000), (1000, 4000),
+                              (4000, 8000)], (2.0, 3.0, 5.0, 8.0)):
+        sel = (freqs >= lo) & (freqs < hi)
+        ratio = float((Hf[sel] ** 2).sum() / (He[sel] ** 2).sum())
+        assert 0.8 < ratio < top, (lo, hi, ratio)
+    tot = float((h_fast ** 2).sum() / (h_exact ** 2).sum())
+    assert 0.5 < tot < 4.0, tot
 
 
 def test_synthetic_corpus_round_trips_through_both_loaders(tmp_path):

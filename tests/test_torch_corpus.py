@@ -170,24 +170,74 @@ def test_usb_cv_yaml_builds_a_trainer_and_the_wrn_its_net(algo, tmp_path):
     assert type(net).__name__ == WRAPPED.get(algo, "WideResNet")
 
 
-REFUSED = {
-    ("usb_nlp", "mixmatch"): "item 11", ("usb_nlp", "remixmatch"): "item 11",
-    ("usb_nlp", "vat"): "item 11", ("usb_audio", "mixmatch"): "item 12",
-    ("usb_audio", "remixmatch"): "item 12", ("usb_audio", "vat"): "item 12"}
+# the text and audio MixMatch, ReMixMatch and VAT YAMLs as the JAX package
+# takes them as written: the exception its loss raises at the first step
+# (None: it trains), and the switches that make it train
+AS_WRITTEN = {
+    ("usb_nlp", "mixmatch"): (TypeError, {"mixup_manifold": True}),
+    ("usb_nlp", "remixmatch"): (TypeError, {"mixup_manifold": True,
+                                            "rot_loss_ratio": 0.0}),
+    ("usb_nlp", "vat"): (AttributeError, {"vat_embed": True}),
+    ("usb_audio", "mixmatch"): (None, {}),
+    ("usb_audio", "remixmatch"): (KeyError, {"rot_loss_ratio": 0.0}),
+    ("usb_audio", "vat"): (None, {})}
 
 
-@pytest.mark.parametrize("suite,algo", sorted(REFUSED))
+def _small_corpus(cfg, root):
+    """A seeded corpus of the YAML's dataset and classes, two labels a
+    class, and a small net of the YAML's family (building the Trainer is
+    what is held here, not the net's size)."""
+    from semireward_tpu_torch.data import audio, nlp
+
+    name, nc = cfg.dataset, cfg.num_classes
+    if modality_of(cfg.net) == "nlp":
+        nlp.write_synthetic_corpus(str(root), name, nc, sizes=(
+            ("train", 12 * nc), ("dev", 4), ("test", 2)))
+        geom = dict(hidden=64, layers=1, heads=2, intermediate=128)
+    else:
+        audio.write_synthetic_corpus(str(root), name, nc, sample_rate=800,
+                                     sizes=(("train", 4 * nc), ("dev", 4),
+                                            ("test", 2)))
+        geom = dict(hidden=64, layers=1, heads=2)
+    return {"data_dir": str(root), "num_labels": 2 * nc, "net_kwargs": geom,
+            "use_pretrain": False, "resume": False}
+
+
+@pytest.mark.parametrize("suite,algo", sorted(AS_WRITTEN))
 def test_what_this_slice_does_not_take_raises_naming_its_item(suite, algo,
-                                                              tmp_path):
+                                                              tmp_path,
+                                                              monkeypatch):
+    """Every text and audio MixMatch, ReMixMatch and VAT YAML resolves; each
+    that the JAX package trains as written builds a CPU Trainer; each that
+    it fails on (tests/test_torch_text_audio_mixup_vat.py shows JAX fail)
+    raises the JAX loss's exception type in the port, naming the switch or
+    key, before any data is read, and builds a Trainer with the switches
+    that make JAX train it. (The name is the slice's that refused them all,
+    naming ROADMAP items 11 and 12.)"""
     from semireward_tpu_torch.core.trainer import Trainer
 
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    exc, fix = AS_WRITTEN[suite, algo]
     configs = _usb_configs(suite, algo)
-    assert configs
+    assert len(configs) == {"usb_nlp": 30, "usb_audio": 27}[suite]
     for path, cfg in configs:
-        cfg.save_dir = str(tmp_path)
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP: .*{REFUSED[suite, algo]}"):
-            Trainer(cfg, device="cpu")
+        NETS.get(cfg.net)
+        assert modality_of(cfg.net) == {"usb_nlp": "nlp",
+                                        "usb_audio": "audio"}[suite], path
+        assert cfg.algorithm == algo and not (
+            cfg.mixup_manifold or cfg.vat_embed), path
+        over = _small_corpus(cfg, tmp_path / "data")
+        over["save_dir"] = str(tmp_path / "out")
+        if exc is not None:
+            with pytest.raises(exc, match="|".join(fix)):
+                refuse_unported(cfg)
+            cfg = config_lib.from_yaml(path, {**over, **fix})
+        else:
+            cfg = config_lib.from_yaml(path, over)
+        tr = Trainer(cfg, device="cpu")
+        assert tr.alg.NAME == algo and len(tr.state.ema) == len(
+            list(tr.model.parameters())), path
+        assert type(tr.model).__name__ != "RotNet", path
 
 
 # ---------------------------------------------------------------------------

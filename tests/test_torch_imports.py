@@ -44,6 +44,8 @@ import semireward_tpu_torch.models.resnet
 import semireward_tpu_torch.validation
 import semireward_tpu_torch.golden_quality
 import semireward_tpu_torch.draw_witness
+import semireward_tpu_torch.data.bio
+import semireward_tpu_torch.models.huggingface
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',

@@ -859,3 +859,123 @@ def test_a_failed_nvjpeg_build_or_handle_raises(cuda_device, jpeg_folder,
     with pytest.raises(RuntimeError, match="nvjpegCreateSimple failed"):
         card.gather(np.arange(4))
     assert card.decoded_on_card == 0 and not card.redone_on_host
+
+
+def _bert_base_pair(cuda_device, layers=2, name="bert_base_uncased"):
+    """The same BERT-base-width net (``layers`` deep) twice on the card:
+    through K2 + K3 and through the plain attention and MLP."""
+    from semireward_tpu_torch.models import get_net_builder
+
+    builder = get_net_builder(name)
+    nets = [builder(num_classes=4, device=cuda_device, layers=layers,
+                    generator=torch.Generator(device=cuda_device
+                                              ).manual_seed(0),
+                    use_fused_mlp=k, use_flash=k) for k in (True, False)]
+    nets[1].load_state_dict(nets[0].state_dict())
+    return nets
+
+
+def _tokens(cuda_device, vocab, B=4, N=512):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    lens = torch.tensor([N, 400, 300, 77], device=cuda_device)[:B]
+    mask = (torch.arange(N, device=cuda_device)[None] < lens[:, None]).int()
+    ids = torch.randint(5, vocab, (B, N), device=cuda_device, generator=g)
+    return {"input_ids": ids * mask, "attention_mask": mask}
+
+
+class _Eval(torch.nn.Module):
+    """A net at ``train=False`` (no dropout: the kernels' hash stream and
+    the plain path's generator stream are not the same masks)."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x, train=True, **kw):
+        return self.net(x, train=False, **kw)
+
+
+@pytest.mark.cuda
+def test_vat_embed_probe_gradient_through_k2_and_k3(cuda_device):
+    """VAT's probe on BERT-base's embeddings (``vat_embed``: the input
+    gradient through K2 and K3's backward, N 512 with the key bias) against
+    the same probe through the plain attention and MLP, on the same
+    weights: per-sample cosine >= 0.99 (bf16 compute on both paths), and
+    ``r_adv`` at norm ``vat_eps`` each."""
+    from semireward_tpu_torch.algorithms import vat
+
+    fused, plain = (_Eval(n) for n in _bert_base_pair(cuda_device))
+    x = _tokens(cuda_device, 30522)
+    grads = []
+    for net in (fused, plain):
+        out = net(x, return_embed=True)
+        base, ul_y = out["embed"].detach(), out["logits"].detach().float()
+        d = vat.draw_probe(base, torch.Generator(device=cuda_device
+                                                 ).manual_seed(2))
+        F.reset_launches()
+        A.reset_launches()
+        grads.append(vat.power_iteration(net, base, ul_y, d, None, x))
+        torch.cuda.synchronize()
+        if net is fused:
+            assert A.launches == {"flash_attention_fwd": 2,
+                                  "flash_attention_bwd": 2}
+            assert F.launches["fused_mlp_blocked_fwd"] == 2
+            assert F.launches["fused_mlp_blocked_bwd"] == 2
+    g, w = (t.flatten(1).double() for t in grads)
+    cos = (g * w).sum(1) / (g.norm(dim=1) * w.norm(dim=1))
+    assert float(cos.min()) >= 0.99, cos
+    r_adv = 6.0 * vat.l2_normalize(grads[0])
+    assert torch.allclose(r_adv.flatten(1).norm(dim=1),
+                          torch.full((4,), 6.0, device=cuda_device),
+                          rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fast_reverb_on_the_card_equals_the_cpu(cuda_device):
+    """The fast reverb (``audio_exact_reverb False``) and the exact one on
+    the card against the CPU's, within 1e-5 of the largest magnitude, on
+    4 s clips at 16 kHz; the strong-view chain with the fast reverb too."""
+    from semireward_tpu_torch.data import audio
+
+    x = torch.randn(8, 64000, generator=torch.Generator().manual_seed(0))
+    for fn in (audio._sox_reverb_wet, audio._sox_reverb_wet_exact):
+        _close(fn(x.to(cuda_device)).cpu().numpy(), fn(x).numpy(), 1e-5)
+    draws = audio.draw_strong_wave(torch.Generator().manual_seed(1), 8)
+    draws["choice"][:, 0] = 3                    # a reverb first each clip
+    got = audio.apply_strong_wave(
+        x.to(cuda_device), {k: v.to(cuda_device) for k, v in draws.items()},
+        exact_reverb=False).cpu().numpy()
+    _close(got, audio.apply_strong_wave(x, draws, exact_reverb=False).numpy(),
+           1e-4)
+
+
+@pytest.mark.cuda
+def test_dnabert_steps_on_the_card_through_k2_and_k3(cuda_device):
+    """``dnabert_2_117m`` (BERT-base over the 4101 k-mer ids) on the card:
+    its eval logits through K2 + K3 within 2% of the plain path's on the
+    same weights (bf16), and one train step (dropout, the key bias at N
+    512) through the kernels, a forward and a backward of each a layer,
+    finite."""
+    fused, plain = _bert_base_pair(cuda_device, layers=12,
+                                   name="dnabert_2_117m")
+    assert fused.word_embeddings.weight.shape == (4101, 768)
+    x = _tokens(cuda_device, 4101)
+    with torch.no_grad():
+        want = plain(x, train=False)["logits"].float().cpu().numpy()
+        got = fused(x, train=False)["logits"].float().cpu().numpy()
+    _close(got, want, 2e-2)
+    F.reset_launches()
+    A.reset_launches()
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    out = fused(x, train=True, generator=gen)
+    loss = torch.nn.functional.cross_entropy(
+        out["logits"].float(), torch.arange(4, device=cuda_device))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert math.isfinite(float(loss))
+    assert A.launches == {"flash_attention_fwd": 12,
+                          "flash_attention_bwd": 12}
+    assert F.launches["fused_mlp_blocked_fwd"] == 12
+    assert F.launches["fused_mlp_blocked_bwd"] == 12
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in fused.parameters())
