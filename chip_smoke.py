@@ -23,9 +23,13 @@
      three and a fixed-order reduction), at the HuBERT-base train shape
      (M 24*199 = 4776, C 768, H 3072), the BERT-base one (M 12*512 = 6144),
      CoMatch's on BERT-base (M 16*512 = 8192), ViT-B/16's at 224 px (M
-     768*197 = 151296; its breakdown by GEMM too) and a small ragged M, the
-     backward bit-equal across two launches, with
+     768*197 = 151296; its breakdown by GEMM too) and a small ragged M, and
+     at the widths it takes besides 768 (``K3_WIDE_SHAPES``): DINOv2
+     ViT-L/14's C 1024, H 4096 at its train shape (M 48*257 = 12336,
+     timed, with its breakdown by GEMM) and M 1 and 129, and C 512 at a
+     ragged M; the backward bit-equal across two launches, with
      each timed row's TFLOP/s and share of its bound and the tile plan;
+     ptxas's registers and spills for every K3 kernel (none may spill);
    - K2, flash attention (forward; dq + dk/dv, all three wgmma + TMA
      kernels with two free-running consumer warpgroups and helper warps
      that stage each step's bias and keep bits), at the BERT-base train
@@ -46,8 +50,10 @@
      the three shapes (``k3_profile.flash_breakdown``); and ptxas's
      registers and spills for every K2 kernel (none may spill);
 4. train phases, each with every kernel count set to 0 just before it and
-   read just after, exact launch counts, losses, SemiReward and FlexMatch
-   state checked, an eval at the end, all on the port's defaults on a card:
+   read just after, exact launch counts (no MLP of any phase takes the two
+   dense layers: ``fused_mlp_dense`` 0), losses, SemiReward and FlexMatch
+   state checked, an eval at the end, peak device memory printed, all on
+   the port's defaults on a card:
    - ViT: the headline config
      (``config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml``,
      SRFlexMatch, ViT-S/2-32 at full width and depth, 8+8 images) on
@@ -195,6 +201,21 @@
      (``resnet_checks``), ABC's ``aux_classifier`` moved and its eval head;
      then ``profile_step.py`` on the FixMatch YAML (device busy and idle
      share); no kernel of the port runs on the ResNet;
+   - ``dinov2_vitl14_srflexmatch``: DINOv2 ViT-L/14 (C 1024, 24 blocks,
+     16 heads, LayerScale 1e-5, gradient checkpointing) on the ViT-B/16
+     phase's YAML and JPEG folder, 16 + 16 images with ``use_cat`` (K3 at
+     C 1024, M 12336; K2 at B 48, N 257), ``DINO_STEPS`` steps, p_cutoff
+     0 (FlexMatch's selection moves), the rewarder moved in both stages,
+     one eval and one pair of checkpoint files (~4.9 GB each);
+     ``dinov2_vitb14_srpseudolabel_reg``: DINOv2 ViT-B/14 SRPseudoLabel on
+     the regression task (the imagenet_stretch PseudoLabel YAML with
+     ``dataset agedb``, ``num_classes`` 1, on a seeded AgeDB-layout npz
+     under ``build/synth_regression``), 16 + 16 images, three forwards and
+     two backwards a step (K3 at C 768, K2 at B 16, N 257): an L1
+     ``sup_loss``, ``util_ratio`` 1, ``sr_keep_ratio`` 1 or 0 (one reward
+     for every sample, as in the JAX package), the eval's regression keys
+     finite and the best checkpoint chosen by -mse
+     (``_regression_checks``);
    - ``golden``: the golden-learning checks (``validation.py``) at seed 0
      with the JAX test tier's settings and bounds (``GOLDEN_*``), on the
      card from a CPU generator (``run_golden``'s default: the draws of the
@@ -230,16 +251,18 @@ Each phase prints its wall seconds on a line of its own as it ends, and
 the run its total before the last lines; a JPEG phase prints its decode
 (images decoded on the card, files redone on the host, ms and images/s a
 step from ``train/prefetch_time``) beside its steps/s. The depth of the
-earlier phases was cut so that the smoke with the JPEG and the text and
-audio phases stays in its time limit (the checks are the same; PERF.md
-section 4): the headline ViT 1200 -> 900 -> 700 steps and HuBERT 700 ->
-600 (their first FlexMatch selection came by steps 600 and 500 in three
-runs: 100 steps past it, as BERT's 600 keeps 100), USB 40 -> 24, CoMatch 160 -> 80 (``queue_batch``
-128 -> 64), SimMatch 80 -> 40, SimMatch's EMA teacher 40 -> 20, BERT
+earlier phases was cut so that the smoke with the JPEG, the text and
+audio and the DINOv2 phases stays in its time limit (the checks are the
+same; PERF.md section 4): the headline ViT 1200 -> 900 -> 700 -> 650
+steps, HuBERT 700 -> 600 -> 550 and BERT 600 -> 550 (their first
+FlexMatch selection came by steps 600, 500 and 500, with the same
+entries, in every H100 run of these phases: 50 steps past it), the text
+and audio forms 24 -> 20, USB 40 -> 24, CoMatch 160 -> 80
+(``queue_batch`` 128 -> 64), SimMatch 80 -> 40, SimMatch's EMA teacher 40 -> 20, BERT
 CoMatch and HuBERT SimMatch 60 -> 30 (their epochs halved with them),
 SRFreeMatch / SRSoftMatch / SRPseudoLabel and the two WRN phases 100 ->
 50, ``sr_reforward`` 40 -> 32, ``sr_per_sample`` 100 -> 40, the imb
-wrappers 80 -> 40 steps with 16 (was 32) an epoch and an eval every 12
+wrappers 80 -> 40 -> 36 steps with 16 (was 32) an epoch and an eval every 12
 (was 24), on one data set made once for the twelve, CReST 2 x 20 -> 2 x
 12, ``vit_resume`` 40 + 10 -> 30 + 5, ``vit_b16_remat`` 30 -> 22 steps,
 the two ResNet-50 phases 40 -> 18 and ResNet-50's profile 10 + 10 -> 2 +
@@ -336,7 +359,7 @@ TEXT_AUDIO_PHASES = (
      {"p_cutoff": 0.0}, {"audio_exact_reverb": False}),
     ("dnabert_flexmatch", "usb_nlp/flexmatch/flexmatch_aclImdb_100_0",
      {"net": "dnabert_2_117m", "dataset": "synth_dna", "p_cutoff": 0.0}, {}))
-TEXT_AUDIO_STEPS, TEXT_AUDIO_LOG_EVERY = 24, 12
+TEXT_AUDIO_STEPS, TEXT_AUDIO_LOG_EVERY = 20, 10
 # SemiReward's reference-equivalent arm (the JAX bench's 8 re-forwards) and
 # per-sample mode, on the headline config
 REFORWARD, REFORWARD_STEPS, PER_SAMPLE_STEPS = 8, 32, 40
@@ -358,7 +381,7 @@ REFORWARD_PROBE = (20, 30)
 # phase: no class-0 prediction, so ADSH's refit is a no-op)
 IMB_NAMES = ("saw", "debiaspl", "adsh", "abc", "tras", "darp", "daso",
              "crest", "crest+", "cossl")
-IMB_STEPS, IMB_PER_EPOCH, IMB_EVAL_EVERY, IMB_LOG_EVERY = 40, 16, 12, 8
+IMB_STEPS, IMB_PER_EPOCH, IMB_EVAL_EVERY, IMB_LOG_EVERY = 36, 16, 12, 8
 IMB_OVERRIDES = {"darp_warmup_epochs": 0, "tras_warmup_epochs": 1,
                  "daso_num_pretrain_iter": 20, "cossl_warm_epoch": 1,
                  "cossl_tfe_warm_epoch": 1, "ema_m": 0.9}
@@ -388,6 +411,33 @@ VITB_YAML = os.path.join(HERE, "config/SemiReward/imagenet_stretch/"
 VITB_OVERRIDES = {"num_labels": 2000, "synthetic_train": 4096,
                   "p_cutoff": 0.0}
 VITB_STEPS, VITB_AB_STEPS = 22, 4
+# DINOv2 (the imagenet_stretch YAMLs with their net swapped; no corpus YAML
+# names DINOv2 or a regression set). ``dinov2_vitl14_srflexmatch``:
+# ViT-L/14 (C 1024, 24 blocks, 16 heads, H 4096, LayerScale 1e-5, remat as
+# the YAML says) on the FlexMatch YAML's seeded JPEG folder (VITB_OVERRIDES:
+# 4,096 + 256 images of 1000 classes, decoded at 256 px, cropped to 224: N
+# 257), the YAML's 256 + 256 images cut to 16 + 16 with use_cat (48 a
+# forward: K3 at C 1024, M 48 * 257 = 12,336; K2 at B 48, N 257);
+# ``dinov2_vitb14_srpseudolabel_reg``: ViT-B/14 SRPseudoLabel on the
+# regression task (the PseudoLabel YAML with ``dataset agedb``,
+# ``num_classes`` 1) over a seeded AgeDB-layout npz (1,024 + 128 images of
+# 224 px, ages in [1, 101)), 256 labels, 16 + 16 images (three forwards of
+# 16 a step: K3 at C 768, M 4,112; K2 at B 16). One eval each (the YAMLs'
+# eval cadence is past the phase), so one pair of checkpoint files: a
+# ViT-L/14 file with its EMA and Adam state is ~4.9 GB
+DINO_L_OVERRIDES = {**VITB_OVERRIDES, "net": "dinov2_vitl14",
+                    "batch_size": 16}
+DINO_REG_YAML = os.path.join(HERE, "config/SemiReward/imagenet_stretch/"
+                             "pseudolabel/pseudolabel_imagenet_100000_0.yaml")
+DINO_REG_OVERRIDES = {"net": "dinov2_vitb14", "dataset": "agedb",
+                      "num_classes": 1, "num_labels": 256, "batch_size": 16,
+                      "synthetic_train": 1024, "synthetic_test": 128}
+DINO_STEPS, DINO_LOG_EVERY = 24, 12
+# K3 at the widths it takes besides 768: (M, C, H, timed). ViT-L/14's train
+# shape is timed (the kernels line's C 1024 rows); M 1 and 129 and a
+# ragged M at C 512 are checked only
+K3_WIDE_SHAPES = ((12336, 1024, 4096, True), (1, 1024, 4096, False),
+                  (129, 1024, 4096, False), (2749, 512, 2048, False))
 # the phase's steps/s on seeded synthetic arrays, before it read the JPEG
 # folders (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
 VITB_ARRAY_SPS = "1.93-2.02"
@@ -432,11 +482,12 @@ PEAK_BYTES = 3.35e12
 # changed by step 1500, 22 by step 600). BERT and HuBERT ran 700 and 1000
 # steps until the ViT-B/16, ResNet-50 and golden phases came. In three H100
 # runs since, the first selection came by step 600 (ViT-S) and 500 (BERT,
-# HuBERT), the same entries each time: 700, 600 and 600 steps keep 100
-# past it (the headline ViT ran 900 until the text and audio phases came).
-TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 700, 10, 10, 100
-BERT_STEPS, BERT_LOG_EVERY = 600, 100
-AUDIO_STEPS, AUDIO_LOG_EVERY = 600, 100
+# HuBERT), the same entries each time: 650, 550 and 550 steps keep 50
+# past it (the headline ViT ran 900 until the text and audio phases came,
+# 700 until the DINOv2 phases came; BERT and HuBERT 600).
+TRAIN_STEPS, START_TIMING, N_K, LOG_EVERY = 650, 10, 10, 100
+BERT_STEPS, BERT_LOG_EVERY = 550, 100
+AUDIO_STEPS, AUDIO_LOG_EVERY = 550, 100
 # the other variants' checks (state moved, the rewarder's two stages, the
 # BatchNorm probe, weights at two log boundaries) all fall within these
 FREE_STEPS, SOFT_STEPS, PL_STEPS, WRN_STEPS = 50, 50, 50, 50
@@ -531,16 +582,20 @@ def fused_mlp_phase(F):
     = 14392), SimMatch on STL-10 (M 24 * 2305 = 55320, its teacher's 18440
     and its eval's 36880) and ViT-Ti shapes and K3 at the BERT-base one
     and CoMatch's on it (M 16 * 512 = 8192) and ViT-B/16's at 224 px (M 768
-    * 197 = 151296) are printed beside them."""
+    * 197 = 151296) are printed beside them. K3 at the widths it takes
+    besides 768 (``K3_WIDE_SHAPES``): DINOv2 ViT-L/14's (C 1024, H 4096) at
+    M 1, 129 and its train shape 12,336 (timed: the kernels line's
+    ``_c1024`` rows) and C 512 at a ragged M."""
     dev = torch.device("cuda")
     results = {}
-    for m, c, h in ((100, 128, 256), (6168, 384, 1536), (4112, 384, 1536),
-                    (2056, 384, 1536), (8224, 384, 1536),
-                    (14392, 384, 1536), (55320, 384, 1536),
-                    (18440, 384, 1536), (36880, 384, 1536), (6168, 192, 768),
-                    (100, 768, 3072), (4776, 768, 3072), (6144, 768, 3072),
-                    (8192, 768, 3072), (151296, 768, 3072)):
-        blocked = c == 768
+    shapes = [(m, c, h, m != 100) for m, c, h in (
+        (100, 128, 256), (6168, 384, 1536), (4112, 384, 1536),
+        (2056, 384, 1536), (8224, 384, 1536), (14392, 384, 1536),
+        (55320, 384, 1536), (18440, 384, 1536), (36880, 384, 1536),
+        (6168, 192, 768), (100, 768, 3072), (4776, 768, 3072),
+        (6144, 768, 3072), (8192, 768, 3072), (151296, 768, 3072))]
+    for m, c, h, timed_row in shapes + list(K3_WIDE_SHAPES):
+        blocked = F.route(c, h, dev) == "blocked"
         fwd = F.kernel_blocked_fwd if blocked else F.kernel_fwd
         bwd = F.kernel_blocked_bwd if blocked else F.kernel_bwd
         name = "fused_mlp_blocked" if blocked else "fused_mlp"
@@ -568,7 +623,7 @@ def fused_mlp_phase(F):
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError(f"{name} backward is not deterministic")
         print("  backward bit-equal across two launches: ok")
-        if m == 100:
+        if not timed_row:
             continue
         # the one-call PyTorch equivalent, timed as a yardstick only
         xl, w1l, b1l, w2l, b2l = (t.detach().clone().requires_grad_()
@@ -618,8 +673,11 @@ def fused_mlp_phase(F):
                 kernel="blocked" if blocked else "full").items()
              if k not in ("sms", "workspace")}))
         # the kernels line carries K1 at the headline shape, K3 at HuBERT's
+        # and at DINOv2 ViT-L/14's train shape
         if (m, c) in ((6168, 384), (4776, 768)):
             results.update(timed)
+        if c == 1024:
+            results.update({f"{k}_c1024": r for k, r in timed.items()})
     return results
 
 
@@ -937,6 +995,7 @@ def passes_per_step(base: str, cfg):
     ssl_forward, ``use_cat``          1        1
     ssl_forward, separate passes      3        2
     pseudolabel                       2        2
+    pseudolabel, regression           3        2
     pimodel, meanteacher              3        2
     vat (images; text, ``vat_embed``) 4        4
     vat (waveforms: no probe)         3        3
@@ -950,6 +1009,9 @@ def passes_per_step(base: str, cfg):
     SemiReward, ``sr_reforward`` n    1 (1+n)  1 (2)
     ================================= ======== =========
 
+    PseudoLabel's regression form: the labeled, the noisy unlabeled and
+    the clean unlabeled forward (no gradient; its logits are the pseudo
+    label).
     MixMatch's manifold form: the two weak forwards without gradient and
     the labeled one; its mixed chunks go through the head alone.
     ReMixMatch's: the weak (no gradient), labeled, s0 and s1 forwards, the
@@ -965,6 +1027,8 @@ def passes_per_step(base: str, cfg):
 
     if base == "vat" and modality_of(cfg.net) == "audio":
         return 3, 3
+    if base == "pseudolabel" and cfg.is_regression:
+        return 3, 2
     if base == "mixmatch" and cfg.mixup_manifold:
         return 3, 1
     if base == "remixmatch":
@@ -1126,9 +1190,10 @@ def bn_moved_pattern(cfg, alg, base: str, n_fwd: int):
 
 
 def kernel_layers(module, F):
-    """(fused MLP layers by the kernel their width takes, K1 ``full`` or K3
-    ``blocked``; flash attention layers) inside ``module``."""
-    fused = {"full": 0, "blocked": 0}
+    """(fused MLP layers by the path their width takes, K1 ``full``, K3
+    ``blocked`` or the two dense layers ``dense``; flash attention layers)
+    inside ``module``."""
+    fused = {"full": 0, "blocked": 0, "dense": 0}
     for m in module.modules():
         if getattr(m, "use_fused", False):
             fc1 = next(c for c in m.children()
@@ -1226,7 +1291,7 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
     fused, n_flash = kernel_layers(model, F)
     # the kernel layers inside checkpointed blocks: their forward runs
     # again in each backward
-    remat_fused, remat_flash = {"full": 0, "blocked": 0}, 0
+    remat_fused, remat_flash = {"full": 0, "blocked": 0, "dense": 0}, 0
     for m in model.modules():
         if getattr(m, "remat", False):
             f, n = kernel_layers(m, F)
@@ -1334,6 +1399,8 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
                      != state0["selected_label"]).any())):
                 first_select.append(step)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     F.reset_launches()
     A.reset_launches()
     try:
@@ -1344,6 +1411,7 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
             u()
     torch.cuda.synchronize()
     launches = {**F.launches, **A.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
 
     n_eval = math.ceil(len(trainer.bundle.eval) / cfg.eval_batch_size)
     # the after-run eval of the best checkpoint on the test split
@@ -1364,7 +1432,10 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
             "fused_mlp_blocked_bwd": fused["blocked"] * bwd_calls,
             "flash_attention_fwd": (n_flash * fwd_calls
                                     + remat_flash * bwd_calls),
-            "flash_attention_bwd": n_flash * bwd_calls}
+            "flash_attention_bwd": n_flash * bwd_calls,
+            # no MLP of a smoke path takes the two dense layers
+            "fused_mlp_dense": 0}
+    assert fused["dense"] == 0, fused
     print(f"  launches {launches} (expected {want})")
     assert launches == want, (launches, want)
     for k in main_kernels:
@@ -1376,10 +1447,18 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
             assert math.isfinite(float(v)) or k == "max_reward", (step, k, v)
         if sr:
             keep = float(m["sr_keep_ratio"])
-            if step - 1 > START_TIMING:
+            if cfg.is_regression and step - 1 > START_TIMING:
+                # the one-column pseudo label gives every sample pseudo
+                # class 0, so one reward: ``reward >= mean`` keeps all of
+                # them, or none where the float32 mean of the equal rewards
+                # rounds up (the JAX package's arithmetic; ROADMAP §3)
+                assert keep in (0.0, 1.0), (step, keep)
+            elif step - 1 > START_TIMING:
                 assert 0.0 < keep <= 1.0, (step, keep)
             else:
                 assert keep == 1.0, (step, keep)
+        if cfg.is_regression:
+            assert float(m["util_ratio"]) == 1.0, (step, m["util_ratio"])
     if sr:
         for a, b, stage in ((5, 6, 1), (20, 21, 2)):
             assert any(not torch.equal(p, q) for p, q in
@@ -1479,6 +1558,12 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
         extra["bn_stats_moved_by_forward"] = bn_moved
     for k, v in results.items():
         assert math.isfinite(v), (k, v)
+    if cfg.is_regression:
+        extra.update(_regression_checks(trainer, evals, results, save_dir))
+        if sr:
+            extra["stage2_keep_ratios"] = sorted({
+                float(m["sr_keep_ratio"]) for step, m in history
+                if step - 1 > START_TIMING})
     if after is not None:
         extra.update(after(trainer))
     windows = trainer.log_history[1:]  # after the first (warm-up) window
@@ -1490,24 +1575,49 @@ def _train_phase(name, yaml_path, overrides, steps, log_every, F, A,
               f"({extra['jpeg']['decode_images_per_s']:.0f} images/s)"
               + (f"; on synthetic arrays: {VITB_ARRAY_SPS} steps/s"
                  if name == "vit_b16_remat" else ""))
+    score = "mse" if cfg.is_regression else "top-1-acc"
     print(f"  losses finite over {len(history)} steps; "
-          + ("stage-2 keep ratio in (0, 1]; " if sr else "")
-          + f"{base} state moved {moved}; eval top-1 "
-          f"{results['eval/top-1-acc']:.4f}")
+          + ("" if not sr else "stage-2 keep ratio 0 or 1; "
+             if cfg.is_regression else "stage-2 keep ratio in (0, 1]; ")
+          + f"{base} state moved {moved}; eval {score} "
+          f"{results[f'eval/{score}']:.4f}; peak device memory "
+          f"{peak_bytes / 1e9:.2f} GB")
     writes = _checkpoint_writes(trainer)
     print(json.dumps({"phase": name, "algorithm": cfg.algorithm,
                       "net": cfg.net, "train_steps_per_sec": sps,
                       "measured_steps": sum(w["steps"] for w in windows),
                       "forwards_backwards_per_step": [n_fwd, n_bwd],
                       "forwards_backwards_in_all": [fwd_steps, bwd_steps],
-                      **extra, "eval_top1": results["eval/top-1-acc"],
+                      **extra, "eval_top1": results.get("eval/top-1-acc"),
                       "test_top1": results.get("test/top-1-acc"),
+                      "peak_device_bytes": peak_bytes,
                       "checkpoint_writes": writes,
                       "card": card_line(), "log": trainer.log_history}))
     del trainer, model
     shutil.rmtree(save_dir)
     torch.cuda.empty_cache()
     return launches
+
+
+def _regression_checks(trainer, evals, results, save_dir):
+    """A regression run's eval: the keys of ``regression_metrics``, finite,
+    no classification key, and the best checkpoint chosen by -mse (the
+    trainer's tracking and ``model_best.ckpt``'s record)."""
+    from semireward_tpu_torch.core.checkpoint import read_payload
+
+    keys = {"mse", "rmse", "mae", "mape", "r2"}
+    assert evals and all(set(m) == keys for m in evals), evals
+    assert all(math.isfinite(v) for m in evals for v in m.values()), evals
+    assert "eval/top-1-acc" not in results, sorted(results)
+    best = max(range(len(evals)), key=lambda i: -evals[i]["mse"])
+    assert trainer.best_metric == -evals[best]["mse"], (trainer.best_metric,
+                                                         evals)
+    payload = read_payload(os.path.join(save_dir, trainer.cfg.save_name,
+                                        "model_best.ckpt"))
+    assert payload["extra"]["best_metric"] == trainer.best_metric, \
+        payload["extra"]
+    return {"eval_regression": evals[-1],
+            "best_by_neg_mse": trainer.best_metric}
 
 
 def _co_sim_checks(trainer, cfg, base, steps, history, state0, seen_idx,
@@ -1958,7 +2068,8 @@ def resume_phase(F, A):
             "fused_mlp_bwd": n_mlp * bwd_calls,
             "fused_mlp_blocked_fwd": 0, "fused_mlp_blocked_bwd": 0,
             "flash_attention_fwd": n_flash * fwd_calls,
-            "flash_attention_bwd": n_flash * bwd_calls}
+            "flash_attention_bwd": n_flash * bwd_calls,
+            "fused_mlp_dense": 0}
     print(f"  launches {launches} (expected {want})")
     assert launches == want, (launches, want)
     print(json.dumps({"phase": "vit_resume", "algorithm": cfg.algorithm,
@@ -2096,6 +2207,20 @@ def new_phases(F, A):
     return out
 
 
+def dinov2_phases(F, A):
+    """DINOv2 ViT-L/14 SRFlexMatch on the ViT-B/16 phase's JPEG folder (K2
+    + K3 at C 1024) and DINOv2 ViT-B/14 SRPseudoLabel on the seeded AgeDB
+    npz (K2 + K3 at C 768); returns each phase's launches."""
+    k23 = ("flash_attention_fwd", "flash_attention_bwd",
+           "fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
+    return [train_phase("dinov2_vitl14_srflexmatch", VITB_YAML,
+                        DINO_L_OVERRIDES, DINO_STEPS, DINO_LOG_EVERY, F, A,
+                        k23),
+            train_phase("dinov2_vitb14_srpseudolabel_reg", DINO_REG_YAML,
+                        DINO_REG_OVERRIDES, DINO_STEPS, DINO_LOG_EVERY, F, A,
+                        k23)]
+
+
 def reverb_spy():
     """Count the calls of the port's two reverbs (``data/audio.py``) until
     the returned undo; returns the counts and the undo."""
@@ -2204,7 +2329,8 @@ def main() -> int:
                 print(f"  {name} {entry}: {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
-            if (name in ("fused_mlp", "flash_attention") and spill
+            if (name in ("fused_mlp", "fused_mlp_blocked", "flash_attention")
+                    and spill
                     and spill.groups() != ("0", "0")):
                 raise AssertionError(f"{name} kernel {entry} spills: {line}")
 
@@ -2217,6 +2343,8 @@ def main() -> int:
     for m in (4776, 6144, 151296):
         print(json.dumps({"k3_breakdown": k3_profile.breakdown(m),
                           "card": card}))
+    print(json.dumps({"k3_breakdown": k3_profile.breakdown(12336, 1024, 4096),
+                      "shape": "dinov2_vitl14", "card": card}))
     PHASE_SECONDS["k1_k3_breakdown"] = time.time() - t0
     kernels.update(timed("k2", flash_phase, A, k3_profile.FLASH_SHAPES))
     # K2's time by kernel, launches and host time a call at the train shapes
@@ -2315,7 +2443,13 @@ def main() -> int:
     # ViT-B/16 and ResNet-50 phases on those folders
     timed("jpeg_decode", jpeg_phase, folders)
     phases += new_phases(F, A)
+    # DINOv2 ViT-L/14 (K3 at C 1024) and the ViT-B/14 regression run
+    dino = dinov2_phases(F, A)
+    phases += dino
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
+    # the C 1024 rows: the launches of the ViT-L/14 phase, all at C 1024
+    for k in ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd"):
+        launches[f"{k}_c1024"] = dino[0][k]
 
     where = {"fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:71"),
              "fused_mlp_bwd": ("fused_mlp.cu", "fused_mlp.py:107"),
@@ -2325,6 +2459,8 @@ def main() -> int:
                                        "fused_mlp.py:319"),
              "flash_attention_fwd": ("flash_attention.cu", "attention.py:110"),
              "flash_attention_bwd": ("flash_attention.cu", "attention.py:372")}
+    where.update({f"{k}_c1024": where[k] for k in ("fused_mlp_blocked_fwd",
+                                                   "fused_mlp_blocked_bwd")})
     line = [{"name": name, "route": "cuda",
              "source": f"semireward_tpu_torch/csrc/{where[name][0]}",
              "replaces": f"semireward_tpu/ops/{where[name][1]}",

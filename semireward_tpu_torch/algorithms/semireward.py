@@ -38,6 +38,12 @@ and ``set_rho_init`` passes to the base.
   all draw its dropout and drop-path masks, as JAX's share one key, and
   the last one's logits equal the base forward's. BatchNorm's running
   statistics stay where the base forward left them.
+- A regression task (``num_classes`` 1, SRPseudoLabel) keeps the JAX
+  package's arithmetic: the stage-2 consistency is L1; the one-column
+  pseudo label's ``argmax`` makes every sample's pseudo class 0, so every
+  sample takes one reward and the filter keeps all of them; stage 1's
+  target compares one-hots over ``extra['range']`` (100) values of the
+  truncated label. ``sr_per_sample`` raises ``ValueError`` there.
 """
 from __future__ import annotations
 
@@ -303,8 +309,11 @@ class SemiRewardWrapper(Algorithm):
             reward = ctx.sr_state.rewarder(feats_w.detach(), pl_int)
         mask2 = (reward >= reward.mean()).squeeze(-1).float()
         # PseudoLabel has no strong view: its logits_x_ulb_s are the ulb
-        # logits of its second forward
-        unsup = consistency_loss(logits_s, pl, "ce", mask=mask_dg,
+        # logits of its second forward; on a regression task its
+        # consistency is L1
+        lname = ("l1" if self.base.NAME == "pseudolabel"
+                 and cfg.is_regression else "ce")
+        unsup = consistency_loss(logits_s, pl, lname, mask=mask_dg,
                                  mask2=mask2)
         total = (base_out.total_loss
                  + base_out.unsup_weight * (unsup - base_out.unsup_loss))
@@ -359,11 +368,15 @@ class SemiRewardWrapper(Algorithm):
             if cfg.sr_per_sample:
                 self._train_per_sample(sr, feats_lb, y_lb, generator)
             else:
+                # a regression target is one-hot over extra['range'] (100)
+                # integer values, truncated as JAX's astype(int32) does
+                dim = (int(cfg.extra.get("range", 100)) if cfg.is_regression
+                       else n_cls)
                 glab = self._gen_labels(sr, feats_lb)
                 target = cosine_similarity_n(
-                    _one_hot(glab.clamp(0, n_cls - 1), n_cls),
-                    _one_hot(y_lb.reshape(glab.shape).clamp(0, n_cls - 1),
-                             n_cls))
+                    _one_hot(glab.clamp(0, dim - 1), dim),
+                    _one_hot(y_lb.reshape(glab.shape).clamp(0, dim - 1),
+                             dim))
                 self._train_rewarder(sr, feats_lb, glab, target)
         elif step > 0:
             reward_mean = sr.rewarder(feats_u, pl_int).mean()

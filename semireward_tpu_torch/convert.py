@@ -6,7 +6,8 @@ JAX needed at run time).
 - Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW; a 1-D conv's
   ``[k, in/groups, out]`` -> Conv1d ``[out, in/groups, k]`` (groups kept).
 - LayerNorm / BatchNorm ``scale`` -> ``weight``; Embed ``embedding`` ->
-  ``weight``.
+  ``weight``; raw parameters keep their name (the ViT block's LayerScale
+  ``blocks3/ls1`` -> ``blocks.3.ls1``).
 - ``batch_stats`` ``mean`` / ``var`` -> the BatchNorm's ``running_mean`` /
   ``running_var`` buffers.
 - flax's ``blocks3`` / ``layer3`` module names -> torch's ``blocks.3`` /

@@ -47,6 +47,76 @@ def consistency_loss(logits, targets, name: str = "ce",
 
 
 # ---------------------------------------------------------------------------
+# regression losses (the JAX package's core/losses.py:70-136)
+# ---------------------------------------------------------------------------
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def l1_loss(logits, target, reduction="mean", **kw):
+    return _reduce((logits - target).abs(), reduction)
+
+
+def l2_loss(logits, target, reduction="mean", **kw):
+    return _reduce((logits - target) ** 2, reduction)
+
+
+def _focal_weight(logits, target, activate, beta, gamma):
+    d = (logits - target).abs()
+    if activate == "tanh":
+        return torch.tanh(beta * d) ** gamma
+    return (2.0 * torch.sigmoid(beta * d) - 1.0) ** gamma
+
+
+def focal_l1_loss(logits, target, reduction="mean", activate="sigmoid",
+                  beta=0.2, gamma=1.0, **kw):
+    loss = (logits - target).abs() * _focal_weight(logits, target, activate,
+                                                   beta, gamma)
+    return _reduce(loss, reduction)
+
+
+def focal_l2_loss(logits, target, reduction="mean", activate="sigmoid",
+                  beta=0.2, gamma=1.0, **kw):
+    loss = (logits - target) ** 2 * _focal_weight(logits, target, activate,
+                                                  beta, gamma)
+    return _reduce(loss, reduction)
+
+
+def huber_loss(logits, target, reduction="mean", beta=1.0, **kw):
+    l1 = (logits - target).abs()
+    loss = torch.where(l1 < beta, 0.5 * l1 ** 2 / beta, l1 - 0.5 * beta)
+    return _reduce(loss, reduction)
+
+
+REG_LOSSES = {
+    "l1_loss": l1_loss,
+    "l2_loss": l2_loss,
+    "focal_l1_loss": focal_l1_loss,
+    "focal_l2_loss": focal_l2_loss,
+    "huber_loss": huber_loss,
+    # the configs' short names
+    "l1": l1_loss,
+    "l2": l2_loss,
+    "mse": l2_loss,
+    "huber": huber_loss,
+}
+
+
+def reg_loss(logits, targets, mode: str = "l1_loss", reduction: str = "mean",
+             **kw):
+    """Regression loss by name (``REG_LOSSES``), in float32 whatever the
+    compute dtype, the targets reshaped to the logits."""
+    logits = logits.float()
+    targets = targets.reshape(logits.shape).float()
+    return REG_LOSSES[mode](logits, targets, reduction=reduction, **kw)
+
+
+# ---------------------------------------------------------------------------
 # pseudo-label targets
 # ---------------------------------------------------------------------------
 

@@ -77,10 +77,12 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # the BERT-geometry text nets: BERT, DNABERT-2 and the generic HF text
 # classifier (the flax builders of the last two take no kernel switch)
 BERT_NETS = ("bert_", "dnabert_", "hf_text_")
+# the ViT family: the ViTs and DINOv2 on them
+VIT_NETS = ("vit_", "dinov2_")
 # nets whose MLP runs the fused kernels unless the config says otherwise, as
-# in the JAX package (K1 at ViT-S widths, K3 at C = 768), and the BERT
-# geometry's other text nets
-FUSED_MLP_NETS = ("vit_", "hubert_", "wave2vecv2_") + BERT_NETS
+# in the JAX package (K1 at ViT-S widths, K3 at C 768 and DINOv2 ViT-L/14's
+# 1024), and the BERT geometry's other text nets
+FUSED_MLP_NETS = VIT_NETS + ("hubert_", "wave2vecv2_") + BERT_NETS
 
 
 # No producer thread unless the config asks for one: set by the H100 A/B
@@ -111,11 +113,11 @@ def flash_auto_default(cfg: Config, device: torch.device) -> bool:
     BERT at ``max_length`` >= 384 (BERT-base at 512: 1.10-1.72x) and for
     HuBERT / wav2vec2 (HuBERT-base at N = 199: 1.08x, every flash window
     faster than every unfused one); DNABERT-2 and the HF text classifier,
-    BERT's geometry, as BERT. Shorter BERT runs are not measured yet and
-    stay off, as in the JAX package. The CPU runs the plain version either
-    way."""
+    BERT's geometry, as BERT. DINOv2 follows the ViT rule unmeasured.
+    Shorter BERT runs are not measured yet and stay off, as in the JAX
+    package. The CPU runs the plain version either way."""
     return device.type == "cuda" and (
-        cfg.net.startswith(("vit_", "hubert_", "wave2vecv2_"))
+        cfg.net.startswith(VIT_NETS + ("hubert_", "wave2vecv2_"))
         or (cfg.net.startswith(BERT_NETS) and cfg.max_length >= 384))
 
 
@@ -359,7 +361,10 @@ class Trainer:
                                         self.aug_spec, strong, self.generator)
         for k in ("y_lb", "idx_lb", "idx_ulb", "y_tfe_lb"):
             if k in raw:
-                batch[k] = self._to_device(raw[k].astype(np.int64))
+                # a regression set's labels stay float32
+                dt = (np.float32 if k == "y_lb" and self.cfg.is_regression
+                      else np.int64)
+                batch[k] = self._to_device(raw[k].astype(dt))
         return batch
 
     def _train_loader(self):

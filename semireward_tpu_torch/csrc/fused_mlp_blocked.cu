@@ -1,7 +1,9 @@
 // Hidden-blocked fused transformer MLP for Hopper (sm_90a):
 //   out = gelu(x @ W1^T + b1) @ W2^T + b2
-// forward and backward at C = 768 (ViT-B, BERT-base, HuBERT-base, wav2vec2-base;
-// H = 3072), as GEMMs on wgmma with TMA loads and fused epilogues.
+// forward and backward at any C that is a multiple of 64 (C 768: ViT-B,
+// DINOv2 ViT-B/14, BERT-base, HuBERT-base, wav2vec2-base, H 3072; C 1024:
+// DINOv2 ViT-L/14, H 4096; ops/fused_mlp.py:route sends K1's widths, C
+// 128-384, to K1), as GEMMs on wgmma with TMA loads and fused epilogues.
 //
 // Replaces the hidden-blocked Pallas TPU kernels of the JAX package:
 //   semireward_tpu/ops/fused_mlp.py:_fwd_blocked_kernel (launched by _fwd_blocked)
@@ -134,9 +136,13 @@ bool bn_ok(int bn) { return bn == 128 || bn == 256; }
 
 extern "C" {
 
-// Shapes the kernels take: C = 768, H a positive multiple of 32, M >= 1.
+// Shapes the kernels take: C a positive multiple of 64 (every K step of F1
+// and B1 and every 64-column box of B3's C side is whole), H a positive
+// multiple of 32, M >= 1. Nothing else depends on C: tiles past C or H are
+// guarded, the column-sum kernel loops over C, and the workspaces scale
+// with it.
 int srt_fused_mlp_blocked_supported(int C, int H) {
-  return C == 768 && H > 0 && H % 32 == 0;
+  return C > 0 && C % 64 == 0 && H > 0 && H % 32 == 0;
 }
 
 // h: [M, H] bf16 scratch for the hidden. bn_up / bn_down: tile widths of F1

@@ -1,6 +1,6 @@
 // The wgmma + TMA GEMM that the port's fused-MLP kernels share (sm_90a):
 // K1 (csrc/fused_mlp.cu, C 128-384) and K3 (csrc/fused_mlp_blocked.cu,
-// C 768) include it and define their own __global__ kernels around gemm<>.
+// C a multiple of 64) include it and define their own __global__ kernels around gemm<>.
 //
 // One GEMM, five kinds of product (the fused MLP's F1, F2; B1, B2, B3):
 //   UP    out0 = bf16(gelu(A B^T + bias))                  A [M, K], B [N, K]
@@ -995,7 +995,8 @@ int mlp_bwd(const MlpKernels& K, const void* x, const void* w1, const void* b1, 
   if (e != cudaSuccess) return (int)e;
   const int n_db2 = cdiv(M, COLSUM_ROWS);
   const ColsumKernel colsum = K.colsum;
-  colsum<<<n_db2, C / 2, 0, st>>>((const bf16*)g, (float*)ws_db2, M, C);
+  // two columns a thread; past C 2048 a block's threads loop over the columns
+  colsum<<<n_db2, C / 2 < 1024 ? C / 2 : 1024, 0, st>>>((const bf16*)g, (float*)ws_db2, M, C);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int64_t ch = (int64_t)C * H;

@@ -11,6 +11,10 @@ host only reads the files, and the batch it returns lies on the card. A file
 nvJPEG rejects (a PNG under a ``.JPEG`` name, a CMYK JPEG, a corrupt file)
 decodes on the host for that one image and is uploaded, as the JAX package's
 native route hands such files to PIL; the dataset counts them.
+
+The regression sets (``agedb``, ``imdb_wiki``, ``rcf_mnist``; ``num_classes``
+1, used with SRPseudoLabel's regression branch) read their preprocessed npz
+(``load_regression_folder``), as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -162,3 +166,24 @@ def get_imagenet(data_dir: str, img_size: int = 224, device=None):
         return JPEGFolderDataset(paths, ys, img_size, device)
 
     return scan("train"), scan("val")
+
+
+# ---------------------------------------------------------------------------
+# regression sets (the JAX package's cv_extra.py:201-218)
+# ---------------------------------------------------------------------------
+
+REGRESSION_DATASETS = ("agedb", "imdb_wiki", "rcf_mnist")
+
+
+def load_regression_folder(data_dir: str, name: str):
+    """``<data_dir>/<name>/<name>.npz``: ``{train,test}_x`` uint8 images
+    ``[n, H, W, 3]`` and ``{train,test}_y`` targets, read as float32."""
+    d = np.load(os.path.join(data_dir, name, f"{name}.npz"))
+    return ((d["train_x"], d["train_y"].astype(np.float32)),
+            (d["test_x"], d["test_y"].astype(np.float32)))
+
+
+def load_rcf_mnist(data_dir: str):
+    """RCF-MNIST (rotated coloured Fashion-MNIST, the target the rotation
+    angle), from its preprocessed npz."""
+    return load_regression_folder(data_dir, "rcf_mnist")

@@ -8,9 +8,11 @@ checks); the full-size JPEG folders (``imagenet``, ``imagenet127``,
 on the card unless the caller asks for the CPU. numpy (and scipy for SVHN's
 .mat) only, copied so that both packages produce the same arrays and splits
 for the same seed. Augmentation runs on the device (``data/augment``).
-Loaders read local files only; ``write_synthetic_stl10`` and
-``write_synthetic_jpeg_folder`` write seeded corpora in the layouts they
-read.
+The regression sets (``agedb``, ``imdb_wiki``, ``rcf_mnist``: float32
+targets, ``num_classes`` 1) read their npz (``data/cv_extra.py``).
+Loaders read local files only; ``write_synthetic_stl10``,
+``write_synthetic_regression`` and ``write_synthetic_jpeg_folder`` write
+seeded corpora in the layouts they read.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from semireward_tpu_torch.data.cv_extra import (REGRESSION_DATASETS,
+                                               load_regression_folder)
 from semireward_tpu_torch.data.split import split_ssl_data
 
 # per-dataset normalization constants (reference cifar.py:16-21, svhn.py,
@@ -51,7 +55,7 @@ MEAN_STD = {
 JPEG_DATASETS = ("imagenet", "imagenet127", "food101", "semi_aves")
 CV_DATASETS = ("cifar10", "cifar100", "svhn", "stl10", "eurosat",
                "tissuemnist", "medmnist", "synthetic", "synthetic_orbit",
-               *JPEG_DATASETS)
+               *JPEG_DATASETS, *REGRESSION_DATASETS)
 
 
 @dataclass
@@ -179,6 +183,36 @@ def write_synthetic_stl10(data_dir: str, seed: int = 0,
                 f.write((y + 1).astype(np.uint8).tobytes())
     open(os.path.join(base, "_complete"), "w").close()
     return base
+
+
+def write_synthetic_regression(data_dir: str, name: str = "agedb",
+                               seed: int = 0, n_train: int = 512,
+                               n_test: int = 128, size: int = 224) -> str:
+    """Write a seeded corpus in the npz layout of
+    ``cv_extra.load_regression_folder`` (``<data_dir>/<name>/<name>.npz``:
+    uint8 ``[n, size, size, 3]`` images, float32 targets uniform in [1,
+    101), AgeDB's age range) and return its path. An image is uniform
+    noise blended half and half with a grey level that grows with its
+    target, so the target can be learned. A finished file is kept as it
+    is."""
+    path = os.path.join(data_dir, name, f"{name}.npz")
+    if os.path.exists(path):
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rs = np.random.RandomState(seed)
+    arrays = {}
+    for split, n in (("train", n_train), ("test", n_test)):
+        y = rs.uniform(1.0, 101.0, n).astype(np.float32)
+        x = np.empty((n, size, size, 3), np.uint8)
+        for i in range(n):
+            level = y[i] / 101.0 * 255.0
+            x[i] = (0.5 * rs.randint(0, 256, (size, size, 3))
+                    + 0.5 * level).astype(np.uint8)
+        arrays[f"{split}_x"], arrays[f"{split}_y"] = x, y
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    return path
 
 
 _NOISE = {}
@@ -472,13 +506,27 @@ def _jpeg_bundle(cfg, device) -> SSLDataBundle:
 
 def get_dataset(cfg, alg: str = "fixmatch", device=None) -> SSLDataBundle:
     """Dataset-name dispatch: cifar10, cifar100, svhn, stl10, eurosat,
-    tissuemnist (local files), synthetic and synthetic_orbit, and the
+    tissuemnist (local files), synthetic and synthetic_orbit, the
     full-size JPEG folders (``JPEG_DATASETS``), which decode on ``device``
-    (default: the first CUDA card). The other datasets of the JAX package
-    are not ported yet (ROADMAP)."""
+    (default: the first CUDA card), and the regression sets
+    (``REGRESSION_DATASETS``). The other datasets of the JAX package are
+    not ported yet (ROADMAP)."""
     name = cfg.dataset
     if name in JPEG_DATASETS:
         return _jpeg_bundle(cfg, device)
+    if name in REGRESSION_DATASETS:
+        # float targets, num_classes 1: the labeled set is the first
+        # num_labels of a seeded permutation (no classes to balance)
+        (data, targets), (tdata, ttargets) = load_regression_folder(
+            cfg.data_dir, name)
+        perm = np.random.RandomState(cfg.seed).permutation(len(data))
+        lb_idx = perm[:cfg.num_labels]
+        ulb_idx = perm if cfg.include_lb_to_ulb else perm[cfg.num_labels:]
+        return SSLDataBundle(
+            train_lb=ArrayDataset(data[lb_idx], targets[lb_idx]),
+            train_ulb=ArrayDataset(data[ulb_idx], targets[ulb_idx]),
+            eval=ArrayDataset(tdata, ttargets), num_classes=1,
+            mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
     if name in ("cifar10", "cifar100"):
         loader = _load_cifar10 if name == "cifar10" else _load_cifar100
         try:

@@ -32,7 +32,11 @@ def infinite_indices(n: int, seed: int, rank: int = 0, world: int = 1
 
 
 def _class_balance_weights(targets, num_classes: int) -> np.ndarray:
-    """Inverse-class-frequency sampling weights, normalized."""
+    """Inverse-class-frequency sampling weights, normalized. A regression
+    set's float targets have no classes to balance: they raise."""
+    if np.issubdtype(np.asarray(targets).dtype, np.floating):
+        raise ValueError("class-balanced sampling needs integer class "
+                         "labels; a regression set's targets are floats")
     targets = np.asarray(targets, np.int64)
     cnt = np.bincount(targets, minlength=num_classes).astype(np.float64)
     w = (1.0 / np.maximum(cnt, 1))[targets]

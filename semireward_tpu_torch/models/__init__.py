@@ -1,9 +1,10 @@
-"""Model zoo of the port: the ViT, BERT (with DNABERT-2 and the generic
+"""Model zoo of the port: the ViT (and DINOv2 on it), BERT (with DNABERT-2 and the generic
 HF text classifier), HuBERT, wav2vec2, WideResNet and ResNet-50 builders, registered under the JAX package's names. ``model(x, train, only_fc, only_feat, generator)`` returns
 ``{'logits', 'feat'}`` like the flax models."""
 from __future__ import annotations
 
 from semireward_tpu_torch.models import bert as _bert
+from semireward_tpu_torch.models import dinov2 as _dinov2
 from semireward_tpu_torch.models import huggingface as _hf
 from semireward_tpu_torch.models import hubert as _hubert
 from semireward_tpu_torch.models import resnet as _resnet
@@ -16,6 +17,8 @@ for _name in ("vit_tiny_patch2_32", "vit_small_patch2_32",
               "vit_small_patch16_224", "vit_base_patch16_96",
               "vit_base_patch16_224"):
     NETS.register(getattr(_vit, _name), name=_name)
+for _name in ("dinov2_vitb14", "dinov2_vitl14"):
+    NETS.register(getattr(_dinov2, _name), name=_name)
 for _name in ("bert_base_uncased", "bert_base_cased"):
     NETS.register(getattr(_bert, _name), name=_name)
 for _name in ("dnabert_2_117m", "hf_text_classifier"):

@@ -48,7 +48,7 @@ from torch import nn
 from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.vit import _dropout, _layer_norm, _linear
 from semireward_tpu_torch.ops.attention import flash_attention
-from semireward_tpu_torch.ops.fused_mlp import fused_mlp, require_supported
+from semireward_tpu_torch.ops.fused_mlp import fused_mlp
 
 DROP = 0.1
 INTERMEDIATE = 3072
@@ -229,10 +229,6 @@ def _builder(name: str):
         with torch.device("meta"):
             model = ClassificationAudioTransformer(num_classes, dtype=dtype,
                                                    **fields)
-        layer = model.layer[0]
-        if layer.use_fused:
-            require_supported(layer.ff1.in_features, layer.ff1.out_features,
-                              device or "cpu")
         return init_audio_(model.to_empty(device=device or "cpu"), generator)
 
     build.__name__ = name

@@ -114,7 +114,10 @@ def load_vit_checkpoint(params: Mapping[str, torch.Tensor],
                         checkpoint_path: str, skip_head: bool = True
                         ) -> Dict[str, torch.Tensor]:
     """Graft a timm-style ViT state dict (the reference's released
-    pretrained ``.pth`` files) onto the port's ViT parameters."""
+    pretrained ``.pth`` files, DINOv2's too) onto the port's ViT
+    parameters. As in the JAX package, LayerScale (``blocks.i.ls1.gamma``
+    / ``ls2.gamma``) is not read: a grafted DINOv2 keeps ``ls1`` / ``ls2``
+    at their init."""
     sd = _torch_state_dict(checkpoint_path)
     g = Graft(params)
     if "pos_embed" in sd:
@@ -150,11 +153,7 @@ def load_pretrained(model_name: str, params: Mapping[str, torch.Tensor],
         raise FileNotFoundError(
             f"pretrain_path '{checkpoint_path}' not found (no network in this "
             f"environment — place the released .pth locally)")
-    if model_name.startswith("dinov2"):
-        raise NotImplementedError(
-            "pretrained DINOv2 weights wait for models/dinov2.py, which is "
-            "not ported yet (ROADMAP: more nets)")
-    if model_name.startswith("vit"):
+    if model_name.startswith(("vit", "dinov2")):
         return load_vit_checkpoint(params, checkpoint_path)
     if model_name.startswith("bert"):
         from semireward_tpu_torch.models.bert import load_hf_bert_weights

@@ -12,6 +12,12 @@ model's gate: unless training with attention dropout. Module names follow
 torch idiom (``blocks.0`` for flax ``blocks0``);
 ``semireward_tpu_torch.convert`` maps one onto the other.
 
+With ``init_values`` (DINOv2's LayerScale, ``models/dinov2.py``) each block
+scales its attention and MLP outputs by the float32 parameters ``ls1`` and
+``ls2`` (``[C]``, constant ``init_values`` at init) before the drop path:
+the bf16 branch times the float32 gamma is taken in float32 and cast to the
+residual's dtype, as JAX's promotion does in the flax block.
+
 With ``remat`` (the configs' ``gradient_checkpointing``) each block of a
 training forward under autograd runs inside
 ``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations are
@@ -36,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.initializers import init_module_
 from semireward_tpu_torch.ops.attention import flash_attention
-from semireward_tpu_torch.ops.fused_mlp import fused_mlp, require_supported
+from semireward_tpu_torch.ops.fused_mlp import fused_mlp
 
 
 def _linear(x, layer: nn.Linear, dtype):
@@ -160,14 +166,20 @@ class Block(nn.Module):
                  qkv_bias: bool = True, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  dtype=torch.bfloat16, use_fused_mlp: bool = False,
-                 use_flash: bool = False, remat: bool = False):
+                 use_flash: bool = False, remat: bool = False,
+                 init_values: Optional[float] = None):
         super().__init__()
+        # parameters in the flax block's order: norm1, attn, ls1, norm2,
+        # mlp, ls2
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop, dtype,
                               use_flash)
+        self.ls1 = nn.Parameter(torch.empty(dim)) if init_values else None
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype, use_fused_mlp)
+        self.ls2 = nn.Parameter(torch.empty(dim)) if init_values else None
         self.drop_path, self.dtype, self.remat = drop_path, dtype, remat
+        self.init_values = init_values
 
     def forward(self, x, train: bool, generator=None):
         s1 = _path_scale(x, self.drop_path, train, generator)
@@ -185,9 +197,13 @@ class Block(nn.Module):
     def _body(self, x, train: bool, generator, s1, s2):
         h = self.attn(_layer_norm(x, self.norm1).to(self.dtype), train,
                       generator)
+        if self.ls1 is not None:
+            h = h * self.ls1  # bf16 x f32 -> f32
         x = x + _apply_path(h.to(x.dtype), s1)
         h = self.mlp(_layer_norm(x, self.norm2).to(self.dtype), train,
                      generator)
+        if self.ls2 is not None:
+            h = h * self.ls2
         return x + _apply_path(h.to(x.dtype), s2)
 
 
@@ -203,7 +219,8 @@ class VisionTransformer(nn.Module):
                  qkv_bias: bool = True, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  dtype=torch.bfloat16, use_fused_mlp: bool = False,
-                 use_flash: bool = False, remat: bool = False):
+                 use_flash: bool = False, remat: bool = False,
+                 init_values: Optional[float] = None):
         super().__init__()
         self.num_classes, self.img_size, self.patch_size = (num_classes,
                                                             img_size,
@@ -221,7 +238,7 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate,
                   attn_drop_rate, dpr[i], dtype, use_fused_mlp, use_flash,
-                  remat)
+                  remat, init_values)
             for i in range(depth))
         if global_pool == "avg":
             self.fc_norm = nn.LayerNorm(embed_dim, eps=1e-6)
@@ -276,25 +293,33 @@ _VIT_ARGS = set(inspect.signature(VisionTransformer.__init__).parameters) - {
     "self", "num_classes", "dtype"}
 
 
+def build_vit(num_classes: int, dtype=torch.bfloat16, device=None,
+              generator: Optional[torch.Generator] = None,
+              **kw) -> VisionTransformer:
+    """A ``VisionTransformer`` of ``kw``'s geometry on ``device``, with the
+    flax model's init: torch-default kernels drawn from ``generator``, zero
+    biases and tokens, LayerScale at ``init_values``."""
+    with torch.device("meta"):
+        model = VisionTransformer(num_classes=num_classes, dtype=dtype, **kw)
+    model = model.to_empty(device=device or "cpu")
+    init_module_(model, generator)
+    with torch.no_grad():
+        model.cls_token.zero_()
+        model.pos_embed.zero_()
+        for blk in model.blocks:
+            if blk.init_values:
+                blk.ls1.fill_(blk.init_values)
+                blk.ls2.fill_(blk.init_values)
+    return model
+
+
 def _builder(name, **cfg):
     def build(num_classes: int, dtype=torch.bfloat16, device=None,
               generator: Optional[torch.Generator] = None,
               **kw) -> VisionTransformer:
         merged = dict(cfg)
         merged.update({k: v for k, v in kw.items() if k in _VIT_ARGS})
-        with torch.device("meta"):
-            model = VisionTransformer(num_classes=num_classes, dtype=dtype,
-                                      **merged)
-        mlp = model.blocks[0].mlp
-        if mlp.use_fused:
-            require_supported(mlp.fc1.in_features, mlp.fc1.out_features,
-                              device or "cpu")
-        model = model.to_empty(device=device or "cpu")
-        init_module_(model, generator)
-        with torch.no_grad():
-            model.cls_token.zero_()
-            model.pos_embed.zero_()
-        return model
+        return build_vit(num_classes, dtype, device, generator, **merged)
 
     build.__name__ = name
     build.layer_id_fn = layer_id

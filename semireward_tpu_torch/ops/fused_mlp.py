@@ -11,20 +11,25 @@ hidden]`` activation through device memory:
   (ViT-S, ViT-Ti); its GELU epilogues overlap the tensor-core work
   (ping-pong consumer warpgroups);
 - K3 (``csrc/fused_mlp_blocked.cu``), the port of the hidden-blocked
-  ``_fwd_blocked_kernel``/``_bwd_dx_kernel``/``_bwd_dw_kernel``, for C = 768
-  (ViT-B, BERT-base, HuBERT-base, wav2vec2-base; H = 3072), or wherever
-  ``block_h`` < H forces the blocked form.
+  ``_fwd_blocked_kernel``/``_bwd_dx_kernel``/``_bwd_dw_kernel``, for every
+  other C that is a multiple of 64 (C 768: ViT-B, DINOv2 ViT-B/14,
+  BERT-base, HuBERT-base, wav2vec2-base; C 1024: DINOv2 ViT-L/14), and for
+  K1's widths where ``block_h`` < H forces the blocked form.
 
-:func:`blocked_plan` picks both kernels' tile widths and K splits.
-A width neither kernel takes raises on a CUDA tensor: there is no plain path
-on the card. On a CPU tensor both run the plain PyTorch version below:
-bf16 (or the activation dtype) products with f32 accumulation, bias adds and
-GELU in f32, the hidden rounded to the activation dtype before the second
-product, ``dh`` rounded before ``dx``/``dW1``, f32 bias grads from the
-unrounded ``dh``, weight grads in the weights' dtype. The kernels compute
-the same function with the f32 sums taken in another order (per 64-wide K
-step). GELU is the exact erf form everywhere; the TPU kernel used an erf
-approximation only because Mosaic had no ``erf`` (max error 1.5e-7).
+:func:`blocked_plan` picks both kernels' tile widths and K splits. A width
+neither kernel takes (C not a multiple of 64) runs on a CUDA tensor as two
+dense layers (bf16 products, exact GELU), as the JAX package's
+``fused_mlp`` does where no hidden block fits: :func:`route` chooses that
+from the shape alone, never because a build or a launch failed, and each
+such forward counts in ``launches["fused_mlp_dense"]``. On a CPU tensor
+every width runs the plain PyTorch version below: bf16 (or the activation
+dtype) products with f32 accumulation, bias adds and GELU in f32, the
+hidden rounded to the activation dtype before the second product, ``dh``
+rounded before ``dx``/``dW1``, f32 bias grads from the unrounded ``dh``,
+weight grads in the weights' dtype. The kernels compute the same function
+with the f32 sums taken in another order (per 64-wide K step). GELU is the
+exact erf form everywhere; the TPU kernel used an erf approximation only
+because Mosaic had no ``erf`` (max error 1.5e-7).
 
 Weights use ``torch.nn.Linear``'s layout: ``w1 [H, C]``, ``w2 [C, H]``.
 """
@@ -39,9 +44,11 @@ import torch
 from semireward_tpu_torch.ops import _build
 
 # launches of each kernel wrapper (a backward counts once per call of its
-# kernel sequence)
+# kernel sequence), and the forwards that took the two dense layers on a
+# card
 launches = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
-            "fused_mlp_blocked_fwd": 0, "fused_mlp_blocked_bwd": 0}
+            "fused_mlp_blocked_fwd": 0, "fused_mlp_blocked_bwd": 0,
+            "fused_mlp_dense": 0}
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -121,12 +128,12 @@ def check_block_h(h: int, block_h) -> None:
 
 
 def route(c: int, h: int, device, block_h=None) -> str:
-    """Which kernel an MLP of width ``c`` and hidden ``h`` takes on
+    """Which path an MLP of width ``c`` and hidden ``h`` takes on
     ``device``: ``'plain'`` on the CPU; on a CUDA device ``'full'`` (K1)
     where K1 takes the width and ``block_h`` does not force hidden blocks
-    (``block_h`` < ``h``), else ``'blocked'`` (K3). Raises
-    ``NotImplementedError`` when neither kernel takes the width, and
-    ``ValueError`` for a ``block_h`` that does not divide ``h``."""
+    (``block_h`` < ``h``), else ``'blocked'`` (K3) where K3 takes it, else
+    ``'dense'`` (two dense layers). Raises ``ValueError`` for a ``block_h``
+    that does not divide ``h``."""
     check_block_h(h, block_h)
     if torch.device(device).type != "cuda":
         return "plain"
@@ -135,20 +142,18 @@ def route(c: int, h: int, device, block_h=None) -> str:
         return "full"
     if _blocked_lib().srt_fused_mlp_blocked_supported(c, h):
         return "blocked"
-    raise NotImplementedError(
-        f"fused MLP at C={c}, H={h}: neither the full-resident kernel (K1: "
-        f"C a multiple of 64 from 128 to 384, H a multiple of 32"
-        f"{'' if not forced else f'; block_h={block_h} forces hidden blocks'}"
-        f") nor the hidden-blocked one (K3: C = 768, H a multiple of 32) "
-        f"takes this width. Set use_fused_mlp False to run the MLP as two "
-        f"dense layers.")
+    return "dense"
 
 
-def require_supported(c: int, h: int, device) -> None:
-    """On a CUDA ``device``, raise ``NotImplementedError`` unless K1 or K3
-    takes an MLP of width ``c`` and hidden ``h`` (see :func:`route`). The
-    CPU runs the plain version at any width."""
-    route(c, h, device)
+def dense_mlp(x, w1, b1, w2, b2):
+    """The two dense layers of the JAX package's ``fused_mlp`` fallback:
+    bf16 (activation dtype) products with the biases cast to it, exact
+    GELU."""
+    dt = x.dtype
+    launches["fused_mlp_dense"] += 1
+    hid = torch.nn.functional.gelu(torch.nn.functional.linear(
+        x, w1.to(dt), b1.to(dt)))
+    return torch.nn.functional.linear(hid, w2.to(dt), b2.to(dt))
 
 
 def _check(name, t, shape, dtype):
@@ -441,14 +446,16 @@ class _FusedMLP(torch.autograd.Function):
 def fused_mlp(x, w1, b1, w2, b2, block_h=None):
     """``x`` [..., C] in the activation dtype; ``w1`` [H, C], ``w2`` [C, H]
     cast to it (as a Linear with a compute dtype does); biases in f32.
-    CPU tensors take the plain version, CUDA tensors K1 or K3
-    (:func:`route`; ``block_h`` < H forces K3, and must divide H as in the
-    JAX package), or an error when neither kernel takes the shape or
-    dtype."""
+    CPU tensors take the plain version, CUDA tensors K1, K3 or the two
+    dense layers (:func:`route`; ``block_h`` < H forces K3, and must divide
+    H as in the JAX package); a kernel raises on a dtype it does not
+    take."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mlp: no path for device {x.device}")
     lead, c = x.shape[:-1], x.shape[-1]
     kind = route(c, w1.shape[0], x.device, block_h)
+    if kind == "dense":
+        return dense_mlp(x, w1, b1, w2, b2)
     dt = x.dtype
     out = _FusedMLP.apply(x.reshape(-1, c).contiguous(), w1.to(dt).contiguous(),
                           b1.float().contiguous(), w2.to(dt).contiguous(),

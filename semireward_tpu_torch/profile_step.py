@@ -49,6 +49,8 @@ SYNTH_STL10 = os.path.join(_BUILD, "synth_stl10")
 # data/datasets.py:write_synthetic_jpeg_folder's ImageNet-layout corpora
 SYNTH_JPEG = {"imagenet": os.path.join(_BUILD, "synth_imagenet"),
               "imagenet127": os.path.join(_BUILD, "synth_imagenet127")}
+# data/datasets.py:write_synthetic_regression's npz sets (agedb, ...)
+SYNTH_REGRESSION = os.path.join(_BUILD, "synth_regression")
 
 
 def synthetic_config(path: str, overrides=None):
@@ -66,13 +68,18 @@ def synthetic_config(path: str, overrides=None):
     ImageNet-layout JPEG folder of that many train images and
     ``synthetic_test`` (256) val images of the YAML's classes does
     (``build/synth_imagenet``, ``build/synth_imagenet127``), decoded as the
-    YAML's dataset; for a text net the seeded aclImdb-layout corpus,
+    YAML's dataset; on a regression set (``agedb``, ``imdb_wiki``,
+    ``rcf_mnist``) a seeded npz of that many train images (1024 by
+    default) and ``synthetic_test`` (128) test images at ``img_size``
+    under ``build/synth_regression``; for a text net the seeded
+    aclImdb-layout corpus,
     written under ``build/synth_text`` on first use (for a ``dnabert*`` net
     the seeded CSV k-mer corpus, ``data/bio.py:write_synthetic_bio``, under
     ``build/synth_bio``); for an audio net the seeded ESC-50-layout corpus
     under ``build/synth_audio``. ``overrides``
     go on top."""
     from semireward_tpu_torch import config as config_lib
+    from semireward_tpu_torch.data.cv_extra import REGRESSION_DATASETS
     from semireward_tpu_torch.data.modality import modality_of
 
     overrides = {"use_pretrain": False, "resume": False, "start_timing": 10,
@@ -85,6 +92,16 @@ def synthetic_config(path: str, overrides=None):
         from semireward_tpu_torch.data.datasets import write_synthetic_stl10
         write_synthetic_stl10(SYNTH_STL10)
         return config_lib.from_yaml(path, {"data_dir": SYNTH_STL10,
+                                           **overrides})
+    if modality == "cv" and cfg.dataset in REGRESSION_DATASETS:
+        from semireward_tpu_torch.data.datasets import (
+            write_synthetic_regression)
+        write_synthetic_regression(
+            SYNTH_REGRESSION, cfg.dataset, seed=cfg.seed,
+            n_train=int(cfg.extra.get("synthetic_train", 1024)),
+            n_test=int(cfg.extra.get("synthetic_test", 128)),
+            size=cfg.img_size)
+        return config_lib.from_yaml(path, {"data_dir": SYNTH_REGRESSION,
                                            **overrides})
     if modality == "cv":
         n = max(2048, 2 * cfg.num_labels)

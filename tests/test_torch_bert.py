@@ -134,13 +134,15 @@ def test_registered_builders():
 
 
 def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
-    """The fused-MLP dispatch the model builders (and so the trainer) ask on
-    a CUDA device before they allocate anything: K1 widths (ViT-S's 384 and
-    ViT-Ti's 192 among them) go to K1, C = 768 / H = 3072 (ViT-B,
-    BERT-base) to K3, and a width neither kernel takes raises
-    ``NotImplementedError``. Without a card stand-in libraries answer as
-    ``srt_fused_mlp_supported`` (C a multiple of 64 from 128 to 384, H a
-    multiple of 32) and ``srt_fused_mlp_blocked_supported`` (C = 768, H a
+    """The fused-MLP dispatch on a CUDA device, chosen from the shape: K1
+    widths (ViT-S's 384 and ViT-Ti's 192 among them) go to K1, every other
+    C that is a multiple of 64 to K3 (C 768 / H 3072: ViT-B, BERT-base;
+    DINOv2 ViT-L/14's 1024 / 4096; 512, 448 and 64), as do K1's widths
+    where ``block_h`` forces hidden blocks, and a width neither kernel
+    takes (C 100) runs as two dense layers. Without a card stand-in
+    libraries answer as ``srt_fused_mlp_supported`` (C a multiple of 64
+    from 128 to 384, H a multiple of 32) and
+    ``srt_fused_mlp_blocked_supported`` (C a positive multiple of 64, H a
     multiple of 32) do; the card test asks the real ones."""
     from semireward_tpu_torch.models import get_net_builder
     from semireward_tpu_torch.ops import fused_mlp as tfm
@@ -156,7 +158,7 @@ def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
         @staticmethod
         def srt_fused_mlp_blocked_supported(c, h):
             asked.append(("K3", c, h))
-            return int(c == 768 and h % 32 == 0)
+            return int(c > 0 and c % 64 == 0 and h > 0 and h % 32 == 0)
 
     monkeypatch.setattr(tfm, "_lib", lambda: StandIn)
     monkeypatch.setattr(tfm, "_blocked_lib", lambda: StandIn)
@@ -167,24 +169,51 @@ def test_k1_width_gate_refuses_what_only_k3_takes(monkeypatch):
     assert tfm.route(768, 3072, "cpu") == "plain"           # never asks
     assert asked == [("K1", 384, 1536), ("K1", 192, 768), ("K1", 768, 3072),
                      ("K3", 768, 3072), ("K3", 768, 3072)]
-    with pytest.raises(NotImplementedError, match="forces hidden blocks"):
-        tfm.route(384, 1536, "cuda", block_h=512)           # K3 is C = 768
-    with pytest.raises(NotImplementedError, match="neither"):
-        tfm.require_supported(448, 1792, "cuda")            # past K1's 384
-    with pytest.raises(NotImplementedError, match="neither"):
-        tfm.require_supported(64, 256, "cuda")              # below K1's 128
+    assert tfm.route(1024, 4096, "cuda") == "blocked"       # DINOv2 ViT-L/14
+    assert tfm.route(512, 2048, "cuda") == "blocked"
+    assert tfm.route(448, 1792, "cuda") == "blocked"        # past K1's 384
+    assert tfm.route(64, 256, "cuda") == "blocked"          # below K1's 128
+    # K1's widths under forced hidden blocks: K3
+    assert tfm.route(384, 1536, "cuda", block_h=512) == "blocked"
+    assert tfm.route(100, 400, "cuda") == "dense"           # neither kernel
+    assert tfm.route(100, 400, "cpu") == "plain"
     with pytest.raises(ValueError, match="must divide"):
         tfm.route(768, 3072, "cuda", block_h=1000)
-    # the builders ask before they allocate: a width neither takes raises
-    # on a CUDA device without touching it
-    with pytest.raises(NotImplementedError, match="neither"):
-        get_net_builder("bert_base_uncased")(
-            num_classes=2, device="cuda", use_fused_mlp=True, layers=1,
-            hidden=64, heads=2, intermediate=256)
-    with pytest.raises(NotImplementedError, match="neither"):
-        get_net_builder("vit_tiny_patch2_32")(num_classes=2, device="cuda",
-                                              use_fused_mlp=True,
-                                              embed_dim=448, num_heads=7)
+    # the builders no longer refuse a width: the dense layers take it
+    with torch.device("meta"):
+        vit = get_net_builder("vit_tiny_patch2_32")(
+            num_classes=2, device="meta", use_fused_mlp=True, embed_dim=100,
+            num_heads=5)
+    assert vit.blocks[0].mlp.use_fused and vit.blocks[0].mlp.fc1.in_features == 100
+
+
+def test_dense_route_is_the_jax_two_dense_layers():
+    """The dense route computes the JAX package's fallback: bf16 products
+    with the biases cast to bf16, exact GELU (held against JAX's own
+    expression at C 100, 1e-2 of the largest magnitude: one bf16 rounding
+    each side), and counts its forwards."""
+    from semireward_tpu_torch.ops import fused_mlp as tfm
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(5, 100).astype(np.float32)
+    w1 = (rs.randn(100, 400) * 0.1).astype(np.float32)   # flax [in, out]
+    b1 = (rs.randn(400) * 0.1).astype(np.float32)
+    w2 = (rs.randn(400, 100) * 0.1).astype(np.float32)
+    b2 = (rs.randn(100) * 0.1).astype(np.float32)
+    dt = jnp.bfloat16
+    hid = jax.nn.gelu(jnp.asarray(x, dt) @ jnp.asarray(w1, dt)
+                      + jnp.asarray(b1).astype(dt), approximate=False)
+    want = np.asarray((hid @ jnp.asarray(w2, dt)
+                       + jnp.asarray(b2).astype(dt)).astype(jnp.float32))
+    tfm.reset_launches()
+    got = tfm.dense_mlp(torch.from_numpy(x).bfloat16(),
+                        torch.from_numpy(w1.T.copy()), torch.from_numpy(b1),
+                        torch.from_numpy(w2.T.copy()), torch.from_numpy(b2))
+    assert got.dtype == torch.bfloat16
+    assert tfm.launches["fused_mlp_dense"] == 1
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=1e-2 * scale)
 
 
 @pytest.mark.parametrize("net,max_length,device,want", [

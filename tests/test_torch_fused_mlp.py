@@ -146,6 +146,33 @@ def test_blocked_plan_covers_every_tile_once(m):
     _check_plan_covers_every_tile_once(m, 768, 3072, "blocked")
 
 
+@pytest.mark.parametrize("m,c,h", [(12336, 1024, 4096), (1, 1024, 4096),
+                                   (129, 1024, 4096), (4112, 1024, 4096),
+                                   (2749, 512, 2048), (100, 448, 1792),
+                                   (100, 64, 256)])
+def test_blocked_plan_covers_every_tile_once_at_every_width(m, c, h):
+    """K3's launch plan at the widths it takes besides 768: DINOv2
+    ViT-L/14's (C 1024, H 4096) at its train shape (16 + 16 images with
+    ``use_cat``: 48 * 257 = 12336 rows), its eval batch (16 * 257), small
+    ragged M, and C 512, 448 (a half-empty 256-wide column tile) and 64;
+    every forced tile width and B3 split at C 1024 is valid and covers
+    every tile once too."""
+    _check_plan_covers_every_tile_once(m, c, h, "blocked")
+    if (m, c) == (12336, 1024):
+        for bn in (128, 256):
+            for splits in range(1, F.GEMM_MAX_SPLITS + 1):
+                plan = F.blocked_plan(m, c, h, 132, bn=bn, dw_splits=splits)
+                assert plan["dw"]["splits"] == splits
+                assert plan["workspace"]["dw"] == (
+                    0 if splits == 1 else 2 * c * h * splits)
+                for name, (outputs, k, *_) in \
+                        F._blocked_products(m, c, h).items():
+                    tiles = F.blocked_tiles(outputs, k, plan[name]["bn"],
+                                            plan[name]["splits"])
+                    assert plan[name]["tiles"] == len(tiles)
+                    assert len(set(t[:4] for t in tiles)) == len(tiles)
+
+
 @pytest.mark.parametrize("m,c,h", [(6168, 384, 1536), (4112, 384, 1536),
                                    (1, 384, 1536), (129, 384, 1536),
                                    (6168, 192, 768)])

@@ -46,6 +46,14 @@ import semireward_tpu_torch.golden_quality
 import semireward_tpu_torch.draw_witness
 import semireward_tpu_torch.data.bio
 import semireward_tpu_torch.models.huggingface
+import semireward_tpu_torch.models.dinov2
+import semireward_tpu_torch.models.vit
+import semireward_tpu_torch.algorithms.pseudolabel
+import semireward_tpu_torch.algorithms.semireward
+import semireward_tpu_torch.core.losses
+import semireward_tpu_torch.data.cv_extra
+import semireward_tpu_torch.data.datasets
+import semireward_tpu_torch.data.loader
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',

@@ -26,32 +26,34 @@ def _close(got, want, rel, floor=0.0):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
-    """The dispatch on the card: K1 widths go to K1, C = 768 / H = 3072 to
-    K3, and a width neither takes raises (no plain path on the card)."""
-    x = torch.zeros(8, 64, device=cuda_device, dtype=torch.bfloat16)
-    w1 = torch.zeros(256, 64, device=cuda_device, dtype=torch.bfloat16)
-    w2 = torch.zeros(64, 256, device=cuda_device, dtype=torch.bfloat16)
-    b1 = torch.zeros(256, device=cuda_device)
-    b2 = torch.zeros(64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="neither"):
-        F.fused_mlp(x, w1, b1, w2, b2)             # C = 64 is not built
+    """The dispatch on the card: K1 widths go to K1, every other C that is
+    a multiple of 64 to K3 (C 768 / H 3072, DINOv2 ViT-L/14's 1024 / 4096,
+    448, 64), and a width neither takes (C 100) runs as two dense layers,
+    counted; a kernel refuses a dtype it does not take."""
+    x = torch.zeros(8, 100, device=cuda_device, dtype=torch.bfloat16)
+    w1 = torch.zeros(400, 100, device=cuda_device, dtype=torch.bfloat16)
+    w2 = torch.zeros(100, 400, device=cuda_device, dtype=torch.bfloat16)
+    b1 = torch.zeros(400, device=cuda_device)
+    b2 = torch.zeros(100, device=cuda_device)
+    F.reset_launches()
+    out = F.fused_mlp(x, w1, b1, w2, b2)       # C = 100: neither kernel
+    assert out.shape == (8, 100) and F.launches["fused_mlp_dense"] == 1
+    assert F.launches["fused_mlp_blocked_fwd"] == F.launches["fused_mlp_fwd"] == 0
     with pytest.raises(ValueError, match="bfloat16"):       # no f32 kernel
         F.fused_mlp(torch.zeros(8, 128, device=cuda_device),
-                    torch.zeros(256, 128, device=cuda_device), b1,
+                    torch.zeros(256, 128, device=cuda_device), b1[:256],
                     torch.zeros(128, 256, device=cuda_device),
                     torch.zeros(128, device=cuda_device))
-    # the model builders' gate asks the same kernel libraries
+    # the route asks the kernel libraries
     assert F.route(384, 1536, cuda_device) == "full"        # ViT-S: K1
     assert F.route(192, 768, cuda_device) == "full"         # ViT-Ti: K1
-    with pytest.raises(NotImplementedError, match="neither"):
-        F.require_supported(448, 1792, cuda_device)         # past K1's 384
+    assert F.route(448, 1792, cuda_device) == "blocked"     # past K1's 384
     assert F.route(768, 3072, cuda_device) == "blocked"     # ViT-B/BERT: K3
     assert F.route(768, 3072, cuda_device, block_h=768) == "blocked"
-    with pytest.raises(NotImplementedError, match="forces hidden blocks"):
-        F.route(384, 1536, cuda_device, block_h=768)        # K3 is C = 768
-    F.require_supported(768, 3072, cuda_device)
-    with pytest.raises(NotImplementedError, match="neither"):
-        F.require_supported(64, 256, cuda_device)
+    assert F.route(1024, 4096, cuda_device) == "blocked"    # DINOv2 ViT-L/14
+    assert F.route(384, 1536, cuda_device, block_h=768) == "blocked"
+    assert F.route(64, 256, cuda_device) == "blocked"
+    assert F.route(100, 400, cuda_device) == "dense"
     with pytest.raises(ValueError, match="must divide"):
         F.route(768, 3072, cuda_device, block_h=1000)
 
@@ -148,6 +150,134 @@ def test_blocked_kernels_every_width_and_split_on_the_card(cuda_device, m, h,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,c,h", [(12336, 1024, 4096), (4112, 1024, 4096),
+                                   (1, 1024, 4096), (129, 1024, 4096),
+                                   (2749, 512, 2048), (300, 448, 1792),
+                                   (100, 64, 256), (129, 2304, 512)])
+def test_blocked_kernels_match_plain_at_every_width_on_the_card(cuda_device,
+                                                                m, c, h):
+    """K3 at the widths it takes besides 768, on the plan the wrapper
+    picks: DINOv2 ViT-L/14's (C 1024, H 4096) at its train shape (16 + 16
+    images with ``use_cat``: 48 * 257 rows), its eval batch (16 * 257) and
+    M 1 and 129; C 512 at a ragged M; C 448 (a half-empty 256-wide column
+    tile) and 64; C 2304, past the 2048 columns that one block of the
+    column-sum kernel covers in one pass."""
+    _check_kernels(cuda_device, m, c, h, "blocked")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_blocked_kernels_every_width_and_split_at_c1024_on_the_card(
+        cuda_device, bn, splits):
+    """K3 at C 1024, H 4096 on every tile width and B3 K split, at a
+    ragged M."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = F.blocked_plan(1300, 1024, 4096, sms, bn=bn, dw_splits=splits)
+    assert plan["dw"]["splits"] == splits
+    _check_kernels(cuda_device, 1300, 1024, 4096, "blocked", plan)
+
+
+def _dinov2_pair(cuda_device, name, num_classes):
+    """The same DINOv2 net twice on the card (bf16): through K2 + K3 and
+    through the plain attention and MLP."""
+    from semireward_tpu_torch.models import get_net_builder
+
+    nets = [get_net_builder(name)(
+        num_classes=num_classes, device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(0),
+        use_fused_mlp=k, use_flash=k) for k in (True, False)]
+    nets[1].load_state_dict(nets[0].state_dict())
+    with torch.no_grad():  # LayerScale off its 1e-5, so the blocks matter
+        for net in nets:
+            for blk in net.blocks:
+                blk.ls1.fill_(0.5)
+                blk.ls2.fill_(0.5)
+    return nets
+
+
+def _cosine(a, b):
+    a, b = (torch.cat([t.float().flatten() for t in g]) for g in (a, b))
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+@pytest.mark.cuda
+def test_dinov2_vitl14_step_on_the_card_through_k2_and_k3(cuda_device):
+    """``dinov2_vitl14`` (C 1024, 16 heads, N 257) on the card: logits
+    through K2 + K3 (K3 at C 1024) within 2% of the plain path's on the
+    same weights, and one train step's gradients at cosine >= 0.99 of the
+    plain path's, one forward and one backward of each kernel a block."""
+    fused, plain = _dinov2_pair(cuda_device, "dinov2_vitl14", 10)
+    x = torch.randn(4, 224, 224, 3, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device
+                                              ).manual_seed(1))
+    F.reset_launches()
+    A.reset_launches()
+    grads = []
+    for net in (fused, plain):
+        out = net(x, train=True)
+        loss = out["logits"].float().logsumexp(-1).mean()
+        grads.append(torch.autograd.grad(loss, list(net.parameters())))
+        if net is fused:
+            logits = out["logits"].detach().float().cpu().numpy()
+        else:
+            _close(logits, out["logits"].detach().float().cpu().numpy(),
+                   2e-2)
+    torch.cuda.synchronize()
+    assert F.launches["fused_mlp_blocked_fwd"] == 24
+    assert F.launches["fused_mlp_blocked_bwd"] == 24
+    assert F.launches["fused_mlp_dense"] == 0
+    assert A.launches == {"flash_attention_fwd": 24,
+                          "flash_attention_bwd": 24}
+    assert all(bool(torch.isfinite(g).all()) for g in grads[0])
+    assert _cosine(*grads) >= 0.99
+
+
+@pytest.mark.cuda
+def test_dinov2_vitb14_regression_step_on_the_card(cuda_device):
+    """PseudoLabel's regression loss on ``dinov2_vitb14`` with one output
+    (three forwards: labeled, noisy and clean unlabeled) through K2 + K3
+    against the plain path on the same weights and noise: losses within
+    2%, gradients at cosine >= 0.99; K3 and K2 forwards 3 a block, their
+    backwards 2."""
+    from semireward_tpu_torch.algorithms.base import StepCtx
+    from semireward_tpu_torch.config import get_config
+    from semireward_tpu_torch.registry import ALGORITHMS
+
+    cfg = get_config(algorithm="pseudolabel", num_classes=1)
+    assert cfg.is_regression
+    alg = ALGORITHMS.get("pseudolabel")(cfg, {}, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    batch = {"x_lb": torch.randn(4, 224, 224, 3, device=cuda_device,
+                                 generator=g),
+             "x_ulb_w": torch.randn(4, 224, 224, 3, device=cuda_device,
+                                    generator=g),
+             "y_lb": torch.rand(4, device=cuda_device, generator=g) * 100}
+    outs, grads = [], []
+    F.reset_launches()
+    A.reset_launches()
+    for net in _dinov2_pair(cuda_device, "dinov2_vitb14", 1):
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        out = alg.loss(StepCtx(model=net, batch=batch, algo_state=(),
+                               generator=gen, step=1000, sr_state=None,
+                               ema=None))
+        outs.append([float(out.sup_loss), float(out.unsup_loss)])
+        grads.append(torch.autograd.grad(out.total_loss,
+                                         list(net.parameters())))
+        if len(outs) == 1:
+            launches = {**F.launches, **A.launches}
+    torch.cuda.synchronize()
+    _close(np.array(outs[0]), np.array(outs[1]), 2e-2)
+    assert outs[0][1] > 0.0 and all(map(math.isfinite, outs[0]))
+    assert _cosine(*grads) >= 0.99
+    assert launches == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
+                        "fused_mlp_blocked_fwd": 36,
+                        "fused_mlp_blocked_bwd": 24, "fused_mlp_dense": 0,
+                        "flash_attention_fwd": 36,
+                        "flash_attention_bwd": 24}
+
+
+@pytest.mark.cuda
 def test_fused_mlp_autograd_launches_the_blocked_kernels(cuda_device):
     """fused_mlp at C 768 / H 3072 on CUDA tensors launches K3's forward
     once and its backward once, and gives the plain version's gradients."""
@@ -158,7 +288,7 @@ def test_fused_mlp_autograd_launches_the_blocked_kernels(cuda_device):
     torch.cuda.synchronize()
     assert F.launches == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
                           "fused_mlp_blocked_fwd": 1,
-                          "fused_mlp_blocked_bwd": 1}
+                          "fused_mlp_blocked_bwd": 1, "fused_mlp_dense": 0}
     dx, dw1, dw2, db1, db2 = F.plain_bwd(x, w1, b1, w2, gy)
     for got, want, rel in ((leaves[0].grad, dx, 1e-2), (leaves[1].grad, dw1, 1e-2),
                            (leaves[2].grad, db1, 1e-3), (leaves[3].grad, dw2, 1e-2),

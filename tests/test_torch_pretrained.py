@@ -225,8 +225,12 @@ def test_missing_or_unported_files_raise(tmp_path):
                                str(tmp_path / "absent.pth"))
     path = tmp_path / "x.pth"
     torch.save({}, str(path))
-    with pytest.raises(NotImplementedError, match="dinov2"):
-        tutils.load_pretrained("dinov2_vitb14", params, str(path))
+    # DINOv2 grafts through the ViT's loader (tests/test_torch_dinov2.py);
+    # a family with no loader raises in both packages
+    with pytest.raises(NotImplementedError, match="resnet50"):
+        tutils.load_pretrained("resnet50", params, str(path))
+    with pytest.raises(NotImplementedError, match="resnet50"):
+        jutils.load_pretrained("resnet50", {}, str(path))
 
 
 def _vit_cfg(tmp_path, **kw):

@@ -82,7 +82,7 @@ def _check_leaf(name, got, want, lr_bound, min_far=0):
 
 def run_three_sr_steps(name, check_algo, over=None, extra=None,
                        before_step=None, trained_at=(2,), rewarder_far=0,
-                       views=None):
+                       views=None, arch=None, size=S):
     """Three ``name`` steps of both packages from the same weights on the
     same injected views (three drawn a step, the ones the algorithm
     consumes passed in); after each,
@@ -95,16 +95,18 @@ def run_three_sr_steps(name, check_algo, over=None, extra=None,
     ``trained_at`` and only there, each of its leaves with up to
     ``rewarder_far`` elements at the Adam bound where 0.1% is fewer.
     ``views(step)`` gives a step's float32 views in place of the drawn
-    ones."""
+    ones. ``arch`` replaces ``ARCH`` (on both sides), ``size`` the image
+    size."""
+    arch = ARCH if arch is None else arch
     cfg = dict(CFG, algorithm=name, **(over or {}))
     jcfg, tcfg = jax_config(**cfg), torch_config(**cfg)
     jcfg.extra.update(extra or {})
     tcfg.extra.update(extra or {})
     jalg = JALGS.get(name)(jcfg, DATA_INFO)
     jmodel = jvit.vit_small_patch2_32(num_classes=NC, dtype=jnp.float32,
-                                      **ARCH)
+                                      **arch)
     jstate, tx = jax_init(jcfg, jalg, jmodel, jax.random.PRNGKey(0),
-                          jnp.zeros((2, S, S, 3)),
+                          jnp.zeros((2, size, size, 3)),
                           builder=jvit.vit_small_patch2_32)
     params = _perturb(jstate.params, 0.02)
     jstate = jstate.replace(params=params, ema_params=params)
@@ -112,7 +114,7 @@ def run_three_sr_steps(name, check_algo, over=None, extra=None,
 
     talg = TALGS.get(name)(tcfg, DATA_INFO, torch.device("cpu"))
     tmodel = tvit.vit_small_patch2_32(num_classes=NC, dtype=torch.float32,
-                                      **ARCH)
+                                      **arch)
     load_flax_params(tmodel, jax.device_get(params))
     tstate = torch_init(tcfg, talg, tmodel, builder=tvit.vit_small_patch2_32)
     load_flax_params(tstate.sr.rewarder,
@@ -124,7 +126,7 @@ def run_three_sr_steps(name, check_algo, over=None, extra=None,
     names = [n for n, _ in tmodel.named_parameters()]
     make_views = views
     for step in range(3):
-        views = {k: rs.randn(B, S, S, 3).astype(np.float32)
+        views = {k: rs.randn(B, size, size, 3).astype(np.float32)
                  for k in ("x_lb", "x_ulb_w", "x_ulb_s")}
         if make_views is not None:
             views = make_views(step)
@@ -204,7 +206,7 @@ def test_trainer_two_steps_on_cpu(tmp_path):
     # the CPU path runs the plain version, never a kernel
     assert F.launches == {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
                           "fused_mlp_blocked_fwd": 0,
-                          "fused_mlp_blocked_bwd": 0}
+                          "fused_mlp_blocked_bwd": 0, "fused_mlp_dense": 0}
     logits = tr.predict(tr.bundle.eval.data[:5])
     assert logits.shape == (5, NC) and np.isfinite(logits).all()
     assert sorted(p.name for p in (tmp_path / "run").iterdir()) == [

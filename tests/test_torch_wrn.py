@@ -358,15 +358,18 @@ def test_get_dataset_matches_jax(tmp_path, name, num_labels, num_classes):
 def test_imagenet_is_refused_by_name(tmp_path):
     """No longer refused: ``imagenet`` and ``imagenet127`` reach the
     JPEG-folder loader (tests/test_torch_jpeg.py), which reads the local
-    ImageNet layout; an unknown name still raises naming the ported
-    ones."""
+    ImageNet layout; a name the port does not read yet (``pathmnist``, a
+    MedMNIST member of the JAX package's) still raises naming the ported
+    ones, the regression sets among them (tests/test_torch_regression.py
+    reads them)."""
     for name in ("imagenet", "imagenet127"):
         with pytest.raises(FileNotFoundError, match="imagenet.train"):
             TD.get_dataset(torch_config(dataset=name,
                                         data_dir=str(tmp_path)),
                            device="cpu")
-    with pytest.raises(KeyError, match="imagenet127, food101, semi_aves"):
-        TD.get_dataset(torch_config(dataset="agedb"))
+    with pytest.raises(KeyError, match="imagenet127, food101, semi_aves, "
+                                       "agedb, imdb_wiki, rcf_mnist"):
+        TD.get_dataset(torch_config(dataset="pathmnist"))
 
 
 def test_trainer_runs_classic_cv_on_cpu(tmp_path):
