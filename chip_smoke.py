@@ -405,11 +405,13 @@ def imb_yaml(base: str, name: str) -> str:
 # the labels (100,000 -> 2,000) and the images (1.28M JPEGs -> 4,096
 # synthetic train and 256 eval images); the YAML's 4-way FSDP mesh runs as
 # one card; p_cutoff 0, so that FlexMatch's selected_label moves within the
-# short phase
+# short phase. The YAML's (-1, 4) data x fsdp mesh does not fit one card
+# (it fails as the JAX package's build_mesh does): the phases set one axis
 VITB_YAML = os.path.join(HERE, "config/SemiReward/imagenet_stretch/"
                          "flexmatch/flexmatch_imagenet_100000_0.yaml")
+ONE_CARD_MESH = {"mesh_shape": (-1,), "mesh_axes": ("data",)}
 VITB_OVERRIDES = {"num_labels": 2000, "synthetic_train": 4096,
-                  "p_cutoff": 0.0}
+                  "p_cutoff": 0.0, **ONE_CARD_MESH}
 VITB_STEPS, VITB_AB_STEPS = 22, 4
 # DINOv2 (the imagenet_stretch YAMLs with their net swapped; no corpus YAML
 # names DINOv2 or a regression set). ``dinov2_vitl14_srflexmatch``:
@@ -431,7 +433,8 @@ DINO_REG_YAML = os.path.join(HERE, "config/SemiReward/imagenet_stretch/"
                              "pseudolabel/pseudolabel_imagenet_100000_0.yaml")
 DINO_REG_OVERRIDES = {"net": "dinov2_vitb14", "dataset": "agedb",
                       "num_classes": 1, "num_labels": 256, "batch_size": 16,
-                      "synthetic_train": 1024, "synthetic_test": 128}
+                      "synthetic_train": 1024, "synthetic_test": 128,
+                      **ONE_CARD_MESH}
 DINO_STEPS, DINO_LOG_EVERY = 24, 12
 # K3 at the widths it takes besides 768: (M, C, H, timed). ViT-L/14's train
 # shape is timed (the kernels line's C 1024 rows); M 1 and 129 and a
@@ -2221,6 +2224,353 @@ def dinov2_phases(F, A):
                         k23)]
 
 
+# K4 and the mesh (parallel/mesh.py) on one card. K2's forward with the
+# shard's offsets at the BERT-base train shape (B 12, N 512, H 12, dropout
+# 0.1, key bias) over 4 batch shards and over 2 x 2 batch x head shards;
+# K1 at the headline M 6168 over 4 row shards and over 4 hidden slices (H
+# 1536 / 4), K3 at HuBERT-base's M 4776 over 4 row shards. Then the
+# trainer through a one-rank NCCL group, 22 steps each: ViT-B/16 SRFlexMatch
+# on the imagenet_stretch YAML at depth 2 and 64 + 64 (data x fsdp (1, 1), against
+# the same run without a mesh), and the headline ViT-S/2-32 at depth 2 on a
+# data mesh (1,) and, with split_qkv, on data x model (1, 1)
+MESH_K2_SHARDS = (("flash_attention_sharded_fwd", 4, 1),
+                  ("flash_attention_sharded_heads_fwd", 2, 2))
+MESH_MLP_SHARDS = (("fused_mlp_sharded", 6168, 384, 1536, "rows"),
+                   ("fused_mlp_tp_sharded", 6168, 384, 1536, "hidden"),
+                   ("fused_mlp_blocked_sharded", 4776, 768, 3072, "rows"))
+MESH_SHARDS = 4
+MESH_STEPS, MESH_LOG_EVERY = 22, 11  # past the harness's stage-2 checks
+# the ViT-B/16 runs on seeded synthetic 224 px arrays of the YAML's 1000
+# classes (one label each), made once for both, so that the phase runs
+# before the JPEG folders exist
+MESH_VITB = {**VITB_OVERRIDES, "dataset": "synthetic", "num_labels": 1000,
+             "synthetic_train": 1024, "synthetic_test": 64, "batch_size": 64,
+             "net_kwargs": {"depth": 2}}
+MESH_VITS = {"net_kwargs": {"depth": 2}, "p_cutoff": 0.0}
+
+
+def _shard_mesh(nb: int, nm: int, rank: int):
+    """The mesh coordinate ``rank`` of an ``nb`` x ``nm`` data x model
+    layout (data alone where ``nm`` is 1) without process groups: its
+    collectives are identities, so a K4 wrapper called on that rank's
+    slice gives that rank's part."""
+    from semireward_tpu_torch.parallel.mesh import Mesh
+    if nm == 1:
+        return Mesh((nb,), ("data",), rank=rank, groups=False)
+    return Mesh((nb, nm), ("data", "model"), rank=rank, groups=False)
+
+
+def _k2_shard_rows(A):
+    """K4's attention form, ``flash_attention_sharded``, on each shard's
+    rows and heads (its mesh coordinate set, no groups): out and dq / dk /
+    dv bit-equal to the slices of one whole ``flash_attention`` call, and
+    the kernel's lse and keep bits at the wrapper's offsets bit-equal to
+    the whole call's; the whole call's bits are the plain stream's, with
+    the seed as one value or as ``seed_arg``'s four; each layout's first
+    shard's wrapper against the plain version, and timed."""
+    dev = torch.device("cuda")
+    B, N, H, d, rate = 12, 512, 12, 64, 0.1
+    q, k, v, do, bias4 = _attn_inputs(B, N, H, d, True)
+    kb = A._key_bias_of(bias4, B, H, N)
+    seed = torch.tensor([20240601], dtype=torch.int32, device=dev)
+    out, lse, bits = A.kernel_fwd(q, k, v, kb, seed, rate, keep_bits=True)
+    _, _, bits4 = A.kernel_fwd(q, k, v, kb, A.seed_arg(seed, dev, H), rate,
+                               keep_bits=True)
+    want = A.pack_keep_bits(A.attention_keep_mask(
+        seed, B * H, N, A.padded_len(N), A.keep_threshold(rate)))
+    if not (torch.equal(bits, want) and torch.equal(bits4, want)):
+        raise AssertionError("the unsharded K2 call's bits left the stream")
+    print("k2 unsharded: keep bits = the plain stream, one-value and "
+          "four-value seed: ok")
+    qw, kw, vw = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    whole = A.flash_attention(qw, kw, vw, bias4, rate, seed)
+    grads = torch.autograd.grad(whole, (qw, kw, vw), do)
+    if not torch.equal(whole, out):
+        raise AssertionError("flash_attention's out is not its kernel's")
+    per_bh = lambda t: t.view(B, H, *t.shape[1:])
+    rows = {}
+    for name, nb, nm in MESH_K2_SHARDS:
+        r, hl = B // nb, H // nm
+        for i in range(nb):
+            for j in range(nm):
+                mesh = _shard_mesh(nb, nm, i * nm + j)
+                bs, hs = slice(i * r, (i + 1) * r), slice(j * hl, (j + 1) * hl)
+                qs, ks, vs = (t[bs, :, hs].detach().clone().requires_grad_()
+                              for t in (q, k, v))
+                o = A.flash_attention_sharded(qs, ks, vs, bias4[bs], rate,
+                                              seed, mesh=mesh)
+                g = torch.autograd.grad(o, (qs, ks, vs),
+                                        do[bs, :, hs].contiguous())
+                s4 = A.seed_arg(seed, dev, hl, bh_offset=i * r * H + j * hl,
+                                local_heads=hl, head_stride=H)
+                _, l, b = A.kernel_fwd(qs.detach(), ks.detach(), vs.detach(),
+                                       A._key_bias_of(bias4[bs], r, hl, N),
+                                       s4, rate, keep_bits=True)
+                torch.cuda.synchronize()
+                same = (torch.equal(o, out[bs, :, hs])
+                        and torch.equal(l, per_bh(lse)[bs, hs].reshape(-1, N))
+                        and torch.equal(b, per_bh(bits)[bs, hs].reshape(
+                            r * hl, N, -1))
+                        and all(torch.equal(a, w[bs, :, hs])
+                                for a, w in zip(g, grads)))
+                if not same:
+                    raise AssertionError(f"{name} shard ({i}, {j}) differs "
+                                         f"from the whole call's slice")
+        print(f"{name}: {nb} x {nm} shards of B {r}, H {hl} through "
+              f"flash_attention_sharded: out and dq / dk / dv, lse and keep "
+              f"bits bit-equal to the whole call's slices")
+        # the first shard's wrapper against the plain version, and timed
+        mesh = _shard_mesh(nb, nm, 0)
+        qs, ks, vs = (t[:r, :, :hl].detach().clone().requires_grad_()
+                      for t in (q, k, v))
+        kbs = A._key_bias_of(bias4[:r], r, hl, N)
+        s4 = A.seed_arg(seed, dev, hl, local_heads=hl, head_stride=H)
+        plain_args = (qs.detach(), ks.detach(), vs.detach(), kbs, s4, rate)
+
+        def wrapper():
+            return A.flash_attention_sharded(qs, ks, vs, bias4[:r], rate,
+                                             seed, mesh=mesh)
+
+        o = wrapper()
+        err = check_close(f"{name} out", o, A.plain_fwd(*plain_args)[0],
+                          1e-2)
+        ql, kl, vl = (t.detach().transpose(1, 2).contiguous()
+                      for t in (qs, ks, vs))
+        mask = bias4[:r].to(torch.bfloat16)
+        flops = 2.0 * 2 * r * hl * N * N * d
+        lse_s = torch.empty(r * hl, N, device=dev)
+        bnd, by = bound_ms(nbytes(*plain_args[:5], o, lse_s), flops)
+        rows[name] = dict(
+            max_abs_err=err, ms=time_ms(wrapper),
+            plain_ms=time_ms(lambda: A.plain_fwd(*plain_args), iters=5),
+            bound_ms=bnd, bound_by=by,
+            library_ms=time_ms(lambda: torch.nn.functional.
+                               scaled_dot_product_attention(
+                                   ql, kl, vl, attn_mask=mask,
+                                   dropout_p=rate)))
+        print(json.dumps({"kernel": name, "B": r, "N": N, "H": hl,
+                          "shards": [nb, nm], **rows[name]}))
+    return rows
+
+
+def _mlp_shard_rows(F):
+    """K4's MLP forms, ``fused_mlp_sharded`` per row shard and
+    ``fused_mlp_tp_sharded`` per hidden slice (each shard's mesh coordinate
+    set, no groups), through autograd, against one whole ``fused_mlp``
+    call: the rows' outputs and dx, dW / db summed over the shards (the
+    step's sync); the hidden slices' outputs with a zero b2 (the partials)
+    and dx summed (the form's sums over ``model``) plus b2 once, dW1 / db1
+    / dW2 the whole call's slices,
+    db2 its column sums; within the kernels' tolerances (1e-2 of
+    max|whole| for the bf16 tensors, 1e-3 for the f32 bias sums). Each
+    form's first shard against the plain version, and its wrapper timed."""
+    dev = torch.device("cuda")
+    rows = {}
+    for name, m, c, h, split in MESH_MLP_SHARDS:
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(m, c, generator=g).to(dev, torch.bfloat16)
+        w1 = (torch.randn(h, c, generator=g) * 0.05).to(dev, torch.bfloat16)
+        b1 = (torch.randn(h, generator=g) * 0.1).to(dev)
+        w2 = (torch.randn(c, h, generator=g) * 0.05).to(dev, torch.bfloat16)
+        b2 = (torch.randn(c, generator=g) * 0.1).to(dev)
+        gy = torch.randn(m, c, generator=g).to(dev, torch.bfloat16)
+        leaves = lambda ts: [t.detach().clone().requires_grad_() for t in ts]
+        whole_in = leaves((x, w1, b1, w2, b2))
+        out = F.fused_mlp(*whole_in)
+        dx, dw1, db1, dw2, db2 = torch.autograd.grad(out, whole_in, gy)
+        n = MESH_SHARDS
+        if split == "rows":
+            mr = m // n
+            shard = lambda i: (x[i * mr:(i + 1) * mr], w1, b1, w2, b2,
+                               gy[i * mr:(i + 1) * mr])
+            call = lambda i, t: F.fused_mlp_sharded(
+                *t, mesh=_shard_mesh(n, 1, i))
+        else:
+            # a zero b2: each output is the partial the form sums over
+            # ``model`` before it adds b2 (the timed call takes the real b2)
+            hs, zero = h // n, torch.zeros_like(b2)
+            shard = lambda i: (x, w1[i * hs:(i + 1) * hs],
+                               b1[i * hs:(i + 1) * hs],
+                               w2[:, i * hs:(i + 1) * hs], zero, gy)
+            call = lambda i, t: F.fused_mlp_tp_sharded(
+                *t, mesh=_shard_mesh(1, n, i), hidden=h)
+        kind = F.route(c, shard(0)[1].shape[0], dev)
+        outs, parts = [], []
+        for i in range(n):
+            ins = leaves(shard(i)[:5])
+            outs.append(call(i, ins))
+            parts.append(torch.autograd.grad(outs[-1], ins, shard(i)[5]))
+        torch.cuda.synchronize()
+        if split == "rows":
+            got = {"out": torch.cat(outs), "dx": torch.cat([p[0] for p in parts]),
+                   **{k: sum(p[i].float() for p in parts)
+                      for i, k in ((1, "dw1"), (3, "dw2"), (2, "db1"),
+                                   (4, "db2"))}}
+        else:
+            got = {"out": sum(o.float() for o in outs) + b2,
+                   "dx": sum(p[0].float() for p in parts),
+                   "dw1": torch.cat([p[1] for p in parts]),
+                   "dw2": torch.cat([p[3] for p in parts], 1),
+                   "db1": torch.cat([p[2] for p in parts]),
+                   "db2": parts[0][4]}
+        want = {"out": out, "dx": dx, "dw1": dw1, "dw2": dw2, "db1": db1,
+                "db2": db2}
+        print(f"{name}: M={m} C={c} H={h} {n} {split} shards through the "
+              f"K4 wrapper ({kind})")
+        for k, w in want.items():
+            check_close(f"  {k} of the shards vs the whole call", got[k], w,
+                        1e-3 if k.startswith("db") else 1e-2)
+        xs, w1s, b1s, w2s, zero, gs = shard(0)
+        w2s, b2s = w2s.contiguous(), b2
+        ins = leaves((xs, w1s, b1s, w2s, b2s))
+        y = call(0, ins)
+        if split == "rows":
+            zero = b2s
+        plain_out = F.plain_fwd(xs, w1s, b1s, w2s, zero) + (b2s - zero)
+        err_f = check_close(f"{name} shard fwd", y, plain_out, 1e-2)
+        p_dx, p_dw1, p_dw2, p_db1, p_db2 = F.plain_bwd(xs, w1s, b1s, w2s, gs)
+        err_b = max(check_close(f"{name} shard bwd {k}", a, b,
+                                1e-3 if k.startswith("db") else 1e-2)
+                    for k, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"),
+                                       parts[0],
+                                       (p_dx, p_dw1, p_db1, p_dw2, p_db2)))
+        ms, cs, hs_ = xs.shape[0], xs.shape[1], w1s.shape[0]
+        xl, w1l, b1l, w2l, b2l = (t.detach().clone().requires_grad_()
+                                  for t in (xs, w1s, b1s.bfloat16(), w2s,
+                                            b2s.bfloat16()))
+
+        def lib_fwd():
+            return torch.addmm(b2l, torch.nn.functional.gelu(
+                torch.addmm(b1l, xl, w1l.t())), w2l.t())
+
+        lib_out = lib_fwd()
+        bf, byf = bound_ms(nbytes(xs, w1s, b1s, w2s, b2s, outs[0]),
+                           4.0 * ms * cs * hs_)
+        bb, byb = bound_ms(nbytes(xs, w1s, b1s, w2s, gs, *parts[0]),
+                           10.0 * ms * cs * hs_)
+        rows[f"{name}_fwd"] = dict(
+            max_abs_err=err_f, ms=time_ms(lambda: call(0, ins)),
+            plain_ms=time_ms(lambda: F.plain_fwd(xs, w1s, b1s, w2s, b2s)),
+            bound_ms=bf, bound_by=byf,
+            library_ms=time_ms(lambda: lib_fwd().detach()))
+        rows[f"{name}_bwd"] = dict(
+            max_abs_err=err_b,
+            ms=time_ms(lambda: torch.autograd.grad(y, ins, gs,
+                                                   retain_graph=True)),
+            plain_ms=time_ms(lambda: F.plain_bwd(xs, w1s, b1s, w2s, gs)),
+            bound_ms=bb, bound_by=byb,
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out, (xl, w1l, b1l, w2l, b2l), gs, retain_graph=True)))
+        for k in (f"{name}_fwd", f"{name}_bwd"):
+            print(json.dumps({"kernel": k, "M": ms, "C": cs, "H": hs_,
+                              "shards": n, "split": split, **rows[k]}))
+    return rows
+
+
+def mesh_phase(F, A):
+    """K4 on the card (``_k2_shard_rows``, ``_mlp_shard_rows``), then the
+    trainer through a one-rank NCCL group, each run a ``train_phase`` with
+    its exact launch counts: the ViT-B/16 run with a data x fsdp (1, 1)
+    mesh gives the losses of the run without one, and the K4 forms' own
+    counts (``launches_k4``), set to 0 before the runs and read after,
+    show that the runs went through them. Returns (the rows, their
+    launches, each run's launches)."""
+    from semireward_tpu_torch.parallel import mesh as mesh_lib
+
+    rows = _k2_shard_rows(A)
+    rows.update(_mlp_shard_rows(F))
+    k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
+    k2 = ("flash_attention_fwd", "flash_attention_bwd")
+    k1 = ("fused_mlp_fwd", "fused_mlp_bwd")
+    logs = {}
+    from semireward_tpu_torch.data.datasets import get_dataset
+    from semireward_tpu_torch.profile_step import synthetic_config
+    vitb_data = get_dataset(synthetic_config(VITB_YAML, MESH_VITB))
+
+    k4_runs = {}
+
+    def losses(name):
+        def after(trainer):
+            # the run's K4 counts (each phase sets every count to 0 first)
+            k4_runs[name] = {**F.launches_k4, **A.launches_k4}
+            logs[name] = [{k: h[k] for k in ("total_loss", "sup_loss",
+                                             "unsup_loss") if k in h}
+                          for h in trainer.log_history]
+            return {"mesh": repr(trainer.mesh), "k4_launches": k4_runs[name]}
+        return after
+
+    runs = [train_phase("mesh_vitb16_no_mesh", VITB_YAML, MESH_VITB,
+                        MESH_STEPS, MESH_LOG_EVERY, F, A, k2 + k3,
+                        after=losses("no_mesh"), bundle=vitb_data)]
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1"}
+    os.environ.update(env)
+    try:
+        for name, yaml_path, over, kernels, data in (
+                ("mesh_vitb16_data_fsdp", VITB_YAML,
+                 {**MESH_VITB, "mesh_shape": (1, 1),
+                  "mesh_axes": ("data", "fsdp")}, k2 + k3, vitb_data),
+                ("mesh_vits_data", HEADLINE_YAML,
+                 {**MESH_VITS, "mesh_shape": (1,), "mesh_axes": ("data",)},
+                 k1 + k2, None),
+                ("mesh_vits_data_model", HEADLINE_YAML,
+                 {**MESH_VITS, "mesh_shape": (1, 1),
+                  "mesh_axes": ("data", "model"),
+                  "net_kwargs": {**MESH_VITS.get("net_kwargs", {}), "depth": 2,
+                                 "split_qkv": True}}, k1 + k2, None)):
+            runs.append(train_phase(name, yaml_path, over, MESH_STEPS,
+                                    MESH_LOG_EVERY, F, A, kernels,
+                                    cfg_extra={"multihost": True},
+                                    after=losses(name), bundle=data))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        mesh_lib.activate(None)
+        for k in env:
+            os.environ.pop(k, None)
+    k4 = {k: sum(k4_runs[r][k] for r in k4_runs if r != "no_mesh")
+          for k in k4_runs["no_mesh"]}
+    if any(k4_runs["no_mesh"].values()):
+        raise AssertionError(f"a K4 form ran without a mesh: {k4_runs}")
+    a, b = logs["no_mesh"], logs["mesh_vitb16_data_fsdp"]
+    if not a or len(b) != len(a) or any(
+            abs(x[k] - y[k]) > 1e-5 * max(abs(y[k]), 1e-6)
+            for x, y in zip(b, a) for k in y):
+        raise AssertionError(f"the one-rank mesh run's losses {b} differ "
+                             f"from the run without a mesh {a}")
+    print(f"mesh: the logged losses of the (1, 1) data x fsdp run ({len(a)} "
+          f"windows) are the run without a mesh's (1e-5): ok")
+    # every MLP and attention call of the mesh runs went through a K4
+    # form: the forms' own counts are the runs' kernel forwards
+    vitb, vits, tp = runs[1:]
+    if not (k4["fused_mlp_sharded"] == vitb["fused_mlp_blocked_fwd"]
+            + vits["fused_mlp_fwd"] > 0
+            and k4["fused_mlp_tp_sharded"] == tp["fused_mlp_fwd"] > 0
+            and k4["flash_attention_sharded"] == vitb["flash_attention_fwd"]
+            + vits["flash_attention_fwd"] > 0
+            and k4["flash_attention_sharded_heads"]
+            == tp["flash_attention_fwd"] > 0):
+        raise AssertionError(f"the mesh runs' kernels did not all go "
+                             f"through the K4 forms: {k4}")
+    print(f"mesh: K4 launches {json.dumps(k4)}: every kernel forward of "
+          f"the mesh runs: ok")
+    launches = {
+        "flash_attention_sharded_fwd": k4["flash_attention_sharded"],
+        "flash_attention_sharded_heads_fwd":
+            k4["flash_attention_sharded_heads"],
+        "fused_mlp_sharded_fwd": vits["fused_mlp_fwd"],
+        "fused_mlp_sharded_bwd": vits["fused_mlp_bwd"],
+        "fused_mlp_blocked_sharded_fwd": vitb["fused_mlp_blocked_fwd"],
+        "fused_mlp_blocked_sharded_bwd": vitb["fused_mlp_blocked_bwd"],
+        "fused_mlp_tp_sharded_fwd": tp["fused_mlp_fwd"],
+        "fused_mlp_tp_sharded_bwd": tp["fused_mlp_bwd"]}
+    return rows, launches, runs
+
+
 def reverb_spy():
     """Count the calls of the port's two reverbs (``data/audio.py``) until
     the returned undo; returns the counts and the undo."""
@@ -2358,6 +2708,11 @@ def main() -> int:
     k3 = ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd")
     k2 = ("flash_attention_fwd", "flash_attention_bwd")
     k1 = ("fused_mlp_fwd", "fused_mlp_bwd")
+    # K4 and the mesh through a one-rank NCCL group, first: a fault of the
+    # slice shows within the smoke's first minutes; and before the JPEG
+    # writer's processes share the host with the K4 wrappers' timings (a
+    # wrapper's time is mostly its host's)
+    mesh_rows, mesh_launches, mesh_runs = timed("mesh", mesh_phase, F, A)
     folders = write_jpeg_folders()
     phases = [
         train_phase("vit", HEADLINE_YAML, {}, TRAIN_STEPS, LOG_EVERY, F, A,
@@ -2446,6 +2801,7 @@ def main() -> int:
     # DINOv2 ViT-L/14 (K3 at C 1024) and the ViT-B/14 regression run
     dino = dinov2_phases(F, A)
     phases += dino
+    phases += mesh_runs
     launches = {k: sum(p[k] for p in phases) for k in phases[0]}
     # the C 1024 rows: the launches of the ViT-L/14 phase, all at C 1024
     for k in ("fused_mlp_blocked_fwd", "fused_mlp_blocked_bwd"):
@@ -2468,6 +2824,26 @@ def main() -> int:
              **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")}}
             for name, r in kernels.items()]
+    # K4: JAX's shard_map forms around the same kernels, one rank's call
+    k4_where = {
+        "flash_attention_sharded_fwd": ("flash_attention.cu",
+                                        "attention.py:548"),
+        "flash_attention_sharded_heads_fwd": ("flash_attention.cu",
+                                              "attention.py:548"),
+        "fused_mlp_sharded": ("fused_mlp.cu", "fused_mlp.py:614"),
+        "fused_mlp_blocked_sharded": ("fused_mlp_blocked.cu",
+                                      "fused_mlp.py:614"),
+        "fused_mlp_tp_sharded": ("fused_mlp.cu", "fused_mlp.py:523")}
+    for name, r in mesh_rows.items():
+        form = name if name in k4_where else name[:-4]
+        line.append({"name": name, "route": "cuda",
+                     "source": f"semireward_tpu_torch/csrc/"
+                               f"{k4_where[form][0]}",
+                     "replaces": f"semireward_tpu/ops/{k4_where[form][1]}",
+                     "launches": mesh_launches[name],
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}})
     for k in line:
         assert k["launches"] > 0, f"{k['name']} never launched on the path"
     print(card)

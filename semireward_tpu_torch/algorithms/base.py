@@ -14,6 +14,7 @@ import torch
 from semireward_tpu_torch.algorithms import common as C
 from semireward_tpu_torch.core.losses import (ce_loss, consistency_loss,
                                               gen_ulb_targets)
+from semireward_tpu_torch.parallel import mesh as mesh_lib
 
 
 class StepCtx(NamedTuple):
@@ -49,10 +50,20 @@ class Algorithm:
     WEAK_ULB_S: bool = False
     # a supervised pre-stage before the first step (Dash's)
     NEEDS_WARMUP: bool = False
+    # the loss takes its batch statistics over the global batch on a mesh
+    # (parallel/mesh.py); every other algorithm refuses a mesh of more than
+    # one rank
+    MESH_READY: bool = False
 
     def __init__(self, cfg, data_info: Optional[Dict[str, Any]] = None,
                  device=None):
         self.check_ported(cfg)
+        mesh = mesh_lib.active()
+        if mesh is not None and mesh.world > 1 and not self.MESH_READY:
+            raise NotImplementedError(
+                f"{self.NAME} ({type(self).__name__}) on a mesh of "
+                f"{mesh.world} ranks is not ported yet (ROADMAP item 16: "
+                f"the algorithms on a mesh)")
         self.cfg = cfg
         self.data_info = data_info or {}
         self.device = device

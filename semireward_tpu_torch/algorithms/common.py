@@ -2,8 +2,11 @@
 ``semireward_tpu/algorithms/common.py`` that the ported algorithms use).
 
 State updates are functional (they return new tensors) and stay on the
-device: no step reads a value back to the host. ``concat_all_gather``,
-which no algorithm of the JAX package calls, waits for the mesh.
+device: no step reads a value back to the host. Under an active mesh
+(``parallel/mesh.py``) the state updates read the global batch: FlexMatch's
+``flex_mask`` writes the selections of every batch rank, all-gathered in
+global row order (``concat_all_gather``, no gradient), so that
+``selected_label`` and ``classwise_acc`` are the same on every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 
 from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.batchnorm import frozen_bn
+from semireward_tpu_torch.parallel.mesh import concat_all_gather
 
 
 class ForwardOut(NamedTuple):
@@ -131,7 +135,10 @@ def flex_mask(state: FlexState, probs, idx_ulb, p_cutoff: float,
     # unselected rows write to a spare slot past the end (JAX's mode="drop");
     # an index drawn twice keeps its last selected row
     upd_idx = torch.where(select, idx_ulb.long(), torch.full_like(max_idx, n))
-    selected = write_last(state.selected_label, 0, upd_idx, max_idx)
+    # every batch rank's rows in global order (the last of a repeated index
+    # is the last in that order)
+    selected = write_last(state.selected_label, 0, concat_all_gather(upd_idx),
+                          concat_all_gather(max_idx))
 
     counts = torch.zeros(num_classes + 1, dtype=torch.long,
                          device=selected.device).scatter_add_(

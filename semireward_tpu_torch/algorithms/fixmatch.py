@@ -12,6 +12,7 @@ from semireward_tpu_torch.registry import ALGORITHMS
 @ALGORITHMS.register("fixmatch")
 class FixMatch(Algorithm):
     NAME = "fixmatch"
+    MESH_READY = True
     DEFAULTS = {"hard_label": True, "T": 0.5, "p_cutoff": 0.95}
     BATCH_KEYS = ("x_lb", "y_lb", "x_ulb_w", "x_ulb_s")
 
@@ -39,6 +40,7 @@ class DeFixMatch(FixMatch):
     x_ulb_s] with ``use_cat``."""
 
     NAME = "defixmatch"
+    MESH_READY = False
     BATCH_KEYS = ("x_lb", "x_lb_s", "y_lb", "x_ulb_w", "x_ulb_s")
 
     def loss(self, ctx: StepCtx) -> LossOut:

@@ -11,6 +11,7 @@ from semireward_tpu_torch.registry import ALGORITHMS
 @ALGORITHMS.register("flexmatch")
 class FlexMatch(Algorithm):
     NAME = "flexmatch"
+    MESH_READY = True
     DEFAULTS = {"hard_label": True, "T": 0.5, "p_cutoff": 0.95,
                 "thresh_warmup": True}
     BATCH_KEYS = ("x_lb", "y_lb", "idx_ulb", "x_ulb_w", "x_ulb_s")

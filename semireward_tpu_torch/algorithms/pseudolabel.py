@@ -34,13 +34,14 @@ def draw_noise(x, generator=None):
     """PseudoLabel's regression perturbation: ``N(0, 1) * NOISE_STD`` of
     ``x``'s shape and dtype."""
     return rng.randn(x.shape, generator=generator, device=x.device,
-                     dtype=x.dtype) * NOISE_STD
+                     dtype=x.dtype, rows=0) * NOISE_STD
 
 
 @ALGORITHMS.register("fullysupervised")
 @ALGORITHMS.register("supervised")
 class FullySupervised(Algorithm):
     NAME = "fullysupervised"
+    MESH_READY = True
     BATCH_KEYS = ("x_lb", "y_lb")
 
     def loss(self, ctx: StepCtx) -> LossOut:
@@ -63,6 +64,7 @@ class FullySupervised(Algorithm):
 @ALGORITHMS.register("pseudolabel")
 class PseudoLabel(Algorithm):
     NAME = "pseudolabel"
+    MESH_READY = True
     DEFAULTS = {"p_cutoff": 0.95, "unsup_warm_up": 0.4}
     BATCH_KEYS = ("x_lb", "y_lb", "x_ulb_w")
 

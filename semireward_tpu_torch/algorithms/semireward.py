@@ -38,6 +38,13 @@ and ``set_rho_init`` passes to the base.
   all draw its dropout and drop-path masks, as JAX's share one key, and
   the last one's logits equal the base forward's. BatchNorm's running
   statistics stay where the base forward left them.
+- On a mesh (``parallel/mesh.py``) the reward filter and the rewarder
+  read the global batch, as JAX's one program does: the weak features
+  and pseudo labels of every batch rank are all-gathered (no gradient),
+  the rewarder scores them all (its softmax runs over the batch), and
+  each rank keeps its rows of ``mask2 = reward >= mean``; the rewarder and
+  generator train on the gathered features and labels, the same update on
+  every rank, so nothing of the SemiReward state is synced.
 - A regression task (``num_classes`` 1, SRPseudoLabel) keeps the JAX
   package's arithmetic: the stage-2 consistency is L1; the one-column
   pseudo label's ``argmax`` makes every sample's pseudo class 0, so every
@@ -62,6 +69,7 @@ from semireward_tpu_torch.core.optim import build_adam
 from semireward_tpu_torch.core.train_state import SRState
 from semireward_tpu_torch.models.batchnorm import frozen_bn
 from semireward_tpu_torch.models.initializers import init_module_
+from semireward_tpu_torch.parallel import mesh as mesh_lib
 from semireward_tpu_torch.registry import ALGORITHMS
 
 
@@ -306,8 +314,13 @@ class SemiRewardWrapper(Algorithm):
                 sr_decay(ctx.step, cfg.num_train_iter, cfg.sr_max_sampling))
             logits_s, feats_w = fwd.logits_x_ulb_s, fwd.feats_x_ulb_w
         with torch.no_grad():
-            reward = ctx.sr_state.rewarder(feats_w.detach(), pl_int)
+            reward = ctx.sr_state.rewarder(
+                C.concat_all_gather(feats_w.detach()),
+                C.concat_all_gather(pl_int))
         mask2 = (reward >= reward.mean()).squeeze(-1).float()
+        mesh = mesh_lib.active()
+        if mesh is not None:
+            mask2 = mesh_lib.local_rows(mask2, mesh)
         # PseudoLabel has no strong view: its logits_x_ulb_s are the ulb
         # logits of its second forward; on a regression task its
         # consistency is L1
@@ -360,10 +373,12 @@ class SemiRewardWrapper(Algorithm):
         """Update ``sr`` in place for host step ``step``."""
         cfg = self.cfg
         n_cls = cfg.num_classes
-        feats_lb = out.fwd.feats_x_lb.detach().float()
-        feats_u = out.fwd.feats_x_ulb_w.detach().float()
-        pl_int = self._int_labels(out.pseudo_label).long()
-        y_lb = batch["y_lb"].long()
+        # the global batch on a mesh: every rank trains on the same rows
+        gather = C.concat_all_gather
+        feats_lb = gather(out.fwd.feats_x_lb.detach().float())
+        feats_u = gather(out.fwd.feats_x_ulb_w.detach().float())
+        pl_int = gather(self._int_labels(out.pseudo_label).long())
+        y_lb = gather(batch["y_lb"].long())
         if step > 0 and step < cfg.start_timing:
             if cfg.sr_per_sample:
                 self._train_per_sample(sr, feats_lb, y_lb, generator)
@@ -415,6 +430,7 @@ def _make_sr_variant(name: str, base_name: str):
     class _SR(SemiRewardWrapper):
         NAME = name
         BASE_CLS = base_cls
+        MESH_READY = getattr(base_cls, "MESH_READY", False)
         DEFAULTS = {**getattr(base_cls, "DEFAULTS", {}), **SR_DEFAULTS}
 
     _SR.__name__ = f"SR_{base_cls.__name__}"

@@ -7,6 +7,12 @@ algorithm state, the SemiReward rewarder / generator / optimizer / EMA /
 max_reward, the generator state). The write is atomic (``.tmp`` then
 ``os.replace``) and every load is ``weights_only``. The trainer keeps the
 JAX package's two files, ``latest_model.ckpt`` and ``model_best.ckpt``.
+
+On a mesh (a state with a ``layout``) every rank calls ``save_checkpoint``:
+the sharded leaves (parameters, EMA, moments) are gathered whole on every
+rank (collectives) and rank 0 alone writes, so the file holds the same keys
+and values as a one-process run's and the eval CLI and ``--resume`` read it
+anywhere; a load cuts each leaf to the rank's block again.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from semireward_tpu_torch.core.train_state import check_leaves
+from semireward_tpu_torch.parallel.mesh import param_of
 
 LATEST = "latest_model.ckpt"
 BEST = "model_best.ckpt"
@@ -36,11 +43,35 @@ def _plain(x):
     return x
 
 
-def save_checkpoint(path: str, state, extra: Optional[Dict[str, Any]] = None
-                    ) -> int:
+def full_leaves(state) -> Dict[str, Any]:
+    """``state.state_dict()`` with every leaf whole: on a mesh the sharded
+    ones gathered (a collective every rank calls)."""
+    leaves = state.state_dict()
+    layout = getattr(state, "layout", None)
+    if layout is None:
+        return leaves
+    return {k: layout.full(param_of(k), v) if param_of(k) in layout.specs
+            else v for k, v in leaves.items()}
+
+
+def local_leaves(state, src: Mapping[str, Any]) -> Mapping[str, Any]:
+    """Whole leaves (a file's) cut to ``state``'s blocks on a mesh."""
+    layout = getattr(state, "layout", None)
+    if layout is None:
+        return src
+    return {k: layout.local(param_of(k), v) if param_of(k) in layout.specs
+            else v for k, v in src.items()}
+
+
+def save_checkpoint(path: str, state, extra: Optional[Dict[str, Any]] = None,
+                    write: bool = True) -> int:
     """Write ``state`` (a ``TrainState`` or a ``{name: tensor}`` mapping)
-    and ``extra`` to ``path`` atomically; returns the file's bytes."""
-    leaves = state.state_dict() if hasattr(state, "state_dict") else state
+    and ``extra`` to ``path`` atomically; returns the file's bytes. On a
+    mesh every rank calls it and only the one with ``write`` writes (0 is
+    returned elsewhere)."""
+    leaves = full_leaves(state) if hasattr(state, "state_dict") else state
+    if not write:
+        return 0
     payload = {"state": {k: v.detach().cpu() for k, v in leaves.items()},
                "extra": _plain(extra or {})}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -60,7 +91,7 @@ def load_checkpoint(path: str, state) -> Dict[str, Any]:
     """Restore ``state`` (a ``TrainState``) in place from ``path``; every
     leaf's name, shape and dtype is checked first. Returns ``extra``."""
     payload = read_payload(path)
-    state.load_state_dict(payload["state"])
+    state.load_state_dict(local_leaves(state, payload["state"]))
     return payload.get("extra", {})
 
 
@@ -72,6 +103,8 @@ def load_eval_weights(path: str, state) -> Dict[str, Any]:
     ``_graft_tree`` does for its wrapped nets. Returns ``extra``."""
     payload = read_payload(path)
     src = payload["state"]
+    src = local_leaves(state, {k: v for k, v in src.items()
+                               if k.startswith(("model.", "ema."))})
     live = {k: v for k, v in state.state_dict().items()
             if k.startswith(("model.", "ema."))}
     picked = {}

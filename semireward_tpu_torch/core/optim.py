@@ -105,6 +105,9 @@ class Optimizer:
             groups.setdefault(float(s), []).append(i)
         self._scale_groups = sorted(groups.items())
         self.count = 0
+        # the clip's squared global norm of the gradients where they are
+        # blocks of a mesh layout (parallel/mesh.py:Layout.sq_norm)
+        self.sq_norm_fn: Optional[Callable] = None
         zeros = lambda: [torch.zeros_like(p) for p in self.params]
         if kind == "sgd":
             self.trace = zeros()
@@ -138,8 +141,9 @@ class Optimizer:
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         g = [x.float() for x in grads]
         if self.clip_grad and self.clip_grad > 0:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(g)))
+            norm = (torch.sqrt(self.sq_norm_fn(g)) if self.sq_norm_fn
+                    else torch.linalg.vector_norm(
+                        torch.stack(torch._foreach_norm(g))))
             factor = torch.where(norm < self.clip_grad, torch.ones_like(norm),
                                  self.clip_grad / norm)
             g = torch._foreach_mul(g, factor)

@@ -47,6 +47,9 @@ class TrainState:
     # the trainer's generator (augmentation, drop path, dropout): the JAX
     # state's ``rng``
     rng: Optional[torch.Generator] = None
+    # where the parameters, EMA and moments live on a mesh
+    # (parallel/mesh.py:Layout); None on one device
+    layout: Any = None
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """Every field as ``{name: tensor}``, the tensors the live ones

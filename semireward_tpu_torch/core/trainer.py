@@ -39,6 +39,20 @@ epoch boundary (``step % (num_train_iter // epoch) == 0``), the eval head
 ``eval_out_key(step)`` / ``EVAL_OUT_KEY``, and the step's
 ``post_param_update``. A form of an algorithm that the port does not run
 raises before any data is loaded (``refuse_unported``).
+
+The mesh (``parallel/mesh.py``), as the JAX trainer: the process joins a
+group under torchrun (``WORLD_SIZE`` > 1) or with ``extra['multihost']``,
+on the card ``cuda:LOCAL_RANK``; the YAML's ``mesh_shape`` /
+``mesh_axes`` are resolved against the ranks and fail as JAX's
+``build_mesh`` where they do not fit (on one rank too). With a group the
+mesh is active: the nets get it as ``fused_mesh`` where a kernel is on or
+the mesh has a ``model`` axis (the K4 forms, tensor parallelism), the
+state takes its layout, each rank's loader draws its rank-strided share of
+the batch (the batch sizes divided by the batch shards), every rank
+evaluates the whole eval set (the same metrics as one process), every rank
+calls the checkpoint writes and rank 0 writes, and the best checkpoint is
+read back after the run only if every rank sees it (JAX's multi-host
+rule).
 """
 from __future__ import annotations
 
@@ -70,6 +84,7 @@ from semireward_tpu_torch.data.loader import (PrefetchLoader, SSLLoader,
 from semireward_tpu_torch.data.modality import (AudioSSLLoader,
                                                 GenericBundle, NLPSSLLoader,
                                                 modality_of)
+from semireward_tpu_torch.parallel import mesh as mesh_lib
 from semireward_tpu_torch.registry import ALGORITHMS, IMB_ALGORITHMS, NETS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -92,6 +107,16 @@ FUSED_MLP_NETS = VIT_NETS + ("hubert_", "wave2vecv2_") + BERT_NETS
 # GIL to the producer; the host batch work it takes over is small). The
 # JAX package's default of 2 was set on a TPU host.
 PREFETCH_DEPTH_DEFAULT = 0
+
+
+class _NoSink:
+    """The metrics sink of a rank other than 0 (rank 0 writes the files)."""
+
+    def log(self, *a, **kw):
+        pass
+
+    def close(self):
+        pass
 
 
 def refuse_unported(cfg: Config) -> None:
@@ -133,10 +158,22 @@ class Trainer:
                  device=None, logger: Optional[logging.Logger] = None,
                  alg_factory: Optional[Callable] = None, rng_device=None):
         self.cfg = cfg
+        self.rank, self.world = mesh_lib.setup_distributed(cfg, device)
+        joined = torch.distributed.is_initialized()
+        if device is None and joined and torch.cuda.is_available():
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            torch.cuda.set_device(local)
+            device = torch.device("cuda", local)
         self.device = resolve_device(device)
         rng_device = resolve_device(rng_device or self.device)
         self.logger = logger or logging.getLogger(
             f"semireward_tpu_torch.{cfg.save_name}")
+        # the YAML's mesh, resolved against the ranks: one it does not fit
+        # fails as the JAX package's build_mesh does
+        mesh = mesh_lib.build_mesh(cfg.mesh_shape, cfg.mesh_axes, self.world,
+                                   self.rank)
+        self.mesh = mesh if joined else None
+        mesh_lib.activate(self.mesh)
         refuse_unported(cfg)
         self.modality = modality_of(cfg.net)
 
@@ -199,6 +236,11 @@ class Trainer:
             net_kw["bn_momentum"] = float(cfg.extra["bn_momentum"])
         if cfg.gradient_checkpointing:
             net_kw["remat"] = True
+        if self.mesh is not None and (
+                net_kw["use_fused_mlp"] or net_kw["use_flash"]
+                or "model" in self.mesh.axis_names):
+            # the K4 forms, and tensor parallelism in the nets
+            net_kw["fused_mesh"] = self.mesh
         self.generator = torch.Generator(device=rng_device).manual_seed(
             cfg.seed)
         self.model = builder(num_classes=cfg.num_classes,
@@ -255,7 +297,7 @@ class Trainer:
             src_size=src if src > cfg.img_size else 0,
         ) if self.modality == "cv" else None
         self.state = init_train_state(cfg, self.alg, self.model, builder,
-                                      self.generator)
+                                      self.generator, mesh=self.mesh)
         self._step = make_train_step(cfg, self.alg)
         self._schedule = cosine_schedule_with_warmup(
             cfg.lr, cfg.num_train_iter, cfg.num_warmup_iter)
@@ -301,21 +343,24 @@ class Trainer:
     def _make_loader(self, seed: Optional[int] = None):
         cfg = self.cfg
         seed = cfg.seed if seed is None else seed
+        # on a mesh each batch rank draws its rank-strided share
+        world = self.mesh.batch_shards if self.mesh is not None else 1
+        rank = self.mesh.batch_index if self.mesh is not None else 0
+        bs, ubs = cfg.batch_size // world, cfg.ulb_batch_size // world
         if self.modality in ("nlp", "audio"):
             loader = NLPSSLLoader if self.modality == "nlp" else AudioSSLLoader
             return loader(
                 {"train_lb": self.bundle.train_lb,
                  "train_ulb": self.bundle.train_ulb},
-                self.collator, cfg.batch_size, cfg.ulb_batch_size,
-                self.alg.BATCH_KEYS, seed=seed)
+                self.collator, bs, ubs, self.alg.BATCH_KEYS, seed=seed,
+                rank=rank, world=world)
         # CoSSL's class-balanced labeled and extra unlabeled streams
         tfe = bool(getattr(self.alg, "EXTRA_STREAMS", ()))
-        return SSLLoader(self.bundle, cfg.batch_size, cfg.ulb_batch_size,
-                         seed=seed, sampler=cfg.train_sampler,
+        return SSLLoader(self.bundle, bs, ubs, seed=seed, rank=rank,
+                         world=world, sampler=cfg.train_sampler,
                          tfe_streams=tfe,
                          tfe_ulb_batch_size=int(cfg.extra.get(
-                             "cossl_tfe_u_ratio", 1)) * cfg.batch_size
-                         if tfe else 0)
+                             "cossl_tfe_u_ratio", 1)) * bs if tfe else 0)
 
     def make_batch(self, raw: Dict[str, np.ndarray],
                    keys: Optional[Sequence[str]] = None
@@ -379,6 +424,8 @@ class Trainer:
     def _sink(self):
         from semireward_tpu_torch.utils.metrics_sink import MetricsSink
         cfg = self.cfg
+        if self.rank != 0:
+            return _NoSink()
         return MetricsSink(self._save_dir,
                            use_tensorboard=cfg.use_tensorboard,
                            use_wandb=cfg.use_wandb, use_aim=cfg.use_aim,
@@ -480,8 +527,18 @@ class Trainer:
         # the data has one, with the best checkpoint's weights (read from
         # the file; the live state is untouched)
         best = os.path.join(self._save_dir, ckpt.BEST)
-        if getattr(self.bundle, "test", None) is not None and os.path.exists(
-                best):
+        have_best = os.path.exists(best)
+        if self.world > 1 and getattr(self.bundle, "test", None) is not None:
+            # one decision on every rank (the eval is collective): the file
+            # is rank 0's, so without a shared file system no rank reads it
+            have = torch.tensor([int(have_best)], device=self.device)
+            torch.distributed.all_reduce(have,
+                                         op=torch.distributed.ReduceOp.MIN)
+            if have_best and not int(have):
+                log("best-ckpt test eval skipped: multi-host run without a "
+                    "shared filesystem (model_best.ckpt on rank 0 only)")
+            have_best = bool(int(have))
+        if getattr(self.bundle, "test", None) is not None and have_best:
             test_m = self.evaluate(split="test", weights=self._file_weights(
                 best))
             results.update({f"test/{k}": v for k, v in test_m.items()})
@@ -537,10 +594,13 @@ class Trainer:
     def _write(self, name: str, step_now: int, eval_m: Dict[str, float]):
         path = os.path.join(self._save_dir, name)
         t0 = time.time()
+        # every rank gathers (a collective on a mesh), rank 0 writes
         size = ckpt.save_checkpoint(path, self.state,
-                                    self._ckpt_extra(step_now, eval_m))
-        self.ckpt_writes.append({"path": path, "bytes": size,
-                                 "seconds": time.time() - t0})
+                                    self._ckpt_extra(step_now, eval_m),
+                                    write=self.rank == 0)
+        if self.rank == 0:
+            self.ckpt_writes.append({"path": path, "bytes": size,
+                                     "seconds": time.time() - t0})
 
     def _ckpt_extra(self, step_now: int, eval_m: Dict[str, float]) -> Dict:
         """Checkpoint metadata: the best-model tracking survives a resume,
@@ -567,7 +627,8 @@ class Trainer:
 
     def save(self, path: str) -> int:
         return ckpt.save_checkpoint(path, self.state,
-                                    self._ckpt_extra(self.state.step, {}))
+                                    self._ckpt_extra(self.state.step, {}),
+                                    write=self.rank == 0)
 
     def _file_weights(self, path: str) -> Dict[str, torch.Tensor]:
         """The eval weights of a checkpoint file of this run (EMA or live
@@ -575,16 +636,26 @@ class Trainer:
         device, for ``evaluate(weights=...)``."""
         src = ckpt.read_payload(path)["state"]
         group = "ema." if self.eval_use_ema else "model."
+        layout = self.state.layout
         out = {n: src[group + n] for n, _ in self.model.named_parameters()}
+        if layout is not None:
+            # the forward's layout: whole FSDP leaves, TP blocks
+            out = {n: layout.local(n, v, ("model",)) for n, v in out.items()}
         out.update({n: src["model." + n]
                     for n, _ in self.model.named_buffers()})
         return {n: v.to(self.device) for n, v in out.items()}
 
     def _eval_weights(self) -> Dict[str, torch.Tensor]:
-        if not self.eval_use_ema:
+        layout = self.state.layout
+        if not self.eval_use_ema and layout is None:
             return {}
         names = [n for n, _ in self.model.named_parameters()]
-        return dict(zip(names, self.state.ema))
+        src = (self.state.ema if self.eval_use_ema
+               else [p.detach() for p in self.model.parameters()])
+        if layout is not None:
+            # the forward's layout: the FSDP leaves gathered whole
+            src = [layout.full(n, t, ("fsdp",)) for n, t in zip(names, src)]
+        return dict(zip(names, src))
 
     @torch.no_grad()
     def _logits(self, x, weights: Optional[Dict[str, torch.Tensor]] = None,

@@ -9,8 +9,9 @@
 //
 // Layouts: q, k, v, out, dout, dq, dk, dv are [B, N, H, D] bf16 (the layout
 // the projections produce, so nothing is transposed); the key bias is
-// [B*H, N] f32; lse and delta are [B*H, N] f32; the dropout seed is one int32
-// on the device, read through its pointer (no host round trip per layer);
+// [B*H, N] f32; lse and delta are [B*H, N] f32; the dropout seed is four int32
+// on the device, (seed, bh_offset, local_heads, head_stride) as the JAX
+// package's seed_arg, read through its pointer (no host round trip per layer);
 // the keep bits are [B*H, N, Np/32] uint32 (ops/attention.py:pack_keep_bits):
 // bit k%32 of word k/32 of query row q, 0 for keys >= N.
 //
@@ -25,7 +26,10 @@
 //
 // Dropout keep bit, identical to attention_keep_mask: with Np = N rounded up
 // to 128 (the JAX kernel's padded length, kept as part of the stream although
-// nothing is padded here) and bh the batch*head index,
+// nothing is padded here) and bh the global batch*head index of this block's
+// own index L, bh = bh_offset + (L / local_heads) * head_stride + L % local_heads
+// (a shard of the batch and heads, JAX's flash_attention_sharded; an unsharded
+// call passes (0, H, H) and bh = L),
 //   ctr  = (bh * Np + q) * Np + k            (uint32, wrapping)
 //   keep = lowbias32(lowbias32(ctr) ^ seed) < thresh
 // The forward hashes it; under autograd it also writes the bits it kept, and
@@ -107,7 +111,7 @@ static_assert(TILE == BOX_BYTES, "one TMA box is one tile of 64 rows");
 struct FlashArgs {
   CUtensorMap mq, mk, mv, mo, mdo;  // [B, N, H, D] bf16 in 64-row boxes
   const float* bias;   // [B*H, N] key bias, or nullptr
-  const int* seed;     // one int32 on the device, or nullptr (no dropout)
+  const int* seed;     // four int32 on the device, or nullptr (no dropout)
   const float* lse_in; // backward
   float* delta;        // backward: written by dq, read by dk/dv
   uint32_t* bits;      // forward: written when not null; backward: read under dropout
@@ -361,6 +365,10 @@ __device__ __forceinline__ void fwd_side(const FlashArgs& a, const Layout& l, in
   const int N = a.N, W = a.Np / 32, words = ROWS * active * WPR;
   const bool drop = a.seed != nullptr;
   const uint32_t seed = drop ? (uint32_t)a.seed[0] : 0u, Np = (uint32_t)a.Np;
+  // the counter's global batch*head index (wrapping, as JAX's int32 -> uint32)
+  const uint32_t gbh = drop ? (uint32_t)a.seed[1] + (uint32_t)(bh / a.seed[2]) * (uint32_t)a.seed[3] +
+                                  (uint32_t)(bh % a.seed[2])
+                            : 0u;
   for (int j0 = 0; j0 < steps; j0 += U) {
     float bv[U];
 #pragma unroll
@@ -380,7 +388,7 @@ __device__ __forceinline__ void fwd_side(const FlashArgs& a, const Layout& l, in
       if (drop)
         for (int w = (h + HELPERS - (j * words) % HELPERS) % HELPERS; w < words; w += HELPERS) {
           const int row = w / WPR, kb = k0 + 32 * (w % WPR), q = q0 + row;
-          const uint32_t ctr = ((uint32_t)bh * Np + (uint32_t)q) * Np + (uint32_t)kb;
+          const uint32_t ctr = (gbh * Np + (uint32_t)q) * Np + (uint32_t)kb;
           uint32_t word = 0u;
 #pragma unroll
           for (int b = 0; b < 32; ++b)
@@ -930,8 +938,9 @@ extern "C" {
 // The head dim the kernels are built for.
 int srt_flash_head_dim() { return HD; }
 
-// out [B,N,H,D] bf16, lse [B*H,N] f32. bias / seed may be null; with a seed,
-// bits [B*H, N, Np/32] receives the keep bits when not null.
+// out [B,N,H,D] bf16, lse [B*H,N] f32. bias / seed may be null; a seed is four
+// int32 (seed, bh_offset, local_heads > 0, head_stride); with one, bits
+// [B*H, N, Np/32] receives the keep bits when not null.
 int srt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, const void* seed,
                   void* out, void* lse, void* bits, int B, int N, int H, int d, int Np,
                   float scale, unsigned int thresh, float inv_keep, void* stream) {

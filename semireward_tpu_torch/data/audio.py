@@ -318,12 +318,12 @@ def draw_strong_wave(generator: torch.Generator, B: int, device=None
     ``int()`` of the reference, so -5 never occurs and 0 has double mass),
     and two effect ids in 0..3 (gain, pitch, speed, reverb; with
     replacement) per clip."""
-    u = rng.rand(3, B, generator=generator, device=device)
+    u = rng.rand(3, B, generator=generator, device=device, rows=1)
     return {"speed": 0.5 + 1.5 * u[0],
             "pitch_cents": -2.0 + 4.0 * u[1],
             "atten_db": torch.trunc(-5.0 + 10.0 * u[2]),
             "choice": rng.randint(0, 4, (B, 2), generator=generator,
-                                  device=device)}
+                                  device=device, rows=0)}
 
 
 def _apply_one(x, c, sp, pc, att, reverb):

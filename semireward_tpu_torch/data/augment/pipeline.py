@@ -106,15 +106,17 @@ def _table(exclude_color: bool):
 
 
 def _draw_flip(batch: int, spec: AugmentSpec, generator, device):
-    flip = rng.rand(batch, generator=generator, device=device) < 0.5
+    flip = rng.rand(batch, generator=generator, device=device, rows=0) < 0.5
     return flip if spec.hflip else torch.zeros_like(flip)
 
 
 def draw_crop(batch: int, spec: AugmentSpec, generator, device) -> CropDraws:
     n = (spec.src_size - spec.crop_size + 1 if spec.full_size
          else 2 * spec.crop_pad + 1)
-    oy = rng.randint(0, n, (batch,), generator=generator, device=device)
-    ox = rng.randint(0, n, (batch,), generator=generator, device=device)
+    oy = rng.randint(0, n, (batch,), generator=generator, device=device,
+                     rows=0)
+    ox = rng.randint(0, n, (batch,), generator=generator, device=device,
+                     rows=0)
     return CropDraws(oy, ox, _draw_flip(batch, spec, generator, device))
 
 
@@ -122,7 +124,8 @@ def draw_resized_crop(batch: int, spec: AugmentSpec, generator,
                       device) -> ResizedCropDraws:
     """RandomResizedCrop's draws: area 8-100% of the image, aspect ratio
     3/4-4/3 (uniform in its log), the box's place, the flip."""
-    rand = lambda: rng.rand(batch, generator=generator, device=device)
+    rand = lambda: rng.rand(batch, generator=generator, device=device,
+                            rows=0)
     lo, hi = math.log(3 / 4), math.log(4 / 3)
     return ResizedCropDraws(
         area=0.08 + 0.92 * rand(), log_ratio=lo + (hi - lo) * rand(),
@@ -133,10 +136,12 @@ def draw_randaug(batch: int, spec: AugmentSpec, generator,
                  device) -> RandAugDraws:
     n, k = spec.randaug_n, len(_table(spec.exclude_color))
     W = H = spec.crop_size
-    rand = lambda *s: rng.rand(*s, generator=generator, device=device)
+    # the batch is dim 0, or dim 1 of the per-op draws
+    rand = lambda *s: rng.rand(*s, generator=generator, device=device,
+                               rows=len(s) - 1)
     return RandAugDraws(
         op_idx=rng.randint(0, k, (n, batch), generator=generator,
-                           device=device),
+                           device=device, rows=1),
         u=rand(n, batch), cut_v=rand(batch) * 0.5 * W, cut_x=rand(batch) * W,
         cut_y=rand(batch) * H)
 
@@ -312,7 +317,8 @@ def augment_views(raw_lb, raw_ulb, spec: AugmentSpec, keys: Sequence[str],
                                     draw_crop(B, spec, generator, dev))
     B, dev = raw_ulb.shape[0], raw_ulb.device
     if "x_ulb_s_0_rot" in keys:
-        rot_v = rng.randint(0, 4, (B,), generator=generator, device=dev)
+        rot_v = rng.randint(0, 4, (B,), generator=generator, device=dev,
+                            rows=0)
         out["x_ulb_s_0_rot"] = rot90_per_sample(out["x_ulb_s_0"], rot_v)
         out["rot_v"] = rot_v
     if "x_ulb_rot" in keys:

@@ -57,20 +57,66 @@ class NLPSSLLoader:
     (data/nlp.py:NLPCollator), else each view padded by the collator's own
     ``views`` (data/bio.py:BioCollator, always to ``max_length``). Views
     are drawn key by key in the order of ``batch_keys``, from the same seeds
-    and RandomState streams as the JAX loader on one process, so both give
-    the same batches. Several processes come with the mesh (ROADMAP: K4)."""
+    and RandomState streams as the JAX loader, so both give the same
+    batches.
+
+    Several ranks (``rank`` of ``world`` batch shards; the caller divides
+    the batch sizes by ``world``): each draws its rank-strided share of one
+    shared permutation, its view draws rank-salted, as the JAX loader. With
+    length buckets every rank must pad to the same bucket, the one the
+    global batch needs: the union of the ranks' step-t indices is positions
+    ``[t * world * bs, (t + 1) * world * bs)`` of the unstrided stream, so
+    each rank re-derives the global batch, bounds its longest text by a
+    per-text cap (the longest of the original and its augmentations, any
+    strong pick) and picks the bucket with no collective."""
 
     def __init__(self, splits, collator, batch_size, ulb_batch_size,
-                 batch_keys, seed=0):
+                 batch_keys, seed=0, rank=0, world=1):
         self.lb = splits["train_lb"]
         self.ulb = splits["train_ulb"]
         self.col = collator
         self.keys = batch_keys
-        self._lb = batched(infinite_indices(len(self.lb), seed, 0, 1),
+        self._lb = batched(infinite_indices(len(self.lb), seed, rank, world),
                            batch_size)
-        self._ulb = batched(infinite_indices(len(self.ulb), seed + 1, 0, 1),
-                            ulb_batch_size)
-        self._rs = np.random.RandomState(seed + 2)
+        self._ulb = batched(infinite_indices(len(self.ulb), seed + 1, rank,
+                                             world), ulb_batch_size)
+        self._rs = np.random.RandomState(seed + 2 + 1000 * rank)
+        self._global = None
+        if world > 1 and len(getattr(collator, "buckets", ())) > 1:
+            self._global = (
+                batched(self._global_stream(len(self.lb), seed, world),
+                        batch_size * world),
+                batched(self._global_stream(len(self.ulb), seed + 1, world),
+                        ulb_batch_size * world),
+                self._text_maxlens(self.lb), self._text_maxlens(self.ulb))
+
+    @staticmethod
+    def _global_stream(n, seed, world):
+        """The unstrided stream whose rank-strided shares the ranks
+        draw."""
+        g = np.random.RandomState(seed)
+        stop = n - (n % world)
+        while True:
+            perm = g.permutation(n)
+            for i in range(stop):
+                yield perm[i]
+
+    def _text_maxlens(self, ds) -> np.ndarray:
+        tl = self.col.token_len
+        if getattr(ds, "augs", None):
+            return np.asarray([max(tl(t), max(tl(a) for a in augs))
+                               for t, augs in zip(ds.texts, ds.augs)],
+                              np.int32)
+        return np.asarray([tl(t) for t in ds.texts], np.int32)
+
+    def global_length(self):
+        """The bucket of this step's global batch (None on one rank)."""
+        if self._global is None:
+            return None
+        glb, gulb, lens_lb, lens_ulb = self._global
+        cap = max(int(lens_lb[next(glb)].max()),
+                  int(lens_ulb[next(gulb)].max()))
+        return self.col.bucket_for(cap)
 
     def __iter__(self):
         return self
@@ -83,7 +129,8 @@ class NLPSSLLoader:
                "idx_ulb": ui.astype(np.int32)}
         if hasattr(self.col, "collate_views"):
             out.update(self.col.collate_views(self.lb, self.ulb, li, ui,
-                                              self.keys, self._rs))
+                                              self.keys, self._rs,
+                                              length=self.global_length()))
             return out
         for k in self.keys:
             if k in ("x_lb", "x_lb_s"):
@@ -99,20 +146,21 @@ class NLPSSLLoader:
 class AudioSSLLoader:
     """Yields fixed-bucket waveform batches; the strong views carry a fresh
     raw crop under ``x_ulb_s*_base`` and are transformed on the device. The
-    same seeds and RandomState stream as the JAX loader on one process, so
-    both give the same batches."""
+    same seeds and RandomState stream as the JAX loader, so both give the
+    same batches; several ranks as :class:`NLPSSLLoader` (one fixed bucket,
+    nothing to agree on)."""
 
     def __init__(self, splits, collator, batch_size, ulb_batch_size,
-                 batch_keys, seed=0):
+                 batch_keys, seed=0, rank=0, world=1):
         self.lb = splits["train_lb"]
         self.ulb = splits["train_ulb"]
         self.col = collator
         self.keys = batch_keys
-        self._lb = batched(infinite_indices(len(self.lb), seed, 0, 1),
+        self._lb = batched(infinite_indices(len(self.lb), seed, rank, world),
                            batch_size)
-        self._ulb = batched(infinite_indices(len(self.ulb), seed + 1, 0, 1),
-                            ulb_batch_size)
-        self._rs = np.random.RandomState(seed + 2)
+        self._ulb = batched(infinite_indices(len(self.ulb), seed + 1, rank,
+                                             world), ulb_batch_size)
+        self._rs = np.random.RandomState(seed + 2 + 1000 * rank)
 
     def __iter__(self):
         return self

@@ -160,6 +160,9 @@ class NLPCollator:
                                          default=2))
         return self._pad(ids_list, length)
 
+    def token_len(self, text: str) -> int:
+        return len(self._encode_ids(text))
+
     def select_texts(self, ds: TextDataset, idx: np.ndarray,
                      rng: np.random.RandomState, strong: bool):
         """weak = 'ori'; strong = random pick of the back-translations

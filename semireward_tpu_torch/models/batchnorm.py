@@ -12,6 +12,12 @@ its running statistics; :func:`frozen_bn` keeps the normalization and
 drops the update (the JAX package's forward whose new ``batch_stats`` are
 discarded). In eval it normalizes by the running statistics. Channels are
 dimension 1 (NCHW).
+
+Under an active mesh (``parallel/mesh.py``) the batch is the global one, as
+JAX's pjit makes it: each channel's sum, sum of squares and count are
+summed over the batch ranks (with their gradient), and the moments are
+``mean = sum / n`` and the biased ``var = sumsq / n - mean**2`` (flax's
+fast variance).
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from semireward_tpu_torch.parallel import mesh as mesh_lib
 
 
 class BatchNorm(nn.Module):
@@ -44,6 +52,9 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        mesh = mesh_lib.active()
+        if mesh is not None and mesh.group(mesh.batch_axes) is not None:
+            return self._global(x, mesh)
         if self.frozen:
             # no running tensors: normalize by the batch's moments only
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
@@ -61,6 +72,27 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
         return out
+
+    def _global(self, x, mesh):
+        """Training under a mesh: the global batch's moments."""
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.ndim))
+        xf = x.float()
+        count = xf.new_full((1,), float(x.numel() // C))
+        stats = mesh_lib.global_sum(
+            torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]), mesh)
+        n = stats[-1]
+        mean = stats[:C] / n
+        var = (stats[C:2 * C] / n - mean * mean).clamp_min(0.0)
+        shape = (1, C) + (1,) * (x.ndim - 2)
+        out = ((xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+               * self.weight.view(shape) + self.bias.view(shape))
+        if not self.frozen:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return out.to(x.dtype)
 
     def extra_repr(self) -> str:
         return (f"{self.num_features}, momentum={self.momentum} (flax), "

@@ -34,9 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from semireward_tpu_torch import rng
-from semireward_tpu_torch.models.vit import _dropout, _layer_norm, _linear
-from semireward_tpu_torch.ops.attention import flash_attention
-from semireward_tpu_torch.ops.fused_mlp import fused_mlp
+from semireward_tpu_torch.models.vit import (_dropout, _layer_norm,
+                                             mlp_forward, out_proj, qkv_heads)
+from semireward_tpu_torch.ops.attention import flash_fn
 
 ATTN_DROP = 0.1
 HIDDEN_DROP = 0.1
@@ -44,42 +44,48 @@ HIDDEN_DROP = 0.1
 
 class BertSelfAttention(nn.Module):
     def __init__(self, hidden: int, heads: int, dtype=torch.bfloat16,
-                 use_flash: bool = False):
+                 use_flash: bool = False, mesh=None):
         super().__init__()
         self.heads, self.dtype, self.use_flash = heads, dtype, use_flash
+        self.mesh = mesh
         for name in ("query", "key", "value", "output"):
             self.add_module(name, nn.Linear(hidden, hidden))
 
     def forward(self, x, attn_bias, train: bool, generator=None):
         B, L, C = x.shape
-        H, hd = self.heads, C // self.heads
-        q, k, v = (_linear(x, getattr(self, n), self.dtype).reshape(B, L, H, hd)
-                   for n in ("query", "key", "value"))
+        hd = C // self.heads
+        q, k, v, local = qkv_heads(x, (self.query, self.key, self.value), C,
+                                   self.heads, self.dtype, self.mesh)
+        Hl = q.shape[2]
         if self.use_flash:
+            attend = flash_fn(self.mesh)
             if train:
                 seed = rng.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                    device=x.device, dtype=torch.int32)
-                out = flash_attention(q, k, v, bias=attn_bias,
-                                      dropout_rate=ATTN_DROP, dropout_seed=seed)
+                out = attend(q, k, v, bias=attn_bias, dropout_rate=ATTN_DROP,
+                             dropout_seed=seed)
             else:
-                out = flash_attention(q, k, v, bias=attn_bias)
+                out = attend(q, k, v, bias=attn_bias)
         else:
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))    # [B, H, L, hd]
             a = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
             a = F.softmax(a + attn_bias, dim=-1)
-            a = _dropout(a, ATTN_DROP, train, generator)
+            a = _dropout(a, ATTN_DROP, train, generator,
+                         cols=1 if local else None)
             out = torch.matmul(a.to(self.dtype), v).transpose(1, 2)
-        out = out.reshape(B, L, C).to(self.dtype)
-        return _linear(out, self.output, self.dtype)
+        out = out.reshape(B, L, Hl * hd).to(self.dtype)
+        return out_proj(out, self.output, C, self.dtype, self.mesh, local)
 
 
 class BertLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, intermediate: int,
                  dtype=torch.bfloat16, use_fused: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, mesh=None):
         super().__init__()
         self.dtype, self.use_fused = dtype, use_fused
-        self.attention = BertSelfAttention(hidden, heads, dtype, use_flash)
+        self.inter, self.mesh = intermediate, mesh
+        self.attention = BertSelfAttention(hidden, heads, dtype, use_flash,
+                                           mesh)
         self.attention_ln = nn.LayerNorm(hidden, eps=1e-12)
         self.intermediate = nn.Linear(hidden, intermediate)
         self.output = nn.Linear(intermediate, hidden)
@@ -89,13 +95,10 @@ class BertLayer(nn.Module):
         h = self.attention(x, attn_bias, train, generator)
         h = _dropout(h, HIDDEN_DROP, train, generator)
         x = _layer_norm(x + h, self.attention_ln).to(self.dtype)
-        if self.use_fused:
-            # dropout sits after fc2, so the fused kernel applies in training
-            m = fused_mlp(x, self.intermediate.weight, self.intermediate.bias,
-                          self.output.weight, self.output.bias)
-        else:
-            m = F.gelu(_linear(x, self.intermediate, self.dtype))
-            m = _linear(m, self.output, self.dtype)
+        # dropout sits after fc2, so the fused kernel applies in training
+        m = mlp_forward(x, self.intermediate, self.output, self.inter,
+                        self.dtype, self.use_fused, self.mesh, train, 0.0,
+                        generator)
         m = _dropout(m, HIDDEN_DROP, train, generator)
         return _layer_norm(x + m, self.output_ln).to(self.dtype)
 
@@ -109,7 +112,8 @@ class ClassificationBert(nn.Module):
                  hidden: int = 768, layers: int = 12, heads: int = 12,
                  intermediate: int = 3072, max_position: int = 512,
                  type_vocab: int = 2, dtype=torch.bfloat16,
-                 use_fused_mlp: bool = False, use_flash: bool = False):
+                 use_fused_mlp: bool = False, use_flash: bool = False,
+                 fused_mesh=None):
         super().__init__()
         self.hidden, self.dtype = hidden, dtype
         self.word_embeddings = nn.Embedding(vocab_size, hidden)
@@ -120,7 +124,7 @@ class ClassificationBert(nn.Module):
         self.embeddings_ln = nn.LayerNorm(hidden, eps=1e-12)
         self.layer = nn.ModuleList(
             BertLayer(hidden, heads, intermediate, dtype, use_fused_mlp,
-                      use_flash) for _ in range(layers))
+                      use_flash, fused_mesh) for _ in range(layers))
         self.classifier_fc1 = nn.Linear(hidden, hidden)
         self.classifier_fc2 = nn.Linear(hidden, num_classes)
 
@@ -178,7 +182,7 @@ def layer_id(names: List[str], num_layers: int) -> int:
 
 
 _BERT_FIELDS = ("hidden", "layers", "heads", "intermediate", "max_position",
-                "use_fused_mlp", "use_flash")
+                "use_fused_mlp", "use_flash", "fused_mesh")
 
 
 @torch.no_grad()

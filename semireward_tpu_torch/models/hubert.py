@@ -46,9 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from semireward_tpu_torch import rng
-from semireward_tpu_torch.models.vit import _dropout, _layer_norm, _linear
-from semireward_tpu_torch.ops.attention import flash_attention
-from semireward_tpu_torch.ops.fused_mlp import fused_mlp
+from semireward_tpu_torch.models.vit import (_dropout, _layer_norm, _linear,
+                                             mlp_forward, out_proj, qkv_heads)
+from semireward_tpu_torch.ops.attention import flash_fn
 
 DROP = 0.1
 INTERMEDIATE = 3072
@@ -83,10 +83,12 @@ class FeatureExtractor(nn.Module):
 class EncoderLayer(nn.Module):
     def __init__(self, hidden: int = 768, heads: int = 12,
                  intermediate: int = INTERMEDIATE, dtype=torch.bfloat16,
-                 use_fused: bool = False, use_flash: bool = False):
+                 use_fused: bool = False, use_flash: bool = False,
+                 mesh=None):
         super().__init__()
         self.hidden, self.heads, self.dtype = hidden, heads, dtype
         self.use_fused, self.use_flash = use_fused, use_flash
+        self.inter, self.mesh = intermediate, mesh
         for name in ("q", "k", "v", "out"):
             self.add_module(name, nn.Linear(hidden, hidden))
         self.ln1 = nn.LayerNorm(hidden, eps=1e-5)
@@ -96,34 +98,33 @@ class EncoderLayer(nn.Module):
 
     def attention(self, x, train: bool, generator=None):
         B, L, C = x.shape
-        H, hd = self.heads, C // self.heads
-        q, k, v = (_linear(x, getattr(self, n), self.dtype).reshape(B, L, H, hd)
-                   for n in ("q", "k", "v"))
+        hd = C // self.heads
+        q, k, v, local = qkv_heads(x, (self.q, self.k, self.v), C,
+                                   self.heads, self.dtype, self.mesh)
+        Hl = q.shape[2]
         if self.use_flash and (train or L >= 128):
+            attend = flash_fn(self.mesh)
             if train:
                 seed = rng.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                    device=x.device, dtype=torch.int32)
-                o = flash_attention(q, k, v, dropout_rate=DROP,
-                                    dropout_seed=seed)
+                o = attend(q, k, v, dropout_rate=DROP, dropout_seed=seed)
             else:
-                o = flash_attention(q, k, v)
+                o = attend(q, k, v)
         else:
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, hd]
             a = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
-            a = _dropout(F.softmax(a, dim=-1), DROP, train, generator)
+            a = _dropout(F.softmax(a, dim=-1), DROP, train, generator,
+                         cols=1 if local else None)
             o = torch.matmul(a.to(self.dtype), v).transpose(1, 2)
-        return _linear(o.reshape(B, L, C).to(self.dtype), self.out, self.dtype)
+        return out_proj(o.reshape(B, L, Hl * hd).to(self.dtype), self.out, C,
+                        self.dtype, self.mesh, local)
 
     def forward(self, x, train: bool, generator=None):
         o = _dropout(self.attention(x, train, generator), DROP, train,
                      generator)
         x = _layer_norm(x + o, self.ln1).to(self.dtype)
-        if self.use_fused:
-            m = fused_mlp(x, self.ff1.weight, self.ff1.bias, self.ff2.weight,
-                          self.ff2.bias)
-        else:
-            m = F.gelu(_linear(x, self.ff1, self.dtype))
-            m = _linear(m, self.ff2, self.dtype)
+        m = mlp_forward(x, self.ff1, self.ff2, self.inter, self.dtype,
+                        self.use_fused, self.mesh, train, 0.0, generator)
         m = _dropout(m, DROP, train, generator)
         return _layer_norm(x + m, self.ln2).to(self.dtype)
 
@@ -139,7 +140,8 @@ class ClassificationAudioTransformer(nn.Module):
 
     def __init__(self, num_classes: int, hidden: int = 768, layers: int = 12,
                  heads: int = 12, dtype=torch.bfloat16,
-                 use_fused_mlp: bool = False, use_flash: bool = False):
+                 use_fused_mlp: bool = False, use_flash: bool = False,
+                 fused_mesh=None):
         super().__init__()
         self.hidden, self.dtype = hidden, dtype
         self.feature_extractor = FeatureExtractor(dtype)
@@ -149,7 +151,8 @@ class ClassificationAudioTransformer(nn.Module):
         self.encoder_ln = nn.LayerNorm(hidden, eps=1e-5)
         self.layer = nn.ModuleList(
             EncoderLayer(hidden, heads, dtype=dtype, use_fused=use_fused_mlp,
-                         use_flash=use_flash) for _ in range(layers))
+                         use_flash=use_flash, mesh=fused_mesh)
+            for _ in range(layers))
         self.classifier_fc1 = nn.Linear(hidden, hidden)
         self.classifier_fc2 = nn.Linear(hidden, num_classes)
 
@@ -216,7 +219,8 @@ def init_audio_(model: nn.Module, generator=None) -> nn.Module:
     return model
 
 
-_FIELDS = ("hidden", "layers", "heads", "use_fused_mlp", "use_flash")
+_FIELDS = ("hidden", "layers", "heads", "use_fused_mlp", "use_flash",
+           "fused_mesh")
 
 
 def _builder(name: str):

@@ -133,9 +133,21 @@ def load_vit_checkpoint(params: Mapping[str, torch.Tensor],
         for name in ("norm1", "norm2", "attn.proj", "mlp.fc1", "mlp.fc2"):
             g.put(b + name + ".weight", sd[b + name + ".weight"])
             g.put(b + name + ".bias", sd[b + name + ".bias"])
-        g.put(b + "attn.qkv.weight", sd[b + "attn.qkv.weight"])
-        if b + "attn.qkv.bias" in sd:
-            g.put(b + "attn.qkv.bias", sd[b + "attn.qkv.bias"])
+        if b + "attn.qkv.weight" in g.p:
+            g.put(b + "attn.qkv.weight", sd[b + "attn.qkv.weight"])
+            if b + "attn.qkv.bias" in sd:
+                g.put(b + "attn.qkv.bias", sd[b + "attn.qkv.bias"])
+            continue
+        # a split_qkv net (tensor parallelism): the fused [3C, C] weight's
+        # contiguous thirds [q; k; v] onto the three projections, as the
+        # JAX graft does
+        w3 = sd[b + "attn.qkv.weight"]
+        C = w3.shape[0] // 3
+        for j, nm in enumerate(("q", "k", "v")):
+            g.put(f"{b}attn.{nm}.weight", w3[j * C:(j + 1) * C])
+            if b + "attn.qkv.bias" in sd:
+                g.put(f"{b}attn.{nm}.bias",
+                      sd[b + "attn.qkv.bias"][j * C:(j + 1) * C])
     if "norm.weight" in sd and "norm.weight" in g.p:
         g.put("norm.weight", sd["norm.weight"])
         g.put("norm.bias", sd["norm.bias"])

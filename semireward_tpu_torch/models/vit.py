@@ -27,6 +27,16 @@ checkpointed region and passed in, and the recompute replays the generator
 from where the block's forward started it (its dropout masks), so the
 backward sees the forward's masks, as ``nn.remat`` replays its key in the
 flax model. Eval forwards and forwards without grad run no checkpoint.
+
+With ``fused_mesh`` (a ``parallel/mesh.py`` mesh; the trainer passes it on
+a mesh) the MLP and the attention run their K4 forms (``mlp_forward``,
+``ops.attention.flash_fn``), and where the mesh's layout gave a layer a
+block of the ``model`` axis the layer is Megatron's: column-parallel
+q / k / v (``split_qkv``: three projections for the fused ``qkv``, as the
+JAX model's tensor-parallel variant) and fc1, row-parallel ``proj`` and fc2
+summed over ``model`` with the bias added after; the attention runs on the
+rank's heads. BERT and HuBERT take the same helpers (``qkv_heads``,
+``out_proj``, ``mlp_forward``).
 """
 from __future__ import annotations
 
@@ -41,8 +51,10 @@ from torch.utils.checkpoint import checkpoint
 
 from semireward_tpu_torch import rng
 from semireward_tpu_torch.models.initializers import init_module_
-from semireward_tpu_torch.ops.attention import flash_attention
-from semireward_tpu_torch.ops.fused_mlp import fused_mlp
+from semireward_tpu_torch.ops.attention import flash_fn
+from semireward_tpu_torch.ops.fused_mlp import (fused_mlp, fused_mlp_sharded,
+                                                fused_mlp_tp_sharded)
+from semireward_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _linear(x, layer: nn.Linear, dtype):
@@ -50,10 +62,13 @@ def _linear(x, layer: nn.Linear, dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-def _dropout(x, rate: float, train: bool, generator):
+def _dropout(x, rate: float, train: bool, generator, cols=None):
+    """Dropout of ``x`` (rows its batch); ``cols`` names the dim that holds
+    this rank's tensor-parallel block, if any (``rng.rand``)."""
     if not train or rate == 0.0:
         return x
-    keep = rng.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = rng.rand(x.shape, generator=generator, device=x.device, rows=0,
+                    cols=cols) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -63,7 +78,8 @@ def _drop_path(x, rate: float, train: bool, generator):
         return x
     keep_prob = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    keep = rng.rand(shape, generator=generator, device=x.device) < keep_prob
+    keep = rng.rand(shape, generator=generator, device=x.device,
+                    rows=0) < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 
@@ -111,53 +127,132 @@ def _layer_norm(x, norm: nn.LayerNorm):
                         norm.bias, norm.eps)
 
 
+def mlp_forward(x, fc1: nn.Linear, fc2: nn.Linear, hidden: int, dtype,
+                fused: bool, mesh, train: bool, drop: float, generator):
+    """``fc2(gelu(fc1(x)))`` with dropout after each (none under
+    ``fused``, the kernel's gate): through the fused kernel, or with a mesh
+    its K4 form (data-parallel; Megatron where the mesh has ``model``),
+    else two dense layers, column- / row-parallel where the layout split
+    the hidden over ``model``."""
+    ws = (fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+    if fused:
+        x = x.to(dtype)
+        if mesh is None:
+            return fused_mlp(x, *ws)
+        if "model" in mesh.axis_names:
+            return fused_mlp_tp_sharded(x, *ws, mesh=mesh, hidden=hidden)
+        return fused_mlp_sharded(x, *ws, mesh=mesh)
+    tp = mesh_lib.tp_mesh(mesh)
+    if tp is not None and mesh_lib.is_split(fc1, hidden, 0):
+        h = F.gelu(mesh_lib.col_linear(x, fc1, dtype, tp))
+        h = _dropout(h, drop, train, generator, cols=h.ndim - 1)
+        h = mesh_lib.row_linear(h, fc2, dtype, tp)
+    else:
+        h = F.gelu(_linear(x, fc1, dtype))
+        h = _dropout(h, drop, train, generator)
+        h = _linear(h, fc2, dtype)
+    return _dropout(h, drop, train, generator)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, drop: float = 0.0,
-                 dtype=torch.bfloat16, use_fused: bool = False):
+                 dtype=torch.bfloat16, use_fused: bool = False, mesh=None):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
         self.drop, self.dtype, self.use_fused = drop, dtype, use_fused
+        self.hidden, self.mesh = hidden, mesh
 
     def forward(self, x, train: bool, generator=None):
-        if self.use_fused and not (train and self.drop > 0):
-            return fused_mlp(x.to(self.dtype), self.fc1.weight, self.fc1.bias,
-                             self.fc2.weight, self.fc2.bias)
-        h = F.gelu(_linear(x, self.fc1, self.dtype))
-        h = _dropout(h, self.drop, train, generator)
-        h = _linear(h, self.fc2, self.dtype)
-        return _dropout(h, self.drop, train, generator)
+        return mlp_forward(x, self.fc1, self.fc2, self.hidden, self.dtype,
+                           self.use_fused and not (train and self.drop > 0),
+                           self.mesh, train, self.drop, generator)
+
+
+def head_block(layer: nn.Linear, dim: int, hd: int, mesh) -> bool:
+    """Whether the layout gave ``layer`` (a column-parallel q / k / v of
+    width ``dim``) a block of the heads; raises where the block would cut
+    a head (the model axis must divide the heads, as the JAX package's
+    docstring asks)."""
+    if mesh_lib.tp_mesh(mesh) is None or not mesh_lib.is_split(layer, dim, 0):
+        return False
+    if layer.weight.shape[0] % hd:
+        raise NotImplementedError(
+            f"tensor parallelism over {mesh.tp} ranks cuts a head of "
+            f"{hd} out of {dim}: the model axis must divide the heads")
+    return True
+
+
+def qkv_heads(x, layers, dim: int, heads: int, dtype, mesh):
+    """``q, k, v [B, L, Hl, hd]`` from three projections of width ``dim``,
+    column-parallel where the layout gave them a block of the heads (then
+    ``Hl`` is that block and ``local`` True)."""
+    B, L = x.shape[:2]
+    hd = dim // heads
+    local = head_block(layers[0], dim, hd, mesh)
+    proj = ((lambda l: mesh_lib.col_linear(x, l, dtype, mesh)) if local
+            else (lambda l: _linear(x, l, dtype)))
+    q, k, v = (proj(l) for l in layers)
+    Hl = q.shape[-1] // hd
+    return tuple(t.reshape(B, L, Hl, hd) for t in (q, k, v)) + (local,)
+
+
+def out_proj(out, layer: nn.Linear, dim: int, dtype, mesh, local_in: bool):
+    """The attention's output projection, row-parallel where the layout
+    split its input over ``model`` (``local_in``: the heads are this rank's
+    block already)."""
+    tp = mesh_lib.tp_mesh(mesh)
+    if tp is not None and mesh_lib.is_split(layer, dim, 1):
+        return mesh_lib.row_linear(out, layer, dtype, tp, local_in=local_in)
+    return _linear(out, layer, dtype)
 
 
 class Attention(nn.Module):
+    """``split_qkv`` (the JAX model's tensor-parallel variant): three
+    projections ``q`` / ``k`` / ``v`` in place of the fused ``qkv``, so that
+    the Megatron layout splits each head-aligned; the same function."""
+
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 dtype=torch.bfloat16, use_flash: bool = False):
+                 dtype=torch.bfloat16, use_flash: bool = False,
+                 split_qkv: bool = False, mesh=None):
         super().__init__()
-        self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.num_heads, self.dim, self.split_qkv = num_heads, dim, split_qkv
+        if split_qkv:
+            for name in ("q", "k", "v"):
+                self.add_module(name, nn.Linear(dim, dim, bias=qkv_bias))
+        else:
+            self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.attn_drop, self.proj_drop, self.dtype = attn_drop, proj_drop, dtype
-        self.use_flash = use_flash
+        self.use_flash, self.mesh = use_flash, mesh
 
     def forward(self, x, train: bool, generator=None):
         B, N, C = x.shape
         H = self.num_heads
         hd = C // H
-        qkv = _linear(x, self.qkv, self.dtype)
-        # contiguous thirds of the fused projection, as in the flax model
-        q, k, v = (t.reshape(B, N, H, hd) for t in qkv.split(C, dim=-1))
+        dt = self.dtype
+        if self.split_qkv:
+            q, k, v, local = qkv_heads(x, (self.q, self.k, self.v), C, H, dt,
+                                       self.mesh)
+        else:
+            # contiguous thirds of the fused projection, as in the flax model
+            q, k, v = (t.reshape(B, N, H, hd)
+                       for t in _linear(x, self.qkv, dt).split(C, dim=-1))
+            local = False
+        Hl = q.shape[2]
         if self.use_flash and not (train and self.attn_drop > 0):
-            out = flash_attention(q, k, v).reshape(B, N, C)
+            out = flash_fn(self.mesh)(q, k, v).reshape(B, N, Hl * hd)
         else:
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, N, hd]
             # bf16 products are exact in f32, so the f32 product reproduces
             # the JAX einsum with preferred_element_type=float32
             a = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
-            a = _dropout(F.softmax(a, dim=-1), self.attn_drop, train, generator)
-            out = torch.matmul(a.to(self.dtype), v)
-            out = out.transpose(1, 2).reshape(B, N, C)
-        out = _linear(out, self.proj, self.dtype)
+            a = _dropout(F.softmax(a, dim=-1), self.attn_drop, train, generator,
+                         cols=1 if local else None)
+            out = torch.matmul(a.to(dt), v)
+            out = out.transpose(1, 2).reshape(B, N, Hl * hd)
+        out = out_proj(out, self.proj, C, dt, self.mesh, local)
         return _dropout(out, self.proj_drop, train, generator)
 
 
@@ -167,16 +262,18 @@ class Block(nn.Module):
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  dtype=torch.bfloat16, use_fused_mlp: bool = False,
                  use_flash: bool = False, remat: bool = False,
-                 init_values: Optional[float] = None):
+                 init_values: Optional[float] = None,
+                 split_qkv: bool = False, mesh=None):
         super().__init__()
         # parameters in the flax block's order: norm1, attn, ls1, norm2,
         # mlp, ls2
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, drop, dtype,
-                              use_flash)
+                              use_flash, split_qkv, mesh)
         self.ls1 = nn.Parameter(torch.empty(dim)) if init_values else None
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype, use_fused_mlp)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype, use_fused_mlp,
+                       mesh)
         self.ls2 = nn.Parameter(torch.empty(dim)) if init_values else None
         self.drop_path, self.dtype, self.remat = drop_path, dtype, remat
         self.init_values = init_values
@@ -220,7 +317,8 @@ class VisionTransformer(nn.Module):
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  dtype=torch.bfloat16, use_fused_mlp: bool = False,
                  use_flash: bool = False, remat: bool = False,
-                 init_values: Optional[float] = None):
+                 init_values: Optional[float] = None,
+                 split_qkv: bool = False, fused_mesh=None):
         super().__init__()
         self.num_classes, self.img_size, self.patch_size = (num_classes,
                                                             img_size,
@@ -238,7 +336,7 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate,
                   attn_drop_rate, dpr[i], dtype, use_fused_mlp, use_flash,
-                  remat, init_values)
+                  remat, init_values, split_qkv, fused_mesh)
             for i in range(depth))
         if global_pool == "avg":
             self.fc_norm = nn.LayerNorm(embed_dim, eps=1e-6)

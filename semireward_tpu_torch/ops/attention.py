@@ -27,14 +27,22 @@ The dropout stream is the JAX package's, bit for bit
 thresh`` with ``ctr = (bh * Np + q) * Np + k`` in wrapping uint32 arithmetic
 and ``Np`` = N rounded up to 128. The port pads nothing, so the kernels mask
 a ragged tail themselves and take any N; ``Np`` stays because it is part of
-the stream. The seed is an int32 tensor that the kernels read on the device.
-A counter past ``2**32`` (``B * H * Np**2``) wraps in the kernels as in
-:func:`attention_keep_mask`, so the stream stays the JAX one there too.
+the stream. The seed is JAX's ``seed_arg``: four int32 values ``(seed,
+bh_offset, local_heads, head_stride)`` on the device, which the forward
+kernel reads; its ``bh`` is ``bh_offset + (L // local_heads) * head_stride
++ L % local_heads`` for its own batch*head index ``L`` (an unsharded call
+passes ``(seed, 0, H, H)``: ``bh = L``). A counter past ``2**32`` (``B * H
+* Np**2``) wraps in the kernels as in :func:`attention_keep_mask`, so the
+stream stays the JAX one there too.
 
 A bias that is not key-only is refused (the JAX package sends it to an
-einsum path; no net of the port passes one). ``flash_attention_sharded``,
-and with it the batch*head offsets of a shard in the counter, come with the
-mesh (ROADMAP: K4); :func:`attention_keep_mask` already takes them.
+einsum path; no net of the port passes one).
+
+K4's attention form, :func:`flash_attention_sharded` (``flash_fn(mesh)``),
+takes a rank's own rows and heads (batch over the batch axes, heads over
+``model``; no collective) and gives the kernel the shard's global
+batch*head start, so the dropout stream is the one of a single call on the
+whole batch.
 """
 from __future__ import annotations
 
@@ -54,9 +62,16 @@ _BQ = 128          # the JAX kernel's tile: the counter's Np rounds N up to it
 _U32 = 0xFFFFFFFF
 
 
+# forward launches that K4's form made (each also counts in ``launches``),
+# on a mesh without and with a ``model`` axis
+launches_k4 = {"flash_attention_sharded": 0,
+               "flash_attention_sharded_heads": 0}
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, launches_k4):
+        for k in d:
+            d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -136,11 +151,15 @@ def pack_keep_bits(keep):
 # ---------------------------------------------------------------------------
 
 def _dropout_of(seed, rate, B, H, N, device):
-    """(keep mask [B, H, N, N] or None, f32 1/keep) for ``rate``."""
+    """(keep mask [B, H, N, N] or None, f32 1/keep) for ``rate``; ``seed``
+    is the kernels' four int32 values (:func:`seed_arg`)."""
     if not rate:
         return None, None
-    keep = attention_keep_mask(seed, B * H, N, padded_len(N),
-                               keep_threshold(rate), device=device)
+    seed = _seed4(seed, H)
+    keep = attention_keep_mask(seed[0], B * H, N, padded_len(N),
+                               keep_threshold(rate), bh_offset=seed[1],
+                               local_heads=int(seed[2]),
+                               head_stride=int(seed[3]), device=device)
     inv = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=device)
     return keep.view(B, H, N, N), inv
 
@@ -232,6 +251,14 @@ def _check(name, t, shape, dtype):
                          f"16-byte aligned")
 
 
+def _seed4(seed, H: int):
+    """The kernels' four seed values: ``seed`` itself, or a single seed as
+    an unsharded call's ``(seed, 0, H, H)``."""
+    if seed is None or seed.numel() == 4:
+        return seed
+    return seed_arg(seed, seed.device, H)
+
+
 def _check_args(q, k, v, bias, seed):
     """-> (library, B, N, H, d) after checking what every kernel takes."""
     B, N, H, d = q.shape
@@ -251,7 +278,7 @@ def _check_args(q, k, v, bias, seed):
     if bias is not None:
         _check("bias", bias, (B * H, N), torch.float32)
     if seed is not None:
-        _check("seed", seed, (1,), torch.int32)
+        _check("seed", seed, (4,), torch.int32)
     return lib, B, N, H, d
 
 
@@ -288,6 +315,7 @@ def kernel_fwd(q, k, v, bias=None, seed=None, rate: float = 0.0,
     bits). With dropout and ``keep_bits`` the kernel also writes the keep
     bits it drew (``[B*H, N, Np // 32]`` int32, :func:`pack_keep_bits`'s
     layout) for the backward; else ``bits`` is None."""
+    seed = _seed4(seed, q.shape[2])
     lib, B, N, H, d = _check_args(q, k, v, bias, seed)
     dev = q.device
     out = torch.empty_like(q)
@@ -307,6 +335,7 @@ def kernel_bwd(q, k, v, bias, seed, rate, dout, lse, out, bits):
     """The dq and dk/dv kernels: -> (dq, dk, dv) bf16. ``out`` is the
     forward's output (the dq kernel computes ``delta = rowsum(dout * out)``
     from it); under dropout ``bits`` are the forward's keep bits."""
+    seed = _seed4(seed, q.shape[2])
     lib, B, N, H, d = _check_args(q, k, v, bias, seed)
     _check("dout", dout, (B, N, H, d), torch.bfloat16)
     _check("lse", lse, (B * H, N), torch.float32)
@@ -334,7 +363,8 @@ def kernel_bwd(q, k, v, bias, seed, rate, dout, lse, out, bits):
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, rate, keep_bits):
-        if q.device.type == "cpu":
+        ctx.plain = q.device.type == "cpu"
+        if ctx.plain:
             (out, lse), bits = plain_fwd(q, k, v, bias, seed, rate), None
         else:
             out, lse, bits = kernel_fwd(q, k, v, bias, seed, rate, keep_bits)
@@ -346,7 +376,7 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, bias, seed, out, lse, bits = ctx.saved_tensors
         dout = dout.to(q.dtype).contiguous()
-        if q.device.type == "cpu":
+        if ctx.plain:
             dq, dk, dv = plain_bwd(q, k, v, bias, seed, ctx.rate, dout, lse,
                                    delta_of(dout, out))
         else:
@@ -370,18 +400,38 @@ def _key_bias_of(bias, B, H, N):
     return bias.float().expand(B, H, 1, N).reshape(B * H, N).contiguous()
 
 
-def _seed_tensor(seed, device):
-    if isinstance(seed, torch.Tensor):
-        return seed.to(device=device, dtype=torch.int32).reshape(1)
-    return torch.tensor([int(seed)], dtype=torch.int32, device=device)
+@functools.lru_cache(maxsize=256)
+def _seed_tail(device: torch.device, bh_offset: int, local_heads: int,
+               head_stride: int) -> torch.Tensor:
+    """``[bh_offset, local_heads, head_stride]`` int32 on ``device``, made
+    once (no copy to the card a call)."""
+    return torch.tensor([bh_offset, local_heads, head_stride],
+                        dtype=torch.int32, device=device)
+
+
+def seed_arg(seed, device, H: int, bh_offset: int = 0, local_heads=None,
+             head_stride=None):
+    """JAX's ``seed_arg``: int32 ``[seed, bh_offset, local_heads,
+    head_stride]`` on ``device`` (``local_heads`` and ``head_stride``
+    default to ``H``; ``seed`` an int or a tensor, best on the device)."""
+    hl = H if local_heads is None else int(local_heads)
+    st = hl if head_stride is None else int(head_stride)
+    device = torch.device(device)
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor([int(seed)], dtype=torch.int32)
+    return torch.cat([seed.to(device=device, dtype=torch.int32).reshape(1),
+                      _seed_tail(device, int(bh_offset), hl, st)])
 
 
 def flash_attention(q, k, v, bias=None, dropout_rate: float = 0.0,
-                    dropout_seed=None):
+                    dropout_seed=None, bh_offset=0, local_heads=None,
+                    head_stride=None):
     """``q, k, v [B, N, H, d]`` -> ``[B, N, H, d]``; differentiable in q, k,
     v. ``dropout_seed`` (int or int32 tensor, best on the device) is needed
     when ``dropout_rate > 0``; the same seed and shape give the same mask,
-    so callers draw a fresh seed per step and layer."""
+    so callers draw a fresh seed per step and layer. ``bh_offset`` /
+    ``local_heads`` / ``head_stride`` place a shard's batch*head index in
+    the global counter (:func:`attention_keep_mask`)."""
     B, N, H, d = q.shape
     rate = float(dropout_rate)
     if rate > 0.0 and dropout_seed is None:
@@ -389,9 +439,42 @@ def flash_attention(q, k, v, bias=None, dropout_rate: float = 0.0,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no path for device {q.device}")
     key_bias = None if bias is None else _key_bias_of(bias, B, H, N)
-    seed = _seed_tensor(dropout_seed, q.device) if rate else None
+    seed = (seed_arg(dropout_seed, q.device, H, bh_offset, local_heads,
+                     head_stride) if rate else None)
     # the backward's keep bits, only where a backward can follow
     keep_bits = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                         key_bias, seed, rate, keep_bits)
+
+
+def flash_attention_sharded(q, k, v, bias=None, dropout_rate: float = 0.0,
+                            dropout_seed=None, *, mesh):
+    """K4's attention form (JAX's ``flash_attention_sharded``): ``q, k,
+    v`` are this rank's rows (a block of the batch over the mesh's batch
+    axes) and heads (a block over ``model``), ``bias`` its rows' key bias;
+    the call runs on them alone (attention has no cross-batch or cross-head
+    reduction). The dropout counter takes the shard's global batch*head
+    start, ``bh = (b0 + lb) * H + h0 + lh``: ``bh_offset = b0 * H + h0``,
+    ``local_heads`` the local heads, ``head_stride`` the global ``H``. The
+    kernel runs at every size: past ``2**32`` its counter wraps as
+    :func:`attention_keep_mask`'s does (JAX's sharded form guards that size
+    with its plain path; its unsharded kernel, like the port's, does not)."""
+    B, N, Hl, d = q.shape
+    nm = mesh.tp
+    H = Hl * nm
+    off = mesh.batch_index * B * H + mesh.index(("model",)) * Hl
+    rate = float(dropout_rate)
+    if q.is_cuda:
+        launches_k4["flash_attention_sharded_heads" if "model" in
+                    mesh.axis_names else "flash_attention_sharded"] += 1
+    return flash_attention(q, k, v, bias, rate, dropout_seed, bh_offset=off,
+                           local_heads=Hl, head_stride=H)
+
+
+def flash_fn(mesh=None):
+    """The models' dispatch point: :func:`flash_attention`, or with a mesh
+    the K4 form bound to it."""
+    if mesh is None:
+        return flash_attention
+    return functools.partial(flash_attention_sharded, mesh=mesh)

@@ -32,6 +32,10 @@ exact erf form everywhere; the TPU kernel used an erf approximation only
 because Mosaic had no ``erf`` (max error 1.5e-7).
 
 Weights use ``torch.nn.Linear``'s layout: ``w1 [H, C]``, ``w2 [C, H]``.
+
+K4's MLP forms (``fused_mlp_sharded``, ``fused_mlp_tp_sharded``; the JAX
+package's ``shard_map`` forms) run this function on a rank's own rows or
+hidden slice with the collectives written out (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -54,9 +58,15 @@ _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
 
+# launches of K1 / K3 that the K4 forms made (each also counts in
+# ``launches``): the data-parallel and the Megatron form
+launches_k4 = {"fused_mlp_sharded": 0, "fused_mlp_tp_sharded": 0}
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, launches_k4):
+        for k in d:
+            d[k] = 0
 
 
 def _gelu(u):
@@ -149,8 +159,12 @@ def dense_mlp(x, w1, b1, w2, b2):
     """The two dense layers of the JAX package's ``fused_mlp`` fallback:
     bf16 (activation dtype) products with the biases cast to it, exact
     GELU."""
-    dt = x.dtype
     launches["fused_mlp_dense"] += 1
+    return _dense(x, w1, b1, w2, b2)
+
+
+def _dense(x, w1, b1, w2, b2):
+    dt = x.dtype
     hid = torch.nn.functional.gelu(torch.nn.functional.linear(
         x, w1.to(dt), b1.to(dt)))
     return torch.nn.functional.linear(hid, w2.to(dt), b2.to(dt))
@@ -461,3 +475,66 @@ def fused_mlp(x, w1, b1, w2, b2, block_h=None):
                           b1.float().contiguous(), w2.to(dt).contiguous(),
                           b2.float().contiguous(), kind)
     return out.reshape(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
+# K4: the sharded forms (JAX's fused_mlp_sharded / fused_mlp_tp_sharded)
+# ---------------------------------------------------------------------------
+
+def fused_mlp_sharded(x, w1, b1, w2, b2, *, mesh, block_h=None):
+    """K4's data-parallel form: ``x`` is this rank's rows (a block of the
+    batch over the mesh's batch axes), the weights whole on every rank; K1
+    / K3 (:func:`fused_mlp`) run on the local rows. The weights' gradients
+    are this rank's; the step sums them over the batch ranks with every
+    other gradient (``Layout.sync``), where JAX's form sums them in its
+    backward. On a mesh with a ``model`` axis this is the Megatron form,
+    as in the JAX package."""
+    if "model" in mesh.axis_names:
+        return fused_mlp_tp_sharded(x, w1, b1, w2, b2, mesh=mesh,
+                                    hidden=w1.shape[0])
+    _count_k4("fused_mlp_sharded", x, w1, block_h)
+    return fused_mlp(x, w1, b1, w2, b2, block_h)
+
+
+def _count_k4(form: str, x, w1, block_h=None) -> None:
+    """One launch of ``form`` where its call takes K1 or K3."""
+    if x.is_cuda and route(x.shape[-1], w1.shape[0], x.device,
+                           block_h) != "dense":
+        launches_k4[form] += 1
+
+
+class _AddBias(torch.autograd.Function):
+    """``y + b2`` in ``y``'s dtype, as JAX's form adds it; b2's gradient
+    the f32 row sum of g, as its backward computes it (autograd's would
+    sum in ``y``'s dtype)."""
+
+    @staticmethod
+    def forward(ctx, y, b2):
+        ctx.b2_dtype = b2.dtype
+        return y + b2.to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        db2 = g.float().reshape(-1, g.shape[-1]).sum(0)
+        return g, db2.to(ctx.b2_dtype)
+
+
+def fused_mlp_tp_sharded(x, w1, b1, w2, b2, *, mesh, hidden: int):
+    """K4's Megatron form: ``w1`` holds this rank's rows of the hidden
+    (fc1 column-parallel), ``w2`` the same hidden columns (fc2
+    row-parallel), ``b1`` its block, ``b2`` whole; ``x`` is the same on
+    every model rank. Forward: K1 / K3 (as :func:`route` says for the
+    slice's width: BERT's H 3072 over 4 ranks gives 768) computes the
+    local partial with a zero b2, the partials are summed over ``model``
+    and b2 added after. Backward: dx summed over ``model``, dW1 / db1 /
+    dW2 local to the hidden slice and db2 the row sum of g, each over this
+    rank's rows (the step sums them over the batch ranks). Where the layout
+    left fc1 whole (``hidden`` not a multiple of the model axis), JAX's
+    dense fallback runs instead."""
+    from semireward_tpu_torch.parallel.mesh import sum_fwd, sum_grad
+    mg = mesh.group(("model",))
+    if w1.shape[0] == hidden and mesh.tp > 1:
+        return (dense_mlp if x.is_cuda else _dense)(x, w1, b1, w2, b2)
+    _count_k4("fused_mlp_tp_sharded", x, w1)
+    part = fused_mlp(sum_grad(x, mg), w1, b1, w2, torch.zeros_like(b2))
+    return _AddBias.apply(sum_fwd(part, mg), b2)

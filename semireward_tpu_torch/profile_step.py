@@ -2,7 +2,7 @@
 
     python -m semireward_tpu_torch.profile_step [--config <yaml>]
         [--set key=value ...] [--extra key=value ...] [--steps 20]
-        [--warmup 30] [--out profile.json]
+        [--warmup 30] [--row-shards 1] [--out profile.json]
 
 Builds the port's Trainer on ``--config`` (default: the headline
 config/SemiReward/usb_cv/flexmatch/flexmatch_cifar100_200_0.yaml) as
@@ -11,10 +11,14 @@ start_timing 10 so the measured steps are in stage 2), with ``--set``
 overrides on top and ``--extra`` keys in its ``extra`` dict (``--extra
 sr_reforward=8``: SemiReward's reference-equivalent arm), runs ``--warmup``
 steps, then traces ``--steps`` steps with
-torch.profiler (CPU and CUDA). Prints one JSON object: wall time per step
+torch.profiler (CPU and CUDA). ``--row-shards N`` makes the measured steps
+draw as rank 0 of N batch shards does (``rng.set_shards``: every draw for
+the batch rows at N times the rows, then cut), which shows what that
+costs one rank. Prints one JSON object: wall time per step
 (under the profiler, and for the same steps run once before without it),
-device busy time per step (union of kernel intervals) and the idle share,
-and device time per kernel group (the fused MLP's K1 and K3 and the flash
+the peak device memory of the unprofiled steps, device busy time per step
+(union of kernel intervals) and the idle share,
+and device time per kernel group (the random draws' own) (the fused MLP's K1 and K3 and the flash
 attention kernels by their own names, other GEMMs, convolutions,
 elementwise/reduction, ...) and per top kernel. Takes the audio config
 (config/SemiReward/usb_audio/flexmatch/flexmatch_esc50_250_0.yaml), the
@@ -156,6 +160,9 @@ def _group(name: str) -> str:
         return "fused_mlp_fwd"
     if ours and "::k1_bwd_" in n:
         return "fused_mlp_bwd"
+    # torch's random draws (uniform, normal, randint, dropout's mask)
+    if "distribution_" in n or "fused_dropout" in n:
+        return "random draws"
     # cuDNN's convolutions, some of them CUTLASS kernels by name
     if "bn_" in n or "batch_norm" in n or "batchnorm" in n:
         return "batch_norm (fwd + bwd)"
@@ -199,6 +206,9 @@ def main(argv=None):
                          "(repeatable; sr_reforward is read there)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=30)
+    ap.add_argument("--row-shards", type=int, default=1,
+                    help="draw in the measured steps as rank 0 of this "
+                         "many batch shards does")
     ap.add_argument("--out", default=None,
                     help="also write the JSON result to this file")
     args = ap.parse_args(argv)
@@ -221,24 +231,32 @@ def main(argv=None):
         trainer.train(num_iters=args.warmup)
         torch.cuda.synchronize()
 
+    from semireward_tpu_torch import rng
+
     loader = trainer._make_loader()
     batches = [next(loader) for _ in range(args.steps)]
-    # the same steps once without the profiler, whose per-launch cost
-    # inflates the host's share
-    t0 = time.perf_counter()
-    for raw in batches:
-        trainer._step(trainer.state, trainer.make_batch(raw),
-                      trainer.generator)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    rng.set_shards(rows=(0, args.row_shards))
+    try:
+        # the same steps once without the profiler, whose per-launch cost
+        # inflates the host's share
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for raw in batches:
             trainer._step(trainer.state, trainer.make_batch(raw),
                           trainer.generator)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        plain_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for raw in batches:
+                trainer._step(trainer.state, trainer.make_batch(raw),
+                              trainer.generator)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        rng.set_shards()
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -256,7 +274,8 @@ def main(argv=None):
                           text=True).stdout.strip()
     result = {
         "card": card, "config": args.config, "overrides": overrides,
-        "steps": n,
+        "steps": n, "row_shards": args.row_shards,
+        "peak_device_bytes": peak,
         "wall_ms_per_step": wall * 1e3 / n,
         "unprofiled_wall_ms_per_step": plain_wall * 1e3 / n,
         "device_busy_ms_per_step": busy_us / 1e3 / n,

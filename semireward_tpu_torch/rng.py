@@ -36,21 +36,61 @@ def _draw(fn, *args, generator=None, device=None, **kw):
     return out if device is None else _move(out, device)
 
 
+# (index, count) of this rank's block of the batch rows and of the model
+# axis's columns: a draw made for the rows (or a tensor-parallel block) of
+# a global batch is drawn at the global size and cut, so W ranks draw what
+# one process draws for the whole batch (parallel/mesh.py:activate)
+_SHARDS = {"rows": (0, 1), "cols": (0, 1)}
+
+
+def set_shards(rows=(0, 1), cols=(0, 1)) -> None:
+    _SHARDS["rows"], _SHARDS["cols"] = tuple(rows), tuple(cols)
+
+
+def _global_size(size, rows: Optional[int], cols: Optional[int]):
+    """The global draw's size and the (dim, start, length) cuts back to
+    this rank's block."""
+    if len(size) == 1 and isinstance(size[0], (tuple, list, torch.Size)):
+        size = tuple(size[0])
+    size, cuts = list(size), []
+    for dim, key in ((rows, "rows"), (cols, "cols")):
+        i, n = _SHARDS[key]
+        if dim is not None and n > 1:
+            cuts.append((dim, i * size[dim], size[dim]))
+            size[dim] *= n
+    return tuple(size), cuts
+
+
+def _cut(out: torch.Tensor, cuts) -> torch.Tensor:
+    for dim, start, length in cuts:
+        out = out.narrow(dim, start, length)
+    return out.contiguous() if cuts else out
+
+
 def rand(*size, generator: Optional[torch.Generator] = None, device=None,
+         rows: Optional[int] = None, cols: Optional[int] = None,
          **kw) -> torch.Tensor:
-    return _draw(torch.rand, *size, generator=generator, device=device, **kw)
+    """``torch.rand``; ``rows`` / ``cols`` name the dims that hold this
+    rank's block of the batch rows / of the model axis (see
+    ``set_shards``)."""
+    size, cuts = _global_size(size, rows, cols)
+    return _cut(_draw(torch.rand, size, generator=generator, device=device,
+                      **kw), cuts)
 
 
 def randn(*size, generator: Optional[torch.Generator] = None, device=None,
-          **kw) -> torch.Tensor:
-    return _draw(torch.randn, *size, generator=generator, device=device, **kw)
+          rows: Optional[int] = None, **kw) -> torch.Tensor:
+    size, cuts = _global_size(size, rows, None)
+    return _cut(_draw(torch.randn, size, generator=generator, device=device,
+                      **kw), cuts)
 
 
 def randint(low: int, high: int, size,
             generator: Optional[torch.Generator] = None, device=None,
-            **kw) -> torch.Tensor:
-    return _draw(torch.randint, low, high, size, generator=generator,
-                 device=device, **kw)
+            rows: Optional[int] = None, **kw) -> torch.Tensor:
+    size, cuts = _global_size((size,), rows, None)
+    return _cut(_draw(torch.randint, low, high, size, generator=generator,
+                      device=device, **kw), cuts)
 
 
 def randperm(n: int, generator: Optional[torch.Generator] = None,

@@ -10,6 +10,11 @@ package's ``train.py`` and trains on the first CUDA card
 means the ``.ckpt`` beside it) continues a run from its saved step; a
 checkpoint that does not load gives a warning and a fresh start, as in the
 JAX package.
+
+Several cards: ``torchrun --nproc_per_node N -m semireward_tpu_torch.train
+--c <yaml>`` trains the YAML's ``mesh_shape`` / ``mesh_axes`` over N ranks,
+one card each (``parallel/mesh.py``); rank 0 writes ``log.txt``, the metrics
+and the checkpoints.
 """
 from __future__ import annotations
 
@@ -67,10 +72,12 @@ def main(argv=None):
            else config_lib.from_dict(overrides))
     save_path = os.path.join(cfg.save_dir, cfg.save_name)
     os.makedirs(save_path, exist_ok=True)
-    logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(message)s",
-        handlers=[logging.StreamHandler(),
-                  logging.FileHandler(os.path.join(save_path, "log.txt"))])
+    handlers = [logging.StreamHandler()]
+    if int(os.environ.get("RANK", "0")) == 0:  # torchrun's rank
+        handlers.append(logging.FileHandler(os.path.join(save_path,
+                                                         "log.txt")))
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(message)s", handlers=handlers)
     logger = logging.getLogger(f"semireward_tpu_torch.{cfg.save_name}")
     logger.info(f"algorithm={cfg.algorithm} net={cfg.net} "
                 f"dataset={cfg.dataset} num_labels={cfg.num_labels} "

@@ -54,6 +54,15 @@ import semireward_tpu_torch.core.losses
 import semireward_tpu_torch.data.cv_extra
 import semireward_tpu_torch.data.datasets
 import semireward_tpu_torch.data.loader
+import semireward_tpu_torch.parallel
+import semireward_tpu_torch.parallel.mesh
+import semireward_tpu_torch.data.modality
+import semireward_tpu_torch.ops.attention
+import semireward_tpu_torch.ops.fused_mlp
+import semireward_tpu_torch.models.bert
+import semireward_tpu_torch.models.hubert
+import semireward_tpu_torch.models.batchnorm
+import semireward_tpu_torch.core.step
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',

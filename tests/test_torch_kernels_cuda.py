@@ -1109,3 +1109,185 @@ def test_dnabert_steps_on_the_card_through_k2_and_k3(cuda_device):
     assert F.launches["fused_mlp_blocked_bwd"] == 12
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in fused.parameters())
+
+
+# ---------------------------------------------------------------------------
+# K4: a shard's kernel call against the slice of one whole call
+# ---------------------------------------------------------------------------
+
+def _shard_mesh(nb, nm, rank):
+    """Mesh coordinate ``rank`` of an ``nb`` x ``nm`` data x model layout
+    (data alone where ``nm`` is 1) with no process groups: the K4
+    wrappers' collectives are identities, so a wrapper on the rank's slice
+    gives the rank's part."""
+    from semireward_tpu_torch.parallel.mesh import Mesh
+    if nm == 1:
+        return Mesh((nb,), ("data",), rank=rank, groups=False)
+    return Mesh((nb, nm), ("data", "model"), rank=rank, groups=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,nm", [(4, 1), (2, 2)])
+def test_sharded_flash_gives_the_slices_of_one_call(cuda_device, nb, nm):
+    """K2 at the BERT-base train shape (B 12, N 512, H 12, key bias,
+    dropout 0.1) over ``nb`` batch x ``nm`` head shards: on each shard
+    ``flash_attention_sharded`` (its mesh coordinate set) gives the whole
+    ``flash_attention`` call's out and dq / dk / dv of its rows and heads
+    bit for bit, and the kernel, its seed carrying the shard's global
+    batch*head start (``seed_arg``), the whole call's lse and keep bits
+    (one block a batch*head, no reduction across them)."""
+    dev = cuda_device
+    B, N, H, rate = 12, 512, 12, 0.1
+    q, k, v, do, bias4 = _attn_inputs(dev, B, N, H, 64, pad=200)
+    kb = A._key_bias_of(bias4, B, H, N)
+    seed = torch.tensor([20240601], dtype=torch.int32, device=dev)
+    _, lse, bits = A.kernel_fwd(q, k, v, kb, seed, rate, keep_bits=True)
+    qw, kw, vw = (t.clone().requires_grad_() for t in (q, k, v))
+    out = A.flash_attention(qw, kw, vw, bias4, rate, seed)
+    grads = torch.autograd.grad(out, (qw, kw, vw), do)
+    r, hl = B // nb, H // nm
+    per_bh = lambda t: t.view(B, H, *t.shape[1:])
+    A.reset_launches()
+    for i in range(nb):
+        for j in range(nm):
+            bs, hs = slice(i * r, (i + 1) * r), slice(j * hl, (j + 1) * hl)
+            qs, ks, vs = (t[bs, :, hs].clone().requires_grad_()
+                          for t in (q, k, v))
+            o = A.flash_attention_sharded(qs, ks, vs, bias4[bs], rate, seed,
+                                          mesh=_shard_mesh(nb, nm,
+                                                           i * nm + j))
+            g = torch.autograd.grad(o, (qs, ks, vs), do[bs, :, hs])
+            s4 = A.seed_arg(seed, dev, hl, bh_offset=i * r * H + j * hl,
+                            local_heads=hl, head_stride=H)
+            _, l, b = A.kernel_fwd(qs.detach(), ks.detach(), vs.detach(),
+                                   A._key_bias_of(bias4[bs], r, hl, N), s4,
+                                   rate, keep_bits=True)
+            torch.cuda.synchronize()
+            assert torch.equal(o, out[bs, :, hs]), (i, j)
+            assert torch.equal(l, per_bh(lse)[bs, hs].reshape(r * hl, N))
+            assert torch.equal(b, per_bh(bits)[bs, hs].reshape(r * hl, N, -1))
+            for a, w in zip(g, grads):
+                assert torch.equal(a, w[bs, :, hs]), (i, j)
+    form = ("flash_attention_sharded_heads" if nm > 1
+            else "flash_attention_sharded")
+    assert A.launches_k4[form] == nb * nm
+
+
+@pytest.mark.cuda
+def test_sharded_flash_past_2_32_gives_the_slices_of_one_call(cuda_device):
+    """A global counter past ``2**32`` (B 32, H 16, N 4096: ``B * H *
+    Np**2 = 2**33``): the K4 form runs the kernel, whose counter wraps as
+    :func:`attention_keep_mask`'s does, so each of 2 x 2 batch x head
+    shards gives the whole call's out bit for bit, and the whole call's
+    keep bits of a batch*head past the wrap are the plain stream's."""
+    dev = cuda_device
+    B, N, H, d, rate = 32, 4096, 16, 64, 0.1
+    assert B * H * A.padded_len(N) ** 2 > 2 ** 32
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(B, N, H, d, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    out, _, bits = A.kernel_fwd(q, k, v, None, seed, rate, keep_bits=True)
+    last = B * H - 1   # its counters start at 2**33 - 2**24: wrapped
+    want = A.pack_keep_bits(A.attention_keep_mask(
+        seed, 1, N, A.padded_len(N), A.keep_threshold(rate), bh_offset=last,
+        local_heads=1, head_stride=1))
+    assert torch.equal(bits[last:], want)
+    del bits
+    r, hl = B // 2, H // 2
+    for i in range(2):
+        for j in range(2):
+            bs, hs = slice(i * r, (i + 1) * r), slice(j * hl, (j + 1) * hl)
+            with torch.no_grad():
+                o = A.flash_attention_sharded(
+                    *(t[bs, :, hs] for t in (q, k, v)), None, rate, seed,
+                    mesh=_shard_mesh(2, 2, i * 2 + j))
+            torch.cuda.synchronize()
+            assert torch.equal(o, out[bs, :, hs]), (i, j)
+
+
+@pytest.mark.cuda
+def test_unsharded_flash_bits_are_the_plain_stream(cuda_device):
+    """The unsharded call's keep bits, with its seed as one int32 or as
+    ``seed_arg``'s four ``(seed, 0, H, H)``, are the plain stream's
+    (``pack_keep_bits(attention_keep_mask)``), as before the counter took
+    the shard's offsets; so are those of the public function's
+    forward."""
+    dev = cuda_device
+    B, N, H = 2, 200, 3
+    q, k, v, _, bias4 = _attn_inputs(dev, B, N, H, 64, pad=37)
+    kb = A._key_bias_of(bias4, B, H, N)
+    seed = torch.tensor([424242], dtype=torch.int32, device=dev)
+    want = A.pack_keep_bits(A.attention_keep_mask(
+        seed, B * H, N, A.padded_len(N), A.keep_threshold(0.1)))
+    for s in (seed, A.seed_arg(seed, dev, H)):
+        _, _, bits = A.kernel_fwd(q, k, v, kb, s, 0.1, keep_bits=True)
+        torch.cuda.synchronize()
+        assert torch.equal(bits, want)
+    out = A.flash_attention(q, k, v, bias4, 0.1, seed)
+    p_out, _ = A.plain_fwd(q, k, v, kb, seed, 0.1)
+    _close(out.float().cpu().numpy(), p_out.float().cpu().numpy(), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,h,split", [(6168, 384, 1536, "rows"),
+                                         (6168, 384, 1536, "hidden"),
+                                         (4776, 768, 3072, "rows"),
+                                         (4776, 768, 3072, "hidden")])
+def test_mlp_shards_sum_to_the_whole_call(cuda_device, m, c, h, split):
+    """K4's MLP forms through autograd, each shard its mesh coordinate
+    (no groups): ``fused_mlp_sharded`` on 4 row shards (the outputs and dx
+    of each shard's rows, dW and db summed over the shards as the step's
+    sync sums them) and ``fused_mlp_tp_sharded`` on 4 hidden slices (with
+    a zero b2 the outputs are the partials: they and dx summed, as the
+    form sums them over ``model``, plus b2 once; dW1, db1, dW2 the slices;
+    db2 every slice's column sum; one slice with b2 against the plain
+    partial + b2) against one
+    whole ``fused_mlp`` call: 1e-2 of the largest magnitude for the bf16
+    tensors, 1e-3 for the f32 bias sums (sums in another order)."""
+    dev, n = cuda_device, 4
+    x, w1, b1, w2, b2, gy = _mlp_inputs(dev, m, c, h)
+    leaves = lambda ts: [t.clone().requires_grad_() for t in ts]
+    ins = leaves((x, w1, b1, w2, b2))
+    out = F.fused_mlp(*ins)
+    want = (out,) + torch.autograd.grad(out, ins, gy)
+    F.reset_launches()
+    outs, parts = [], []
+    for i in range(n):
+        if split == "rows":
+            s = slice(i * (m // n), (i + 1) * (m // n))
+            ins, g = leaves((x[s], w1, b1, w2, b2)), gy[s]
+            outs.append(F.fused_mlp_sharded(*ins, mesh=_shard_mesh(n, 1, i)))
+        else:
+            # a zero b2: each output is the partial the form sums over
+            # ``model`` (its b2 goes on after the sum: checked below)
+            s = slice(i * (h // n), (i + 1) * (h // n))
+            ins = leaves((x, w1[s], b1[s], w2[:, s], torch.zeros_like(b2)))
+            g = gy
+            outs.append(F.fused_mlp_tp_sharded(
+                *ins, mesh=_shard_mesh(1, n, i), hidden=h))
+        parts.append(torch.autograd.grad(outs[-1], ins, g))
+    torch.cuda.synchronize()
+    np_ = lambda t: t.detach().float().cpu().numpy()
+    if split == "rows":
+        got = [torch.cat(outs), torch.cat([p[0] for p in parts])] + [
+            sum(p[i].float() for p in parts) for i in (1, 2, 3, 4)]
+        assert F.launches_k4["fused_mlp_sharded"] == n
+    else:
+        got = [sum(o.float() for o in outs) + b2,
+               sum(p[0].float() for p in parts),
+               torch.cat([p[1] for p in parts]),
+               torch.cat([p[2] for p in parts]),
+               torch.cat([p[3] for p in parts], 1), parts[0][4]]
+        assert F.launches_k4["fused_mlp_tp_sharded"] == n
+        # b2 added once after the partial: a slice with the real b2
+        # against the plain version of partial + b2
+        s = slice(0, h // n)
+        with torch.no_grad():
+            y = F.fused_mlp_tp_sharded(x, w1[s], b1[s], w2[:, s], b2,
+                                       mesh=_shard_mesh(1, n, 0), hidden=h)
+        _close(np_(y), np_(F.plain_fwd(x, w1[s], b1[s], w2[:, s].contiguous(),
+                                       torch.zeros_like(b2)) + b2), 1e-2)
+    for name, a, w in zip(("out", "dx", "dw1", "db1", "dw2", "db2"), got,
+                          want):
+        _close(np_(a), np_(w), 1e-3 if name.startswith("db") else 1e-2)
